@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Smoke test of the PyTorch + CUDA port on one GPU: builds the port's CUDA
-kernel from this checkout, checks it against its plain PyTorch version and
-against the JAX package's numbers (a fixture), then renders and scores a
-frame through the port's own entry point.
+kernels from this checkout, checks each against its plain PyTorch version
+and against the JAX package's numbers (fixtures), then renders and scores
+a frame and trains a few steps through the port's own entry points.
 
     python3 chip_smoke.py
 
@@ -23,9 +23,28 @@ happened; any failure raises and the script exits non-zero):
      checkpoint, ``test(config, args)`` with --eval_metrics on one frame, in
      bf16 and fp32; the kernel must have launched twice per 16384-ray tile,
      the outputs must be finite and non-trivial, and the frame is timed with
-     CUDA events after a warm frame.
-The last two lines are the kernel JSON (launch counts from phase 5) and the
-result JSON. Needs one CUDA card; imports neither JAX nor moco_flow_tpu.
+     CUDA events after a warm frame;
+  6. the training step's kernels against their plain versions at full width
+     (NeRF 8x256, NoF 4x128): the NeRF forward (render_pass.cu reading xyz)
+     and backward (nerf_rays.cu), full and sigma-only, and the warp chain
+     forward and backward (nof_chain.cu) with local + global, local only and
+     global only chains, N = 1000 x S = 128 (ragged) and 256 x 256, fp32 and
+     bf16: outputs, dxyz, every d(partial) and dW, under TRAIN_TOL; then
+     each kernel, its plain version and its bound at one step's shapes;
+  7. the training step against JAX's numbers: the two steps of
+     tests/fixtures/torch_port_train_golden.npz (written by
+     scripts/make_torch_port_train_golden.py) replayed on the card with
+     JAX's draws: loss terms, train_psnr and the updated parameters;
+  8. the training slice end to end: ``train(config, args)`` of
+     moco_flow_tpu_torch.train on the in-memory 256x256 scene at c2f.yaml
+     widths with both chains, from a seeded checkpoint at step 6000, 10
+     steps in bf16 and in fp32; each training kernel must have launched
+     twice per step, the losses must be finite and the parameters must
+     move; the step is timed with CUDA events after 3 warm steps, and one
+     bf16 step is profiled (build/chip_smoke_train/train_step_profile.txt).
+The last two lines are the kernel JSON (launch counts from phases 5 and 8)
+and the result JSON. Needs one CUDA card; imports neither JAX nor
+moco_flow_tpu.
 """
 
 from __future__ import annotations
@@ -69,6 +88,15 @@ GOLDEN_TOL = {"float32": TOL["fp32"], "bfloat16": TOL["bf16"]}
 FIXTURE = os.path.join(HERE, "tests", "fixtures", "torch_port_golden.npz")
 REPLACES = "moco_flow_tpu/ops/megakernel.py:1466"  # _pass_call
 SOURCE = "moco_flow_tpu_torch/ops/csrc/render_pass.cu"
+# (name, source, TPU kernel it replaces) of the training step's kernels
+TRAIN_KERNELS = (
+    ("nerf_fwd", SOURCE, "moco_flow_tpu/ops/megakernel.py:389"),
+    ("nerf_bwd", "moco_flow_tpu_torch/ops/csrc/nerf_rays.cu",
+     "moco_flow_tpu/ops/megakernel.py:558"),
+    ("chain_fwd", "moco_flow_tpu_torch/ops/csrc/nof_chain.cu",
+     "moco_flow_tpu/ops/megakernel.py:1154"),
+    ("chain_bwd", "moco_flow_tpu_torch/ops/csrc/nof_chain.cu",
+     "moco_flow_tpu/ops/megakernel.py:1214"))
 
 
 def log(msg: str):
@@ -330,6 +358,442 @@ def phase_slice(card: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The training step's kernels (phases 6-8)
+# ---------------------------------------------------------------------------
+
+def _rel(err: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max |err| / max |ref|, mean |err| / mean |ref|)."""
+    return (err.abs().max().item() / max(ref.abs().max().item(), 1e-30),
+            err.abs().mean().item() / max(ref.abs().mean().item(), 1e-30))
+
+
+def check_train(name: str, got, want, dname: str, plain32=None,
+                grad: bool = False) -> float:
+    """One output of a training kernel against its plain version, under
+    TRAIN_TOL; returns max |got - want|."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - want).abs()
+    if grad:
+        rmax, rmean = _rel(err, want)
+        lim = TRAIN_TOL["fp32_grad"]
+        ok = rmax <= lim[0] and rmean <= lim[1]
+        why = (f"{lim[0]:g} of max|ref| and {lim[1]:g} of mean|ref| (at "
+               f"{rmax:.2e}, {rmean:.2e})")
+    else:
+        atol, rtol = TOL["fp32"]
+        ok = bool((err <= atol + rtol * want.abs()).all())
+        why = f"{atol:g} + {rtol:g}|ref| elementwise"
+    if dname == "bf16" and not ok:
+        gap = (want - plain32.float()).abs()
+        lim_max, lim_mean = gap.max().item(), gap.mean().item()
+        ok = err.max().item() <= lim_max and err.mean().item() <= lim_mean
+        why += (f", and the plain bf16-vs-fp32 gap (max {lim_max:.3e}, "
+                f"mean {lim_mean:.3e})")
+    if not ok:
+        raise AssertionError(f"{name}: max|diff| {err.max().item():.3e} mean "
+                             f"{err.mean().item():.3e} exceeds {why}")
+    return err.max().item(), _rel(err, want)[0]
+
+
+# kernel vs plain version for the training kernels. Forward outputs in fp32:
+# TOL["fp32"] elementwise. Gradients in fp32: both sides sum in fp32 in other
+# orders, and a pre-activation within rounding of zero takes the other side
+# of the ReLU in one of them: that sample's whole cotangent below the layer
+# changes. Over 10^5 samples and 10^3 activations each, tens of such flips
+# happen, each moving one sample's dx or one ray's d(partial) by a sizeable
+# fraction and every dW or db entry by ~1/sqrt(rows) of its scale; and a dW
+# entry sums 10^5 signed terms that cancel to a small part of their absolute
+# sum, so fp32's relative rounding of that sum is large. The bound is on the
+# largest difference (0.1 of the tensor's largest magnitude) and on the mean
+# difference (0.01 of the mean magnitude).
+# bf16, forward and backward: the fp32 bounds, or else the kernel may differ
+# from the plain bf16 version by no more than the plain bf16 version differs
+# from the plain fp32 one on the same inputs (max and mean), the gap of
+# bf16's own rounding.
+TRAIN_TOL = {"fp32_grad": (0.1, 1e-2)}
+NERF_MACS = 589_952        # per sample, full NeRF 8x256 (sigma-only 491,264)
+NERF_SIGMA_MACS = 491_264
+NOF_MACS = 58_752          # per NoF evaluation, 4x128 with the quaternion head
+PEAK = {"bf16": 989e12, "fp32": 67e12}   # dense FLOP/s, H100 SXM data sheet
+HBM = 3.35e12                            # bytes/s
+
+
+def bound_ms(flops: float, nbytes: float, dname: str) -> tuple:
+    """(least time in ms, 'operations' | 'bytes') for the work."""
+    t_ops, t_bytes = flops / PEAK[dname], nbytes / HBM
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _nerf_case(P, ncfg, an_n, n, s, sigma_only, gen, dev):
+    from moco_flow_tpu_torch.ops.folds import _NerfSpec, _nerf_fold
+    o, d, z, _ = _full_width_inputs(n, s, dev, seed=7 * n + s)
+    xyz = (o.T[:, :, None] + d.T[:, :, None] * z[None]).contiguous()
+    emb = torch.randn(n, 5, generator=gen).to(dev)
+    ws, p_e = _nerf_fold(P, ncfg, 10, an_n, None if sigma_only else emb,
+                         sigma_only)
+    spec = _NerfSpec(8, 256, 30, (4,), sigma_only, not sigma_only, True)
+    g = (torch.randn(1 if sigma_only else 4, n, s, generator=gen)
+         / (n * s) ** 0.5).to(dev)
+    return spec, xyz, p_e, ws, g
+
+
+def _chain_case(P, fcfg, an_f, n, s, local, glob, gen, dev):
+    from moco_flow_tpu_torch.ops.folds import _NofSpec, _nof_fold
+    from moco_flow_tpu_torch.ops.nof_chain import _ChainSpec
+    o, d, z, _ = _full_width_inputs(n, s, dev, seed=11 * n + s)
+    xyz = (o.T[:, :, None] + d.T[:, :, None] * z[None]).contiguous()
+    emb = torch.randn(n, 33, generator=gen).to(dev)
+    emb_c = torch.randn(n, 33, generator=gen).to(dev)
+    wsb, pb = _nof_fold(P["bw_NoF"], fcfg, 5, an_f, emb)
+    wsf, pf = _nof_fold(P["fw_NoF"], fcfg, 5, an_f, emb)
+    sets = [pb, pf]
+    if glob:
+        sets += [_nof_fold(P["fw_NoF"], fcfg, 5, an_f, emb_c)[1],
+                 _nof_fold(P["bw_NoF"], fcfg, 5, an_f, emb_c)[1]]
+    parts = [p for st in sets for p in st]
+    spec = _ChainSpec(_NofSpec(4, 128, 15, (2,), True, True), local, glob)
+    n_out = 1 + int(local) + int(glob)
+    gs = [(torch.randn(3, n, s, generator=gen) / (n * s) ** 0.5).to(dev)
+          for _ in range(n_out)]
+    return spec, xyz, parts, wsb, wsf, gs
+
+
+def phase_train_kernels(dev, card: str, sizes=((1000, 128), (256, 256)),
+                        n: int = 1024) -> dict:
+    """Kernels #1/#2 (NeRF forward / backward) and #5/#6 (warp chain) against
+    their plain versions at full width on ``sizes`` (rays, samples), then
+    timed at the step's shapes (``n`` rays)."""
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    from moco_flow_tpu_torch.ops import nof_chain as nc
+    gen = torch.Generator().manual_seed(1)
+    ncfg = NeRFConfig(extra_feat_type="ind", extra_feat_dim=5)
+    fcfg = NoFConfig()
+    P = {"nerf": init_nerf(gen, ncfg, dev), "bw_NoF": init_nof(gen, fcfg, dev),
+         "fw_NoF": init_nof(gen, fcfg, dev)}
+    an_n = anneal_weights(505000, 10, 5000, 1005000).to(dev)
+    an_f = anneal_weights(505000, 5, 5000, 1005000).to(dev)
+    err = {k: 0.0 for k in ("nerf_fwd", "nerf_bwd", "chain_fwd", "chain_bwd")}
+    dts = (("fp32", None), ("bf16", torch.bfloat16))
+    for n_r, s in sizes:
+        for sigma_only in (False, True):
+            spec, xyz, p_e, ws, g = _nerf_case(P["nerf"], ncfg, an_n, n_r,
+                                               s, sigma_only, gen, dev)
+            plain32 = None
+            for dname, dt in dts:
+                tag = (f"nerf {'sigma-only' if sigma_only else 'full'} "
+                       f"N={n_r} S={s} {dname}")
+                ko = nr.nerf_fwd(spec, dt, xyz, p_e, ws)
+                ro = nr._nerf_fwd_ref(spec, dt, xyz, p_e, ws)
+                kb = nr.nerf_bwd(spec, dt, xyz, p_e, ws, g)
+                rb = nr._nerf_bwd_ref(spec, dt, xyz, p_e, ws, g)
+                torch.cuda.synchronize()
+                pb = plain32 or (None, None)
+                e, e_rel = check_train(f"{tag} out", ko, ro, dname, pb[0])
+                err["nerf_fwd"] = max(err["nerf_fwd"], e)
+                names = ["dxyz"] + ([] if sigma_only else ["d(extra partial)"])
+                grads = [(kb[0], rb[0])] + ([] if sigma_only else
+                                             [(kb[1], rb[1])])
+                names += [f"dW[{i}]" for i in range(len(ws))]
+                grads += list(zip(kb[2], rb[2]))
+                refs32 = (None if pb[1] is None else
+                          [pb[1][0]] + ([] if sigma_only else [pb[1][1]])
+                          + list(pb[1][2]))
+                worst, w_rel = 0.0, 0.0
+                for i, (nm, (a, b)) in enumerate(zip(names, grads)):
+                    w = check_train(f"{tag} {nm}", a, b, dname,
+                                    None if refs32 is None else refs32[i],
+                                    grad=True)
+                    worst, w_rel = max(worst, w[0]), max(w_rel, w[1])
+                err["nerf_bwd"] = max(err["nerf_bwd"], worst)
+                log(f"[6 train kernels] {tag}: forward max|d| {e:.3e} "
+                    f"({e_rel:.1e} of max|ref|), backward max|d| {worst:.3e} "
+                    f"(at most {w_rel:.1e} of a tensor's max|ref|) over dxyz"
+                    f"{'' if sigma_only else ', d(partial)'} and "
+                    f"{len(ws)} dW (tolerance: TRAIN_TOL)")
+                if dname == "fp32":
+                    plain32 = (ro, rb)
+    for n_r, s in sizes:
+        for local, glob in ((True, True), (True, False), (False, True)):
+            spec, xyz, parts, wsb, wsf, gs = _chain_case(
+                P, fcfg, an_f, n_r, s, local, glob, gen, dev)
+            plain32 = None
+            for dname, dt in dts:
+                tag = (f"chain local={int(local)} global={int(glob)} "
+                       f"N={n_r} S={s} {dname}")
+                ko = nc.chain_fwd(spec, dt, 2, xyz, parts, wsb, wsf)
+                ro = nc._chain_fwd_ref(spec, dt, 2, xyz, parts, wsb, wsf)
+                kb = nc.chain_bwd(spec, dt, 2, xyz, parts, wsb, wsf, gs)
+                rb = nc._chain_bwd_ref(spec, dt, 2, xyz, parts, wsb, wsf, gs)
+                torch.cuda.synchronize()
+                pb = plain32 or (None, None)
+                fw = [check_train(f"{tag} out{i}", a, b, dname,
+                                  None if pb[0] is None else pb[0][i])
+                      for i, (a, b) in enumerate(zip(ko, ro))]
+                e, e_rel = max(x[0] for x in fw), max(x[1] for x in fw)
+                err["chain_fwd"] = max(err["chain_fwd"], e)
+                pairs = ([("dxyz", kb[0], rb[0])]
+                         + [(f"dpartial[{i}]", a, b)
+                            for i, (a, b) in enumerate(zip(kb[1], rb[1]))]
+                         + [(f"dW[{i}]", a, b)
+                            for i, (a, b) in enumerate(zip(kb[2], rb[2]))])
+                refs32 = (None if pb[1] is None else
+                          [pb[1][0]] + list(pb[1][1]) + list(pb[1][2]))
+                worst, w_rel = 0.0, 0.0
+                for i, (nm, a, b) in enumerate(pairs):
+                    w = check_train(f"{tag} {nm}", a, b, dname,
+                                    None if refs32 is None else refs32[i],
+                                    grad=True)
+                    worst, w_rel = max(worst, w[0]), max(w_rel, w[1])
+                err["chain_bwd"] = max(err["chain_bwd"], worst)
+                log(f"[6 train kernels] {tag}: forward max|d| {e:.3e} "
+                    f"({e_rel:.1e} of max|ref|) over {len(ko)} outputs, "
+                    f"backward max|d| {worst:.3e} (at most {w_rel:.1e} of a "
+                    f"tensor's max|ref|) over "
+                    f"dxyz, {len(kb[1])} d(partial) and {len(kb[2])} dW "
+                    "(tolerance: TRAIN_TOL)")
+                if dname == "fp32":
+                    plain32 = (ro, rb)
+    # times at the step's shapes, bf16 (the slice's compute type; its times
+    # go into the kernels line) and fp32: one step launches each NeRF kernel
+    # on N=1024 x S=128 (coarse) and S=256 (fine), each chain kernel twice on
+    # N=1024 x S=128 (coarse, new samples)
+    nerf = [_nerf_case(P["nerf"], ncfg, an_n, n, s, False, gen, dev)
+            for s in (128, 256)]
+    spec_c, xyz_c, parts, wsb, wsf, gs = _chain_case(P, fcfg, an_f, n, 128,
+                                                     True, True, gen, dev)
+
+    def work(dt):
+        """name -> (kernel calls, plain calls) of one step, compute type dt"""
+        return {
+            "nerf_fwd": [[lambda c=c, f=f: f(c[0], dt, *c[1:4]) for c in nerf]
+                         for f in (nr.nerf_fwd, nr._nerf_fwd_ref)],
+            "nerf_bwd": [[lambda c=c, f=f: f(c[0], dt, *c[1:5]) for c in nerf]
+                         for f in (nr.nerf_bwd, nr._nerf_bwd_ref)],
+            "chain_fwd": [[lambda f=f: f(spec_c, dt, 2, xyz_c, parts, wsb,
+                                         wsf)] * 2
+                          for f in (nc.chain_fwd, nc._chain_fwd_ref)],
+            "chain_bwd": [[lambda f=f: f(spec_c, dt, 2, xyz_c, parts, wsb,
+                                         wsf, gs)] * 2
+                          for f in (nc.chain_bwd, nc._chain_bwd_ref)]}
+
+    samples = n * (128 + 256)
+    n_w = {"nerf": sum(w.numel() for w in nerf[1][3]),
+           "nof": sum(w.numel() for w in wsb) * 2}
+    flops = {"nerf_fwd": 2 * NERF_MACS * samples,
+             "nerf_bwd": 3 * 2 * NERF_MACS * samples,
+             "chain_fwd": 2 * 5 * NOF_MACS * 2 * n * 128,
+             "chain_bwd": 3 * 2 * 5 * NOF_MACS * 2 * n * 128}
+    times = {}
+    for dname, dt in (("bf16", torch.bfloat16), ("fp32", None)):
+        # each input read once, each output written once: positions (12 B),
+        # outputs and cotangents fp32, per-ray partials fp32, weights in
+        # the compute type (and dW fp32 out for the backward)
+        wb = 2 if dt is not None else 4
+        nbytes = {"nerf_fwd": samples * (12 + 16) + 2 * wb * n_w["nerf"]
+                  + 2 * n * 128 * 4,
+                  "nerf_bwd": samples * (12 + 16 + 12)
+                  + 2 * (wb + 4) * n_w["nerf"] + 2 * 2 * n * 128 * 4,
+                  "chain_fwd": 2 * n * 128 * (12 + 36) + 2 * wb * n_w["nof"]
+                  + 2 * 8 * n * 128 * 4,
+                  "chain_bwd": 2 * n * 128 * (12 + 36 + 12)
+                  + 2 * (wb + 4) * n_w["nof"] + 2 * 2 * 8 * n * 128 * 4}
+        for name, (kern, plain) in work(dt).items():
+            k_ms = cuda_ms(lambda: [f() for f in kern], reps=3)
+            p_ms = cuda_ms(lambda: [f() for f in plain], reps=3)
+            b_ms, b_by = bound_ms(flops[name], nbytes[name], dname)
+            if dname == "bf16":
+                times[name] = (k_ms, p_ms, b_ms, b_by)
+            log(f"[6 train kernels] {name} {dname}, one step's two launches: "
+                f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}: {flops[name] / 1e12:.3f} TFLOP, "
+                f"{nbytes[name] / 1e6:.1f} MB) on {card}")
+    torch.cuda.synchronize()
+    return {"err": err, "times": times}
+
+
+TRAIN_FIXTURE = os.path.join(HERE, "tests", "fixtures",
+                             "torch_port_train_golden.npz")
+# the port's two steps on the card against JAX's (fp32, fixture widths:
+# rows are few, so the kernels' other summation order is the only source)
+STEP_TOL = {"metrics_rtol": 1e-5, "params_atol": 1e-6}
+
+
+def phase_train_golden(dev):
+    from scripts.make_torch_port_train_golden import N_STEPS, port_replay
+    with np.load(TRAIN_FIXTURE) as f:
+        arrs = {k: f[k] for k in f.files}
+    metrics, params = port_replay(arrs, dev)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, m in enumerate(metrics):
+        for k, v in m.items():
+            want = float(arrs[f"metrics/{i}/{k}"])
+            rel = abs(v - want) / max(abs(want), 1e-30)
+            worst = max(worst, rel)
+            if rel > STEP_TOL["metrics_rtol"]:
+                raise AssertionError(f"train fixture step {i} {k}: port {v} "
+                                     f"JAX {want} (rel {rel:.2e})")
+    perr = 0.0
+    for k, v in params.items():
+        d = float(np.abs(v - arrs[f"params{N_STEPS}/{k}"]).max())
+        perr = max(perr, d)
+        if d > STEP_TOL["params_atol"]:
+            raise AssertionError(f"train fixture params {k}: max|diff| {d:.3e}")
+    log(f"[7 train step vs JAX fixture] {N_STEPS} steps: loss terms and "
+        f"train_psnr max rel diff {worst:.2e} (tol {STEP_TOL['metrics_rtol']:g}"
+        f"), params after the steps max|diff| {perr:.2e} (tol "
+        f"{STEP_TOL['params_atol']:g})")
+
+
+TRAIN_START, TRAIN_STEPS = 6000, 10
+
+
+def train_config(dtype: str) -> dict:
+    """slice_config() as a stage-3 training run in the 'none' phase: 1024
+    rays x (128 + 128) samples (bench.py's step shape), both chains, the
+    reference's loss weights and Adam."""
+    cfg = slice_config()
+    cfg["save_dir"] = os.path.join(HERE, "build", "chip_smoke_train", dtype)
+    cfg["model"].update({"N_rand": 1024, "compute_dtype": dtype,
+                         "noise_std": 0.0})
+    cfg["loss"].update({"nof_local_weight": 0.2, "nof_global_weight": 0.2,
+                        "img_loss": {"type": "MSE", "weight": 1}})
+    cfg["optimizer"] = {"moco": {"type": "adam", "lr": 1e-4,
+                                 "weight_decay": 0}}
+    cfg["scheduler"] = {"type": "steplr", "decay_step": [1050000],
+                        "decay_gamma": 0.5}
+    cfg["trainer"].update({"num_iters": TRAIN_START + TRAIN_STEPS,
+                           "val_every_n_step": 0, "save_every_n_step": 0,
+                           "log_freq": 5})
+    return cfg
+
+
+def _profile_step(tr, card: str) -> None:
+    """One profiled step: device time by kernel group and the idle share,
+    written to build/chip_smoke_train/train_step_profile.txt."""
+    kernels = {"nerf_bwd": "nerf_bwd_kernel", "chain_bwd": "chain_bwd_kernel",
+               "chain_fwd": "chain_fwd_kernel", "nerf_fwd": "render_pass",
+               "dW sums": "mlp::sum_", "sort": "sort"}   # lower-case keys
+    ranges = {"sample_pdf": "sample_pdf", "optimizer": "Optimizer.step"}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tr.train_step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    split = {k: 0.0 for k in (*kernels, *ranges, "other kernels")}
+    busy = 0.0
+
+    def dev_ms(ev, total=False):
+        pre = "" if total else "self_"
+        return getattr(ev, f"{pre}device_time_total",
+                       getattr(ev, f"{pre}cuda_time_total", 0.0)) / 1e3
+
+    for ev in prof.key_averages():
+        on_card = str(getattr(ev, "device_type", "")).endswith("CUDA")
+        if on_card and ev.key.startswith(tuple(ranges.values())):
+            continue                            # a range's span on the card
+        if on_card:
+            ms = dev_ms(ev)                     # a kernel (or a copy)
+            busy += ms
+            k = next((g for g, pat in kernels.items()
+                      if pat in ev.key.lower()), "other kernels")
+            split[k] += ms
+        else:
+            for g, pat in ranges.items():       # a range of host code
+                if ev.key.startswith(pat):
+                    split[g] += dev_ms(ev, total=True)
+    split["other kernels"] -= sum(split[g] for g in ranges)
+    line = ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+    idle = (f"{1.0 - busy / wall:.3f}" if busy > 0 else
+            "not measured (the profiler saw no device time)")
+    log(f"[8 train slice] profiled bf16 step: wall {wall:.1f} ms, device "
+        f"busy {busy:.1f} ms, idle share {idle}; device ms by group: "
+        f"{line} on {card}")
+    out = os.path.join(HERE, "build", "chip_smoke_train")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "train_step_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=40))
+
+
+def phase_train_slice(card: str) -> dict:
+    """The training slice through its entry point: train(config, args) from
+    a seeded checkpoint at step 6000, 10 steps, bf16 then fp32."""
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    from moco_flow_tpu_torch.ops import nof_chain as nc
+    from moco_flow_tpu_torch.train.__main__ import parse_args as train_args
+    from moco_flow_tpu_torch.train.__main__ import train
+    counters = (nr.nerf_fwd, nr.nerf_bwd, nc.chain_fwd, nc.chain_bwd)
+    scene = make_synthetic_scene(None, n_frames=8, size=256, focal=300.0)
+    counts = {f.__name__: 0 for f in counters}
+    result = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = train_config(dtype)
+        params = init_params(torch.Generator().manual_seed(0),
+                             build_statics(cfg["model"]), with_nof=True,
+                             with_fw_nof=True)
+        for net in ("coarse_NeRF", "fine_NeRF"):
+            params[net]["sigma"]["b"] += 1.0
+        seed = os.path.join(cfg["save_dir"], "seeded")
+        save_checkpoint(seed, {"params": params}, extra={
+            "clock": {"epoch": 1, "minibatch": 0, "step": TRAIN_START}})
+        args = train_args(["-c", "(dict)", "-r", seed + ".npz", "-n", "smoke",
+                           "--device", "cuda"])
+        for f in counters:
+            f.launches = 0
+        tr = train(cfg, args, scene=scene)
+        torch.cuda.synchronize()
+        for f in counters:
+            if f.launches != 2 * TRAIN_STEPS:
+                raise AssertionError(
+                    f"{f.__name__} launched {f.launches} times in "
+                    f"{TRAIN_STEPS} steps, expected {2 * TRAIN_STEPS}")
+            counts[f.__name__] += f.launches
+        losses = {k: float(v) for k, v in tr.losses.items()}
+        if tr.clock.step != TRAIN_START + TRAIN_STEPS or not all(
+                np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"train {dtype}: step {tr.clock.step}, "
+                                 f"losses {losses}")
+        moved = max((tr.params[net]["trunk"][0]["w"].detach().cpu()
+                     - params[net]["trunk"][0]["w"].cpu()).abs().max().item()
+                    for net in ("coarse_NeRF", "fine_NeRF"))
+        moved_nof = (tr.params["bw_NoF"]["layers"][0]["w"].detach().cpu()
+                     - params["bw_NoF"]["layers"][0]["w"].cpu()).abs().max()
+        if not 0 < moved < 1 or not 0 < moved_nof.item() < 1:
+            raise AssertionError(f"train {dtype}: params moved {moved}, "
+                                 f"{moved_nof.item()}")
+        for _ in range(3):                                   # warm steps
+            tr.train_step()
+        steps = 5
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(steps):
+            tr.train_step()
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1) / steps
+        result[dtype] = ms
+        log(f"[8 train slice] {dtype}: {TRAIN_STEPS} steps from step "
+            f"{TRAIN_START}, last losses {json.dumps(losses)}; params moved "
+            f"(NeRF {moved:.2e}, bw NoF {moved_nof.item():.2e}); launches "
+            f"nerf fwd/bwd, chain fwd/bwd = {2 * TRAIN_STEPS} each; step "
+            f"{ms:.1f} ms = {1024 / ms * 1e3:.0f} rays/s (1024 rays x "
+            f"(128 + 128) samples) on {card}")
+        if dtype == "bfloat16":
+            _profile_step(tr, card)
+        torch.cuda.synchronize()
+    result["launches"] = counts
+    return result
+
+
 def main():
     card = phase_card()
     dev = torch.device("cuda")
@@ -338,15 +802,38 @@ def main():
     k = phase_kernel_vs_plain(dev)
     phase_golden(dev)
     launches = phase_slice(card)
+    torch.cuda.synchronize()
+    tk = phase_train_kernels(dev, card)
+    torch.cuda.synchronize()
+    phase_train_golden(dev)
+    torch.cuda.synchronize()
+    tsl = phase_train_slice(card)
+    torch.cuda.synchronize()
     fine = k["times"]["fine S=256 N=4096 nof bf16"]
-    print(json.dumps({"kernels": [{
+    n_fine = 4096 * 256
+    rp_work = (2 * (NERF_MACS + NOF_MACS) * n_fine,
+               n_fine * (4 + 16) + 4096 * 6 * 4)
+    rp_bound, rp_by = bound_ms(*rp_work, "bf16")
+    log(f"[3 kernel vs plain] render_pass bound at fine S=256 N=4096 nof: "
+        f"bf16 {rp_bound:.4f} ms, fp32 {bound_ms(*rp_work, 'fp32')[0]:.4f} ms "
+        f"({rp_by}: {rp_work[0] / 1e12:.3f} TFLOP)")
+    kernels = [{
         "name": "render_pass", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": launches,
-        "max_abs_err": k["max_abs_err"], "ms": fine[0],
-        "plain_ms": fine[1]}]}))
+        "max_abs_err": k["max_abs_err"], "ms": fine[0], "plain_ms": fine[1],
+        "bound_ms": rp_bound, "bound_by": rp_by, "library_ms": None}]
+    for name, src, rep in TRAIN_KERNELS:
+        t = tk["times"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": tsl["launches"][name],
+            "max_abs_err": tk["err"][name], "ms": t[0], "plain_ms": t[1],
+            "bound_ms": t[2], "bound_by": t[3], "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
+    # count: the one card this run used
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
 
 
 if __name__ == "__main__":

@@ -1,25 +1,47 @@
-"""Validation dataset: per-frame cameras, rays and target images.
+"""Datasets: per-frame cameras, rays and target images.
 
-Port of the val-mode half of ``moco_flow_tpu/data/dataset.py``: JSON meta
-with interval subsampling, per-frame AABBs from SMPL forward kinematics
-rescaled by the config factors, the camera recentered by ``-transl`` (person
-at the origin), normalized frame indices, full-frame rays and composited
-targets. Training-ray sampling, the convex-hull valid masks, spherical poses
-and correspondence tables come with the training slice.
+Port of ``moco_flow_tpu/data/dataset.py``: JSON meta with interval
+subsampling, per-frame AABBs from SMPL forward kinematics rescaled by the
+config factors, the camera recentered by ``-transl`` (person at the origin),
+normalized frame indices, full-frame rays and composited targets (val mode),
+and for training the per-frame ``FrameTable`` with its padded valid-pixel
+table (the filled convex hull of the projected AABB) and
+``sample_train_rays``, which picks a step's rays with the pixel slots and
+background of a ``Draws`` record. The correspondence table (NoF supervision)
+and the spherical poses wait for later slices.
 
-Tensors live on the CPU; the trainer moves each frame's rays to its device.
+Tensors live on the CPU; the trainer moves the table and the images to its
+device once, and each val frame's rays as it renders them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os.path as osp
 
 import numpy as np
 import torch
 
-from ..geometry.camera import Camera, aabb_corners, rescale_aabb
+from ..geometry.camera import (Camera, aabb_corners, near_far_from_aabb,
+                               rescale_aabb)
 from ..geometry.smpl import SMPLData, load_smpl_data, smpl_forward
+from .draws import Draws
+
+
+@dataclasses.dataclass
+class FrameTable:
+    """Per-frame camera and sampling state."""
+    c2w: torch.Tensor          # (F, 3, 4) float32
+    near: torch.Tensor         # (F,)
+    far: torch.Tensor          # (F,)
+    norm_idx: torch.Tensor     # (F,) frame index normalized to [-1, 1)
+    valid_idx: torch.Tensor    # (F, MAXV) int64 valid-pixel ids, padded by wrapping
+    valid_count: torch.Tensor  # (F,) int64
+
+    def to(self, device) -> "FrameTable":
+        return FrameTable(**{f.name: getattr(self, f.name).to(device)
+                             for f in dataclasses.fields(self)})
 
 
 def _load_meta(root_dir: str, mode: str, interval: int) -> dict:
@@ -38,8 +60,46 @@ def _intrinsics(meta: dict, size) -> np.ndarray:
     return np.array([[f * sy, 0, cx * sy], [0, f * sx, cy * sx], [0, 0, 1]])
 
 
+def sample_train_rays(table: FrameTable, directions: torch.Tensor,
+                      images: torch.Tensor, bkgd_img: torch.Tensor,
+                      draws: Draws, rand_bkgd: bool, has_alpha: bool):
+    """A step's rays of frame ``draws.frame`` at the valid-pixel slots
+    ``draws.pixels``.
+
+    Args:
+      directions: (H*W, 3) camera-space direction grid.
+      images: (F, H*W, C) uint8, C in {3, 4}.
+      bkgd_img: (H*W, 3) background (unused with ``rand_bkgd``).
+
+    Returns (rays (N, 9), rgbs (N, 3), background (N, 3)), on the device of
+    ``table``.
+    """
+    frame = draws.frame
+    n_rand = draws.pixels.shape[0]
+    pix = table.valid_idx[frame, draws.pixels]
+    c2w = table.c2w[frame]
+    dirs = directions[pix] @ c2w[:, :3].T
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    origin = c2w[:, 3].expand(dirs.shape)
+    ones = torch.ones((n_rand, 1), dtype=torch.float32, device=dirs.device)
+    rays = torch.cat([origin, dirs, table.near[frame] * ones,
+                      table.far[frame] * ones, table.norm_idx[frame] * ones],
+                     dim=1)
+    raw = images[frame, pix].float() / 255.0
+    if rand_bkgd:
+        bg = draws.background.expand(n_rand, 3)
+    else:
+        bg = bkgd_img[pix]
+    if has_alpha:
+        alpha = raw[:, 3:4]
+        rgbs = raw[:, :3] * alpha + bg * (1.0 - alpha)
+    else:
+        rgbs = raw[:, :3]
+    return rays, rgbs, bg
+
+
 class MoCoFlowDataset:
-    """One video sequence in val mode.
+    """One video sequence, in val or train mode.
 
     ``meta`` / ``images`` ((F, H, W, C) uint8) take the place of the JSON
     file and the PNGs when the scene is held in memory; otherwise both are
@@ -49,10 +109,8 @@ class MoCoFlowDataset:
                  interval: int = 1, mode: str = "val",
                  smpl_data: SMPLData | None = None, meta: dict | None = None,
                  images: np.ndarray | None = None):
-        if mode != "val":
-            raise NotImplementedError(
-                f"dataset mode {mode!r}: only 'val' is ported (training-ray "
-                "sampling is ROADMAP 'Modules to port' item 3)")
+        if mode not in ("val", "train"):
+            raise NotImplementedError(f"dataset mode {mode!r} is not ported")
         self.root_dir = root_dir
         self.imgs_dir = imgs_dir
         self.size = tuple(size)
@@ -80,6 +138,46 @@ class MoCoFlowDataset:
         betas = torch.as_tensor(np.stack(
             [np.asarray(fr["betas"], np.float32) for fr in frames]))
         self._verts = smpl_forward(self.smpl, poses, betas).numpy()
+        if self.mode == "train":
+            self._build_table()
+
+    def _build_table(self):
+        """The FrameTable: recentered cameras, near/far from the AABB
+        corners, and each frame's valid pixels (padded to the longest list
+        by repeating its own)."""
+        n = self.num_frames
+        c2ws, nears, fars, masks = [], [], [], []
+        for i in range(n):
+            corners = self.frame_aabb_corners(i)
+            c2w4 = self.frame_c2w4(i)
+            near, far = near_far_from_aabb(corners, c2w4[:3, 3])
+            c2ws.append(c2w4[:3, :4])
+            nears.append(near)
+            fars.append(far)
+            masks.append(self.camera.valid_rays_mask(corners, c2w4))
+        masks = np.stack(masks)
+        counts = masks.sum(axis=1)
+        maxv = int(counts.max())
+        valid_idx = np.zeros((n, maxv), np.int64)
+        for i in range(n):
+            idx = np.flatnonzero(masks[i])
+            valid_idx[i, :len(idx)] = idx
+            if len(idx) and len(idx) < maxv:
+                valid_idx[i, len(idx):] = idx[np.arange(maxv - len(idx))
+                                              % len(idx)]
+        self.masks = masks
+        self.table = FrameTable(
+            c2w=torch.as_tensor(np.stack(c2ws), dtype=torch.float32),
+            near=torch.as_tensor(np.asarray(nears), dtype=torch.float32),
+            far=torch.as_tensor(np.asarray(fars), dtype=torch.float32),
+            norm_idx=torch.as_tensor(np.arange(n) * 2.0 / n - 1.0,
+                                     dtype=torch.float32),
+            valid_idx=torch.as_tensor(valid_idx),
+            valid_count=torch.as_tensor(counts.astype(np.int64)))
+
+    @property
+    def directions_flat(self) -> torch.Tensor:
+        return self.camera.directions.reshape(-1, 3)
 
     def _load_images(self, images: np.ndarray | None):
         h, w = self.size

@@ -1,6 +1,7 @@
 """Build the CUDA sources under ``ops/csrc`` into a plain-C shared library.
 
-``nvcc`` compiles every ``*.cu`` of ``csrc/`` for ``sm_90a`` (H100) into
+``nvcc`` compiles every ``*.cu`` of ``csrc/`` for ``sm_90a`` (H100), one
+process per source, all started together, and links them into
 ``build/torch_kernels/<hash>/libmoco_kernels.so`` at the repository root,
 where ``<hash>`` covers the sources and the flags, so an edited source
 rebuilds and an unchanged one is reused. The library exposes a C interface
@@ -23,7 +24,7 @@ _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # full-precision sinf/cosf: no --use_fast_math (the top NeRF band, 2^9,
 # pushes sin/cos arguments to ~1e3 rad, where the fast intrinsics are wrong)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -55,13 +56,31 @@ def build() -> tuple[Path, str]:
         return out, "(cached build)"
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(_CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
+    # one nvcc per source, all started together, then one link
+    srcs = sorted(_CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{p.stem}.{os.getpid()}.o") for p in srcs]
+    procs = [(subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                                str(p)], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True), p)
+             for p, o in zip(srcs, objs)]
+    log = ""
+    failed = []
+    for proc, p in procs:
+        out_txt = proc.communicate()[0]
+        log += f"--- {p.name}\n{out_txt}"
+        if proc.returncode != 0:
+            failed.append(p.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+    link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+            *map(str, objs)]
+    proc = subprocess.run(link, capture_output=True, text=True)
+    log += proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+        raise RuntimeError(f"nvcc link failed (rc={proc.returncode}):\n"
+                           f"{' '.join(link)}\n{log}")
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)
     return out, log
 
@@ -76,4 +95,16 @@ def load_library() -> ctypes.CDLL:
     lib.render_pass_launch.restype = ctypes.c_int
     lib.render_pass_error.argtypes = [ctypes.c_int]
     lib.render_pass_error.restype = ctypes.c_char_p
+    args = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    for name in ("nerf_bwd_launch", "chain_fwd_launch", "chain_bwd_launch"):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = ctypes.c_int
+    lib.nerf_bwd_tile_rows.argtypes = args[:2]
+    lib.nerf_bwd_tile_rows.restype = ctypes.c_int
+    lib.chain_tile_rows.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int]
+    lib.chain_tile_rows.restype = ctypes.c_int
+    for name in ("nerf_bwd_error", "chain_error"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_char_p
     return lib

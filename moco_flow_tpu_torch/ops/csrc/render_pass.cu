@@ -8,6 +8,11 @@
 // order of _nerf_tile (trunk, sigma head, final, extra + per-ray partial,
 // sigmoid rgb head), and writes sigma (N, S) and rgb (3, N, S), fp32.
 //
+// Without the NoF and with the positions read from an xyz (3, N*S) input,
+// the same kernels are the NeRF forward of the training step: they replace
+// moco_flow_tpu/ops/megakernel.py::_nerf_fwd_call (via nerf_fused_rays_t),
+// whose tile is this NeRF half (see ops/nerf_rays.py).
+//
 // What bounds it on this card: compute. At full width (NeRF 8x256, NoF
 // 4x128) a fine sample costs about 0.65M multiply-adds (0.59M in the NeRF,
 // 0.06M in the NoF), about 1.3 MFLOP, against 4 bytes of depth read and
@@ -76,6 +81,7 @@ struct Args {
   int sigma_only, has_nof, use_quat;
   const float* od;        // (N, 6) origin | direction
   const float* z;         // (N, S)
+  const float* xyz;       // (3, N*S) positions, or null: xyz = o + d*z
   float* sigma;           // (N, S)
   float* rgb;             // (3, N, S) or null
   Net nof, nerf;
@@ -84,6 +90,7 @@ struct Args {
 __device__ __forceinline__ int pad16(int x) { return (x + 15) & ~15; }
 
 __device__ __forceinline__ float sample_x(const Args& a, int64_t g, int j) {
+  if (a.xyz) return a.xyz[j * a.n_rays * a.s + g];
   const float* od = a.od + (g / a.s) * 6;
   return __fadd_rn(od[j], __fmul_rn(od[3 + j], a.z[g]));
 }
@@ -672,8 +679,11 @@ int launch(Kernel kernel, size_t smem, unsigned blocks, unsigned threads,
 
 }  // namespace
 
-// args (170 int64): dtype (0 float, 1 bf16), n_rays, S, sigma_only, has_nof,
-// use_quat, od, z, sigma, rgb; then the NoF and the NeRF net blocks.
+// args (171 int64): dtype (0 float, 1 bf16), n_rays, S, sigma_only, has_nof,
+// use_quat, od, z, sigma, rgb; then the NoF and the NeRF net blocks; then
+// xyz (3, N*S) or 0. With xyz the pass reads the sample positions from it
+// instead of o + d*z (od and z unused): the NeRF forward of the training
+// step (ops/nerf_rays.py, moco_flow_tpu/ops/megakernel.py::_nerf_fwd_call).
 // NoF head slots: w_head (W, 9|3), b_head, head_out.
 // NeRF head slots: w_sigma (W, 1), b_sigma, w_final, b_final, w_extra
 // (W, W/2), b_extra, p_extra (N, W/2) or 0, w_rgb (W/2, 3), b_rgb.
@@ -682,7 +692,7 @@ int launch(Kernel kernel, size_t smem, unsigned blocks, unsigned threads,
 // unpadded. Returns 0, a cudaError_t, or -1 bad arg count, -2 bad shape,
 // -3 too much shared memory.
 extern "C" int render_pass_launch(const int64_t* p, int n, void* stream) {
-  if (n != 10 + 2 * (4 + 4 * kMaxLayers + 12)) return -1;
+  if (n != 11 + 2 * (4 + 4 * kMaxLayers + 12)) return -1;
   Args a;
   const int dtype = static_cast<int>(p[0]);
   a.n_rays = p[1];
@@ -696,6 +706,7 @@ extern "C" int render_pass_launch(const int64_t* p, int n, void* stream) {
   a.rgb = reinterpret_cast<float*>(p[9]);
   decode_net(p + 10, &a.nof);
   decode_net(p + 10 + 4 + 4 * kMaxLayers + 12, &a.nerf);
+  a.xyz = static_cast<const float*>(P(p[10 + 2 * (4 + 4 * kMaxLayers + 12)]));
   if (a.n_rays <= 0 || a.s <= 0) return 0;
   const Net* nets[2] = {&a.nof, &a.nerf};
   int kp_max = 3 + 2 * a.nerf.kc, w_max = a.nerf.width;

@@ -2,12 +2,9 @@
 dense sigma and rgb, as one kernel.
 
 Port of ``moco_flow_tpu/ops/megakernel.py``'s test-time pass
-(``render_pass_fused`` / ``_pass_call``) and of the operand folds it uses:
+(``render_pass_fused`` / ``_pass_call``), on the operand folds of
+``folds.py``:
 
-- ``_nerf_fold`` / ``_nof_fold`` fold the PE annealing weights into the
-  first-layer and skip-layer weight rows (packed as one ``(3+2kc, W)``
-  matrix against the ``[x; sin; cos]`` embedding) and apply the per-ray
-  features (frame-index embeddings) at ray rank as fp32 "partials".
 - ``render_pass_ref`` is the plain PyTorch version, written from
   ``_nof_tile`` / ``_nerf_tile``: it rounds where they round.
 - ``render_pass`` is the wrapper: on a CUDA tensor it launches the kernel of
@@ -26,131 +23,8 @@ import torch
 from ..nn.embedding import freq_bands
 from ..nn.mlp import matmul
 from ..nn.nerf import NeRFConfig
-from ..nn.nof import NoFConfig
-
-_MAX_LAYERS = 16   # csrc/render_pass.cu kMaxLayers
-_MAX_WIDTH = 256   # csrc/render_pass.cu kMaxWidth
-
-
-@dataclasses.dataclass(frozen=True)
-class _NerfSpec:
-    depth: int
-    width: int
-    kc: int                # 3 * n_freqs (sin block width)
-    skips: tuple
-    sigma_only: bool
-    has_extra: bool
-    logscale: bool
-
-
-@dataclasses.dataclass(frozen=True)
-class _NofSpec:
-    depth: int
-    width: int
-    kc: int
-    skips: tuple
-    use_quat: bool
-    logscale: bool
-
-
-def _freq_matrix(n_freqs: int, logscale: bool, c: int = 3) -> np.ndarray:
-    """(c, n_freqs*c) matrix B with x @ B = [f_0*x, f_1*x, ...] laid out
-    frequency-major, like ``posenc``'s block layout."""
-    bands = freq_bands(n_freqs, logscale)
-    b = np.zeros((c, n_freqs * c), dtype=np.float32)
-    for k in range(n_freqs):
-        for j in range(c):
-            b[j, k * c + j] = bands[k]
-    return b
-
-
-def _anneal_rows(anneal: torch.Tensor | None, kc: int):
-    if anneal is None or not kc:
-        return None
-    return anneal.float().repeat_interleave(3)[:kc, None]
-
-
-def _pe_rows(w: torch.Tensor, kc: int, w_rep):
-    """A PE-consuming weight as ONE packed (3+2kc, W) matrix of
-    [x(3); sin(kc); cos(kc)] rows, annealing folded into the sin/cos rows.
-    ``kc == 0`` (raw xyz, the reference's init configs) runs as a 1-frequency
-    pass whose sin/cos rows are zeros, as in the JAX fold."""
-    if kc == 0:
-        z = torch.zeros((6, w.shape[-1]), dtype=w.dtype, device=w.device)
-        return torch.cat([w[:3], z], dim=0)
-    wx, wsin, wcos = w[:3], w[3:3 + kc], w[3 + kc:3 + 2 * kc]
-    if w_rep is not None:
-        wsin = wsin * w_rep
-        wcos = wcos * w_rep
-    return torch.cat([wx, wsin, wcos], dim=0)
-
-
-def _nerf_fold(params: dict, cfg: NeRFConfig, n_freqs: int,
-               anneal: torch.Tensor | None, extra_emb: torch.Tensor | None,
-               sigma_only: bool):
-    """NeRF weights as the pass's flat operand list, plus the per-ray extra
-    partial ``extra_emb @ W_extra[W:]`` (N, W/2) in fp32 (or None)."""
-    kc = 3 * n_freqs
-    w_rep = _anneal_rows(anneal, kc)
-    in_ch = cfg.in_channels_xyz
-    ws = []
-    for i, layer in enumerate(params["trunk"]):
-        w, b = layer["w"], layer["b"]
-        if i == 0:
-            ws += [_pe_rows(w, kc, w_rep), b[None]]
-        elif i in cfg.skips:
-            ws += [_pe_rows(w[:in_ch], kc, w_rep), w[in_ch:], b[None]]
-        else:
-            ws += [w, b[None]]
-    ws += [params["sigma"]["w"].T, params["sigma"]["b"][None]]  # (1,W), (1,1)
-    p_extra = None
-    if not sigma_only:
-        ws += [params["final"]["w"], params["final"]["b"][None]]
-        we, be = params["extra"]["w"], params["extra"]["b"]
-        if extra_emb is not None:
-            ws += [we[:cfg.width], be[None]]
-            p_extra = matmul(extra_emb, we[cfg.width:])          # (N, W/2)
-        else:
-            ws += [we, be[None]]
-        ws += [params["rgb"]["w"], params["rgb"]["b"][None]]
-    return ws, p_extra
-
-
-def _nof_fold(params: dict, cfg: NoFConfig, n_freqs: int,
-              anneal: torch.Tensor | None, ind_emb: torch.Tensor):
-    """NoF weights as the pass's flat operand list; the frame-index columns
-    of layer 0 and of the skip layer become per-ray fp32 partials (N, W)."""
-    kc = 3 * n_freqs
-    w_rep = _anneal_rows(anneal, kc)
-    cx, ce = cfg.in_channels_xyz, cfg.extra_feat_dim
-    ws, partials = [], []
-    for i, layer in enumerate(params["layers"]):
-        w, b = layer["w"], layer["b"]
-        if i == 0:
-            ws += [_pe_rows(w[:cx], kc, w_rep), b[None]]
-            partials.append(matmul(ind_emb, w[cx:cx + ce]))
-        elif i in cfg.skips:
-            ws += [_pe_rows(w[:cx], kc, w_rep), w[cx + ce:], b[None]]
-            partials.append(matmul(ind_emb, w[cx:cx + ce]))
-        else:
-            ws += [w, b[None]]
-    ws += [params["head"]["w"], params["head"]["b"][None]]
-    return ws, partials
-
-
-def _trunk_layers(ws, depth: int, skips: tuple):
-    """Flat operands -> [(w_pe | None, w_h | None, b)] per layer, and the
-    remaining (head) operands."""
-    it = iter(ws)
-    layers = []
-    for i in range(depth):
-        if i == 0:
-            layers.append((next(it), None, next(it)))
-        elif i in skips:
-            layers.append((next(it), next(it), next(it)))
-        else:
-            layers.append((None, next(it), next(it)))
-    return layers, list(it)
+from .folds import (_MAX_LAYERS, _MAX_WIDTH, _NerfSpec, _NofSpec, _cross,
+                    _nerf_fold, _nof_fold, _pe_embed, _trunk_layers)
 
 
 @dataclasses.dataclass
@@ -195,23 +69,6 @@ def _fold(params, nerf_key, nerf_cfg, nof_cfg, nerf_freqs, nof_freqs,
 # ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
-
-def _pe_embed(x: torch.Tensor, kc: int, logscale: bool, dt) -> torch.Tensor:
-    """Packed embedding (T, 3+2kc) = [x, sin, cos], each cast to ``dt``.
-    ``x @ B`` is written out as an exact sum (B has one band per column),
-    so no matmul precision setting can touch the phases."""
-    b_mat = torch.from_numpy(_freq_matrix(kc // 3, logscale)).to(x.device)
-    scaled = (x[:, :, None] * b_mat[None]).sum(dim=1)
-    return torch.cat([x.to(dt), torch.sin(scaled).to(dt),
-                      torch.cos(scaled).to(dt)], dim=-1)
-
-
-def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    a0, a1, a2 = a[:, 0:1], a[:, 1:2], a[:, 2:3]
-    b0, b1, b2 = b[:, 0:1], b[:, 1:2], b[:, 2:3]
-    return torch.cat([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
-                      a0 * b1 - a1 * b0], dim=-1)
-
 
 def _quat_warp(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``_nof_quat_fwd_t`` row-major: out (T, 9) = [v, s, t], x (T, 3)."""
@@ -306,9 +163,24 @@ def _net_block(depth, width, kc, bands, layers, partials, heads, ptr):
 
 
 def _launch(op: _Pass, rays_o, rays_d, z_vals):
-    from ._build import load_library
-    dev = z_vals.device
     n, s = z_vals.shape
+    dev = z_vals.device
+    od = torch.cat([rays_o, rays_d], dim=-1).float().contiguous()
+    z = z_vals.float().contiguous()
+    sigma = torch.empty((n, s), dtype=torch.float32, device=dev)
+    rgb = (None if op.nerf.sigma_only
+           else torch.empty((3, n, s), dtype=torch.float32, device=dev))
+    _launch_pass(op, n, s, dev, od, z, None, sigma, rgb)
+    render_pass.launches += 1
+    return sigma, rgb
+
+
+def _launch_pass(op: _Pass, n: int, s: int, dev, od, z, xyz, sigma, rgb):
+    """Queue one launch of the pass kernel on the current stream. The
+    sample positions are ``o + d*z`` (``od`` (N, 6), ``z`` (N, S)) or,
+    when ``xyz`` (3, N*S) is given, read from it; sigma goes to ``sigma``
+    (N*S values) and rgb to ``rgb`` (3, N*S) unless sigma-only."""
+    from ._build import load_library
     dt = op.dtype
     nerf, nof = op.nerf, op.nof
     for spec in (nerf, nof):
@@ -362,11 +234,6 @@ def _launch(op: _Pass, rays_o, rays_d, z_vals):
     def bands_of(kc, logscale):
         return torch.from_numpy(freq_bands(kc // 3, logscale)).to(dev)
 
-    od = torch.cat([rays_o, rays_d], dim=-1).float().contiguous()
-    z = z_vals.float().contiguous()
-    sigma = torch.empty((n, s), dtype=torch.float32, device=dev)
-    rgb = (None if nerf.sigma_only
-           else torch.empty((3, n, s), dtype=torch.float32, device=dev))
     args = [1 if dt == torch.bfloat16 else 0, n, s, int(nerf.sigma_only),
             int(nof is not None), int(nof is not None and nof.use_quat),
             ptr(od), ptr(z), ptr(sigma), ptr(rgb)]
@@ -391,6 +258,7 @@ def _launch(op: _Pass, rays_o, rays_d, z_vals):
     args += _net_block(nerf.depth, nerf.width, nerf.kc,
                        bands_of(nerf.kc, nerf.logscale), layers, [], heads,
                        ptr)
+    args.append(ptr(xyz))
     arr = np.asarray(args, dtype=np.int64)
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -399,9 +267,7 @@ def _launch(op: _Pass, rays_o, rays_d, z_vals):
     if rc != 0:
         raise RuntimeError(f"render_pass kernel failed to launch: "
                            f"{lib.render_pass_error(rc).decode()} ({rc})")
-    render_pass.launches += 1
     del keep  # the launch is queued on the stream the operands live on
-    return sigma, rgb
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,13 @@
-"""Ray depth sampling at test time: stratified coarse depths, deterministic
-inverse-CDF importance depths and the fine-sample budget compaction.
+"""Ray depth sampling: stratified coarse depths (jittered in training),
+inverse-CDF importance depths, the fine-sample budget compaction, and the
+depth merge of two warped sample sets.
 
-Port of the test-time half of ``moco_flow_tpu/render/sampling.py``. Random
-jitter (``perturb > 0``) and random pdf draws belong to training and are not
-ported yet: test time is deterministic.
+Port of ``moco_flow_tpu/render/sampling.py``. The random draws of training
+(the jitter and the pdf uniforms) are arguments: the caller draws them (the
+trainer's ``Draws``), so a test can hand both packages the same numbers.
+The JAX package sorts with gather-free variadic sorts and a custom VJP,
+because a TPU has no fast gather; here a stable ``torch.sort`` and
+``gather`` do the same, and autograd gives the backward.
 """
 
 from __future__ import annotations
@@ -12,39 +16,47 @@ import torch
 
 
 def stratified_zvals(near: torch.Tensor, far: torch.Tensor, n_samples: int,
-                     use_disp: bool = False,
-                     perturb: float = 0.0) -> torch.Tensor:
-    """(N, n_samples) depths between ``near`` and ``far`` ((N, 1) each)."""
-    if perturb > 0:
-        raise NotImplementedError(
-            "perturbed (training) depths are not ported yet "
-            "(ROADMAP 'Modules to port' item 2)")
+                     use_disp: bool = False, perturb: float = 0.0,
+                     u: torch.Tensor | None = None) -> torch.Tensor:
+    """(N, n_samples) depths between ``near`` and ``far`` ((N, 1) each),
+    each jittered within its stratum by ``perturb * u`` when ``perturb > 0``
+    (``u``: (N, n_samples) uniforms in [0, 1))."""
     z_steps = torch.linspace(0.0, 1.0, n_samples, device=near.device)
     if not use_disp:
-        return near * (1.0 - z_steps) + far * z_steps
-    return 1.0 / (1.0 / near * (1.0 - z_steps) + 1.0 / far * z_steps)
+        z_vals = near * (1.0 - z_steps) + far * z_steps
+    else:
+        z_vals = 1.0 / (1.0 / near * (1.0 - z_steps) + 1.0 / far * z_steps)
+    if perturb > 0:
+        if u is None:
+            raise ValueError("perturbed depths need their uniforms u")
+        mids = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+        upper = torch.cat([mids, z_vals[:, -1:]], dim=-1)
+        lower = torch.cat([z_vals[:, :1], mids], dim=-1)
+        z_vals = lower + (upper - lower) * (perturb * u)
+    return z_vals
 
 
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_importance: int,
-               det: bool = True, eps: float = 1e-5) -> torch.Tensor:
-    """``n_importance`` deterministic samples from the piecewise-constant pdf
-    over ``bins`` (N, B+1) with ``weights`` (N, B): the reference's eps guard,
-    right-searchsorted and zero-denominator fallback.
+               det: bool = True, eps: float = 1e-5,
+               u: torch.Tensor | None = None) -> torch.Tensor:
+    """``n_importance`` samples from the piecewise-constant pdf over ``bins``
+    (N, B+1) with ``weights`` (N, B): the reference's eps guard,
+    right-searchsorted and zero-denominator fallback. ``det``: evenly
+    spaced quantiles; else the quantiles are ``u`` (N, n_importance).
 
     Written, like the JAX version, as masked max/min reductions over the
     prefix mask ``cdf <= u`` instead of index gathers, so both agree on every
     tie."""
-    if not det:
-        raise NotImplementedError(
-            "random pdf draws (training) are not ported yet "
-            "(ROADMAP 'Modules to port' item 2)")
+    if not det and u is None:
+        raise ValueError("random pdf samples need their uniforms u")
     n_rays = weights.shape[0]
     weights = weights + eps
     pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1)
     cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)  # (N, B+1)
-    u = torch.linspace(0.0, 1.0, n_importance,
-                       device=bins.device).expand(n_rays, n_importance)
+    if det:
+        u = torch.linspace(0.0, 1.0, n_importance,
+                           device=bins.device).expand(n_rays, n_importance)
 
     big = torch.finfo(cdf.dtype).max
     m = cdf[:, None, :] <= u[:, :, None]  # (N, I, B+1), a prefix mask
@@ -95,3 +107,25 @@ def compact_fine_samples(z_all: torch.Tensor, bins: torch.Tensor,
     d_top = torch.gather(deltas, 1, order)
     z_k, pos = torch.sort(z_top, dim=-1, stable=True)
     return z_k, torch.gather(d_top, 1, pos)
+
+
+def merge_cano_by_z_t(z_a: torch.Tensor, z_b: torch.Tensor,
+                      cano_a_t: torch.Tensor, cano_b_t: torch.Tensor):
+    """Depth-merge two per-ray sample sets, permuting only the canonical
+    warps ``cano_*_t`` ((3, N, S*), the fine NeRF's input) with them.
+
+    Returns ``(z_all (N, Sa+Sb), cano (3, N, Sa+Sb), pos (N, Sa+Sb))``:
+    ``pos`` is the pre-sort (concatenation) index of each sorted slot, so
+    ``pos < Sa`` marks set a. The sort is stable, like ``lax.sort``."""
+    keys = torch.cat([z_a, z_b], dim=-1)
+    cat = torch.cat([cano_a_t, cano_b_t], dim=2)
+    z_all, pos = torch.sort(keys, dim=-1, stable=True)
+    cano = torch.gather(cat, 2, pos[None].expand_as(cat))
+    return z_all, cano, pos
+
+
+def unsort_by_pos(pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x`` (N, S) from sorted order back to concatenation order:
+    ``out[pos[i]] = x[i]``, row-wise (``pos`` rows are permutations)."""
+    rank = torch.argsort(pos, dim=-1, stable=True)
+    return torch.gather(x, 1, rank)

@@ -1,14 +1,23 @@
-"""Test-time volume renderer.
+"""Volume renderer: the test-time branch and the training branch.
 
-Port of the test-time branch of ``moco_flow_tpu/render/volume.py``
-(``render_rays`` with ``test_time=True`` on the fused path): stratified
-depths, a sigma-only coarse pass (optionally on a strided probe of the
-depths), deterministic importance sampling, the optional fine-sample budget,
-and the full fine pass. Each pass is one :func:`render_pass` call, so the
-(N, S, 3) sample and warp tensors never exist in device memory.
+Port of ``moco_flow_tpu/render/volume.py``'s ``render_rays`` on the fused
+path.
 
-The training branch (perturbed sampling, warp chains, consensus terms) is a
-later slice: ``render_rays`` raises for ``test_time=False``.
+- Test time: stratified depths, a sigma-only coarse pass (optionally on a
+  strided probe of the depths), deterministic importance sampling, the
+  optional fine-sample budget, and the full fine pass. Each pass is one
+  :func:`render_pass` call, so the (N, S, 3) sample and warp tensors never
+  exist in device memory.
+- Training (the transposed ``t_mode`` of the JAX package: every sample,
+  warp and rgb tensor is (3, N, S)): jittered depths, the bw + fw NoF warp
+  chain of :func:`nof_chain_rays_t` on the coarse samples, the coarse NeRF
+  (:func:`nerf_fused_rays_t`), the coarse consensus terms, random
+  importance depths, the chain on the new samples only, the depth merge of
+  the two warped sets, the fine NeRF and the fine consensus terms. Random
+  numbers come in a :class:`Draws` record.
+
+A training render with the NoF but without a warp chain runs the single-warp
+NoF kernel, which is not ported yet: it raises and names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -20,8 +29,16 @@ import torch
 from ..nn.embedding import posenc
 from ..nn.nerf import NeRFConfig
 from ..nn.nof import NoFConfig
+from ..nn.losses import masked_mean
+from ..ops.nerf_rays import nerf_fused_rays_t
+from ..ops.nof_chain import nof_chain_rays_t
 from ..ops.render_pass import render_pass
-from .sampling import compact_fine_samples, sample_pdf, stratified_zvals
+from .sampling import (compact_fine_samples, merge_cano_by_z_t, sample_pdf,
+                       stratified_zvals, unsort_by_pos)
+
+# the training paths that wait for the single-warp NoF kernel
+_SINGLE_WARP = ("ROADMAP 'Modules to port' item 1 (the single-warp NoF "
+                "kernels #3/#4)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,10 +79,14 @@ class RenderConfig:
     n_importance: int = 0
     use_disp: bool = False
     perturb: float = 0.0
+    noise_std: float = 0.0
     activation: str = "relu"  # 'relu' | 'softplus'
     use_nof: bool = False
+    chain_local: bool = False
+    chain_global: bool = False
     test_time: bool = False
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
+    share_coarse_warps: bool = True
     fine_budget: int = 0   # keep this many fine samples (0 = all, exact)
     coarse_probe: int = 0  # strided coarse probe size (0 = all, exact)
 
@@ -163,25 +184,188 @@ def _fused_test_pass(params: dict, nerf_key: str, statics: ModelStatics,
                            background, deltas=deltas, transposed_rgb=True)
 
 
+def nerf_inference(params: dict, nerf_cfg: NeRFConfig, statics: ModelStatics,
+                   anneal: dict, xyz_t: torch.Tensor, ind: torch.Tensor,
+                   direction: torch.Tensor, z_vals: torch.Tensor,
+                   rcfg: RenderConfig, background=None,
+                   weights_only: bool = False):
+    """A NeRF on every sample of a ray batch, then compositing.
+
+    ``xyz_t``: (3, N, S) sample positions (the fused path's transposed
+    layout). Returns ``(rgb, depth, weights, alphas)``; rgb and depth are
+    None when ``weights_only``."""
+    dir_norm = torch.linalg.norm(direction, dim=-1, keepdim=True)
+    if weights_only or nerf_cfg.extra_feat_type == "none":
+        extra = None
+    elif nerf_cfg.extra_feat_type == "ind":
+        extra = embed_padded(ind, statics.nerf_ind, nerf_cfg.extra_feat_dim)
+    else:
+        extra = embed_padded(direction, statics.nerf_dir,
+                             nerf_cfg.extra_feat_dim)
+    out_t = nerf_fused_rays_t(params, nerf_cfg, statics.nerf_xyz.n_freqs,
+                              statics.nerf_xyz.logscale,
+                              anneal.get("nerf_xyz"), xyz_t, extra,
+                              sigma_only=weights_only,
+                              compute_dtype=rcfg.dtype)
+    if weights_only:
+        alphas, weights = composite(out_t[0], z_vals, dir_norm, None,
+                                    rcfg.activation)
+        return None, None, weights, alphas
+    return _composite_tail(out_t[0:3], out_t[3], z_vals, dir_norm, None,
+                           rcfg, background, transposed_rgb=True)
+
+
+def _consensus(disp_src: torch.Tensor, disp_rec: torch.Tensor,
+               alphas: torch.Tensor) -> torch.Tensor:
+    """Masked-mean consensus disparity: the per-sample mean |src - recon|
+    over xyz ((3, N, S) tensors), masked by alpha >= 0.01."""
+    per_sample = torch.mean(torch.abs(disp_src - disp_rec), dim=0)
+    return masked_mean(per_sample, alphas >= 0.01)
+
+
+def _consensus_parts(parts) -> torch.Tensor:
+    """:func:`_consensus` over the concatenation of ``parts`` (each
+    ``(disp_src, disp_rec, alphas)``), as summed numerators and
+    denominators, without concatenating."""
+    num = den = tot = 0.0
+    cnt = 0
+    for src, rec, alphas in parts:
+        per = torch.mean(torch.abs(src - rec), dim=0)
+        m = (alphas >= 0.01).to(per.dtype)
+        num = num + torch.sum(per * m)
+        den = den + torch.sum(m)
+        tot = tot + torch.sum(per)
+        cnt += per.numel()
+    return torch.where(den > 0, num / torch.where(den > 0, den, 1.0),
+                       tot / cnt)
+
+
+def _render_train(params: dict, statics: ModelStatics, anneal: dict,
+                  rays: torch.Tensor, background, rcfg: RenderConfig,
+                  draws) -> dict:
+    """The training branch of :func:`render_rays` (see the module note)."""
+    if draws is None:
+        raise ValueError("a training render needs its Draws")
+    if rcfg.noise_std > 0:
+        raise NotImplementedError(
+            "sigma noise (noise_std > 0) is not drawn by Draws yet; "
+            "ROADMAP 'Modules to port' item 2")
+    use_nof = rcfg.use_nof and statics.nof is not None
+    chains = rcfg.chain_local or rcfg.chain_global
+    if use_nof and not chains:
+        raise NotImplementedError(
+            "a training render with the NoF and no warp chain runs the "
+            f"single-warp NoF kernel: {_SINGLE_WARP}")
+    rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+    near, far = rays[:, 6:7], rays[:, 7:8]
+    img_ind = rays[:, 8:9]
+    chained_ind = None
+    if use_nof and rcfg.chain_global:
+        if rays.shape[-1] < 10:
+            raise ValueError(f"chain_global needs 10-wide rays (got "
+                             f"{rays.shape[-1]}): append the chained-frame "
+                             "index column")
+        chained_ind = rays[:, 9:10]
+    z_vals = stratified_zvals(near, far, rcfg.n_samples, rcfg.use_disp,
+                              rcfg.perturb, u=draws.perturb)
+    o_t, d_t = rays_o.T, rays_d.T                               # (3, N)
+    xyz_coarse = o_t[:, :, None] + d_t[:, :, None] * z_vals[None]
+
+    def warp_stack(xyz_t):
+        """bw warp + local / global chains of one sample set, (3, N, S)."""
+        cfg = statics.nof
+        ind_emb = embed_padded(img_ind, statics.nof_ind, cfg.extra_feat_dim)
+        ch_emb = (embed_padded(chained_ind, statics.nof_ind,
+                               cfg.extra_feat_dim)
+                  if rcfg.chain_global else None)
+        cano, recon, chain_recon = nof_chain_rays_t(
+            params, cfg, statics.nof_xyz.n_freqs, statics.nof_xyz.logscale,
+            anneal.get("nof_xyz"), xyz_t, ind_emb, ch_emb, rcfg.chain_local,
+            rcfg.chain_global, compute_dtype=rcfg.dtype)
+        return {"cano": cano, "recon": recon, "chain_recon": chain_recon}
+
+    result: dict = {}
+    warped_c = warp_stack(xyz_coarse) if use_nof else None
+    rgb_c, depth_c, weights_c, alphas_c = nerf_inference(
+        params["coarse_NeRF"], statics.coarse, statics, anneal,
+        warped_c["cano"] if use_nof else xyz_coarse, img_ind, rays_d,
+        z_vals, rcfg, background=background)
+    result["opacity_coarse"] = torch.sum(weights_c, dim=1)
+    result["rgb_coarse"] = rgb_c
+    result["depth_coarse"] = depth_c
+    consensus = [(k, f"nof_{name}_disp") for k, name, on in (
+        ("recon", "local", rcfg.chain_local),
+        ("chain_recon", "global", rcfg.chain_global)) if use_nof and on]
+    for k, name in consensus:
+        result[f"{name}_coarse"] = _consensus(xyz_coarse, warped_c[k],
+                                              alphas_c)
+    if rcfg.n_importance <= 0:
+        return result
+
+    z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+    with torch.profiler.record_function("sample_pdf"):
+        z_fine = sample_pdf(z_mid, weights_c[:, 1:-1], rcfg.n_importance,
+                            det=(rcfg.perturb == 0), u=draws.pdf).detach()
+    if use_nof and rcfg.share_coarse_warps:
+        # the fine set is the coarse depths plus the new ones, and the warp
+        # chain is the same networks for both passes: warp only the new
+        # samples and depth-merge them with the coarse warps
+        xyz_new = o_t[:, :, None] + d_t[:, :, None] * z_fine[None]
+        warped_new = warp_stack(xyz_new)
+        z_all, fine_input, fine_pos = merge_cano_by_z_t(
+            z_vals, z_fine, warped_c["cano"], warped_new["cano"])
+    else:
+        z_all = torch.sort(torch.cat([z_vals, z_fine], dim=-1),
+                           dim=-1).values
+        xyz_fine = o_t[:, :, None] + d_t[:, :, None] * z_all[None]
+        warped_f = warp_stack(xyz_fine) if use_nof else None
+        fine_input = warped_f["cano"] if use_nof else xyz_fine
+    rgb_f, depth_f, weights_f, alphas_f = nerf_inference(
+        params["fine_NeRF"], statics.fine or statics.coarse, statics,
+        anneal, fine_input, img_ind, rays_d, z_all, rcfg,
+        background=background)
+    result["rgb_fine"] = rgb_f
+    result["depth_fine"] = depth_f
+    result["opacity_fine"] = torch.sum(weights_f, dim=1)
+    if consensus and rcfg.share_coarse_warps:
+        # alphas back to concatenation order: the consensus over the coarse
+        # and new halves is the consensus over the sorted union
+        alphas_cat = unsort_by_pos(fine_pos, alphas_f)
+        a_c = alphas_cat[:, :rcfg.n_samples]
+        a_n = alphas_cat[:, rcfg.n_samples:]
+        for k, name in consensus:
+            result[f"{name}_fine"] = _consensus_parts([
+                (xyz_coarse, warped_c[k], a_c),
+                (xyz_new, warped_new[k], a_n)])
+    else:
+        for k, name in consensus:
+            result[f"{name}_fine"] = _consensus(xyz_fine, warped_f[k],
+                                                alphas_f)
+    return result
+
+
 def render_rays(params: dict, statics: ModelStatics, anneal: dict,
                 rays: torch.Tensor, background: torch.Tensor | None,
-                rcfg: RenderConfig) -> dict:
-    """Render a batch of rays at test time.
+                rcfg: RenderConfig, draws=None) -> dict:
+    """Render a batch of rays: at test time (``rcfg.test_time``), or the
+    training branch with the random inputs of ``draws`` (a ``Draws``).
 
     Args:
       params: ``{'coarse_NeRF', 'fine_NeRF'?, 'bw_NoF'?}`` tensor dicts.
       anneal: ``{'nerf_xyz': (K,) | None, 'nof_xyz': (K,) | None}``.
-      rays: (N, >=9) packed ``[o(3), d(3), near, far, ind]``.
+      rays: (N, >=9) packed ``[o(3), d(3), near, far, ind]``, plus the
+        chained-frame index as column 9 when training with chain_global.
       background: (N, 3) per-ray background or None.
 
     Returns per-ray ``opacity_coarse`` (and ``rgb_coarse``/``depth_coarse``
-    when there is no fine pass), ``rgb_fine``, ``depth_fine``,
-    ``opacity_fine``.
+    when there is no fine pass or in training), ``rgb_fine``,
+    ``depth_fine``, ``opacity_fine``; in training also the consensus
+    scalars ``nof_local_disp_coarse`` / ``_fine`` and
+    ``nof_global_disp_coarse`` / ``_fine`` of the chains that are on.
     """
     if not rcfg.test_time:
-        raise NotImplementedError(
-            "the port renders at test time only; the training branch of "
-            "render_rays is ROADMAP 'Modules to port' item 2")
+        return _render_train(params, statics, anneal, rays, background,
+                             rcfg, draws)
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
     img_ind = rays[:, 8:9]

@@ -1,0 +1,105 @@
+"""Training CLI of the port (counterpart of the root train.py).
+
+    python -m moco_flow_tpu_torch.train -c cfg.yaml [-r ckpt.npz] \
+        [-n job_name] [-s seed] [--device cuda|cpu]
+
+Trains a stage-3 model from the config, resuming from the newest checkpoint
+under ``save_dir/exp_name/*/ckpts`` and then from ``-r`` (parameters, the
+clock and ``nof_opt_deleted``; a checkpoint of either package). Checkpoints
+go to ``save_dir/exp_name/<job_name>/ckpts`` every ``save_every_n_step``
+steps and as ``final`` at the end. ``train(config, args)`` takes the config
+as a dict, so callers can skip YAML.
+
+The port trains the ``none`` phase of the NoF-supervision schedule
+(``coarse2fine_start_iter < step < coarse2fine_end_iter``, ``(step // 1000)
+% 10 != 0``). A step in another phase, and ``val_every_n_step > 0``, raise
+and name their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import os.path as osp
+import time
+
+from .checkpoint import find_latest_checkpoint
+from .stage_mocoflow import _VAL_STEP, MoCoFlowTrainer
+
+
+def job_dir(config: dict, args) -> str:
+    name = getattr(args, "job_name", None) or time.strftime("%b%d_%H%M%S")
+    return osp.join(config.get("save_dir", "./log"),
+                    config.get("exp_name", "exp"), name)
+
+
+def train(config: dict, args, smpl_data=None, scene=None) -> MoCoFlowTrainer:
+    """Build the trainer, resume, and step the clock up to
+    ``trainer.num_iters``.
+
+    ``scene``: an in-memory ``SyntheticScene`` in place of the files under
+    ``dataloader.root_dir``."""
+    tcfg = config["trainer"]
+    if tcfg.get("val_every_n_step", 0):
+        raise NotImplementedError(
+            f"val_every_n_step > 0 is not ported: {_VAL_STEP}; set it to 0")
+    seed = int(args.seed) if getattr(args, "seed", None) is not None else 0
+    trainer = MoCoFlowTrainer(config, device=getattr(args, "device", "cuda"),
+                              seed=seed, smpl_data=smpl_data, scene=scene)
+    trainer.job_dir = job_dir(config, args)
+    os.makedirs(osp.join(trainer.job_dir, "ckpts"), exist_ok=True)
+    trainer.build_model(config["model"])
+    trainer.prepare_train_data(config["dataloader"])
+    trainer.configure_optimizers(config["optimizer"], config.get("scheduler"))
+    latest = find_latest_checkpoint(osp.join(trainer.save_dir, "*", "ckpts",
+                                             "*.npz"))
+    for ckpt in (latest, args.resume):
+        if ckpt:
+            trainer.load_ckpt(ckpt)
+    clock = trainer.clock
+    save_every = tcfg.get("save_every_n_step", 0)
+    epoch_len = max(trainer.num_frames, 1)
+    while clock.step < tcfg["num_iters"]:
+        trainer.train_func()
+        if save_every and clock.step % save_every == 0 and clock.step > 0:
+            trainer.save_ckpt()
+        clock.tick()
+        if clock.minibatch >= epoch_len:
+            clock.tock()
+    trainer.save_ckpt("final")
+    return trainer
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="stage-3 training (port)")
+    p.add_argument("-c", "--config", required=True, type=str)
+    p.add_argument("-r", "--resume", default=None, type=str)
+    p.add_argument("-n", "--job_name", default=None, type=str)
+    p.add_argument("-s", "--seed", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the kernels) or cpu (the plain versions)")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    import yaml
+    path = args.config
+    if args.resume:
+        # as the JAX CLI: the config saved beside the checkpoint's run wins
+        saved = osp.join(osp.dirname(osp.dirname(args.resume)), "config.yaml")
+        if osp.exists(saved):
+            path = saved
+    with open(path) as f:
+        config = yaml.safe_load(f)
+    if args.job_name is None:
+        args.job_name = time.strftime("%b%d_%H%M%S")
+    out = job_dir(config, args)
+    os.makedirs(out, exist_ok=True)
+    with open(osp.join(out, "config.yaml"), "w") as f:
+        yaml.safe_dump(config, f)
+    train(config, args)
+
+
+if __name__ == "__main__":
+    main()

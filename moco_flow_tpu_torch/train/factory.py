@@ -57,6 +57,7 @@ def init_params(gen: torch.Generator, statics: ModelStatics,
 
 
 def render_config(model_cfg: dict, use_nof: bool = False,
+                  chain_local: bool = False, chain_global: bool = False,
                   test_time: bool = False, perturb=None,
                   compute_dtype: str | None = None) -> RenderConfig:
     if int(model_cfg.get("occ_res", 0)) > 0:
@@ -72,11 +73,13 @@ def render_config(model_cfg: dict, use_nof: bool = False,
         n_importance=model_cfg.get("N_importance", 0),
         use_disp=model_cfg.get("use_disp", False),
         perturb=model_cfg.get("perturb", 0.0) if perturb is None else perturb,
+        noise_std=model_cfg.get("noise_std", 0.0),
         activation=model_cfg.get("nerf_activate_type", "relu"),
-        use_nof=use_nof,
+        use_nof=use_nof, chain_local=chain_local, chain_global=chain_global,
         test_time=test_time,
         compute_dtype=compute_dtype or model_cfg.get("compute_dtype",
                                                      "float32"),
         fine_budget=fine_budget,
         coarse_probe=coarse_probe,
+        share_coarse_warps=bool(model_cfg.get("share_coarse_warps", True)),
     )

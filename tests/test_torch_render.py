@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from moco_flow_tpu_torch.data.draws import Draws
 from moco_flow_tpu_torch.render.volume import RenderConfig, render_rays
 from moco_flow_tpu_torch.train.checkpoint import _unflatten, params_from_jax
 from moco_flow_tpu_torch.train.factory import build_statics
@@ -102,7 +103,15 @@ def test_fine_budget_and_probe(stored):
 
 
 def test_training_branch_raises(stored):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_rays({}, build_statics(MODEL_CFG), {},
-                    torch.from_numpy(stored["rays"]), None,
-                    RenderConfig(test_time=False))
+    """The training render with the NoF but no warp chain runs the
+    single-warp NoF kernel, which is not ported: it raises and names its
+    ROADMAP item (the chained branch is tests/test_torch_train_render.py)."""
+    rays = torch.from_numpy(stored["rays"])
+    n, s, i = rays.shape[0], MODEL_CFG["N_samples"], MODEL_CFG["N_importance"]
+    draws = Draws(frame=0, pixels=torch.zeros(n, dtype=torch.long),
+                  background=torch.zeros(1, 3), chained=None,
+                  perturb=torch.rand(n, s), pdf=torch.rand(n, i))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*#3"):
+        render_rays({}, build_statics(MODEL_CFG), {}, rays, None,
+                    RenderConfig(n_samples=s, n_importance=i, perturb=1.0,
+                                 use_nof=True, test_time=False), draws=draws)
