@@ -37,14 +37,33 @@ happened; any failure raises and the script exits non-zero):
      JAX's draws: loss terms, train_psnr and the updated parameters;
   8. the training slice end to end: ``train(config, args)`` of
      moco_flow_tpu_torch.train on the in-memory 256x256 scene at c2f.yaml
-     widths with both chains, from a seeded checkpoint at step 6000, 10
-     steps in bf16 and in fp32; each training kernel must have launched
-     twice per step, the losses must be finite and the parameters must
-     move; the step is timed with CUDA events after 3 warm steps, and one
-     bf16 step is profiled (build/chip_smoke_train/train_step_profile.txt).
-The last two lines are the kernel JSON (launch counts from phases 5 and 8)
-and the result JSON. Needs one CUDA card; imports neither JAX nor
-moco_flow_tpu.
+     widths with both chains, from a seeded checkpoint at step 6000 (the
+     ``none`` phase), 6 steps in bf16 and in fp32; each training kernel
+     must have launched twice per step, the losses must be finite and the
+     parameters must move; the step is timed with CUDA events after 3 warm
+     steps, and one bf16 step is profiled
+     (build/chip_smoke_train/train_step_profile.txt);
+  9. the single-warp NoF kernels (nof_rays.cu) against their plain versions
+     at the full NoF width (4x128, skip 2, 5 + 16 frequencies, quaternion
+     head), fp32 and bf16: one ray of 2000 samples (the step's
+     correspondence set) and of 10000 (longer than JAX's 4096-sample
+     chunks), forward and backward, and the val tile 16384 x 128, forward;
+     then each kernel, its plain version and its bound;
+  10. the msk / full phases against JAX's numbers: the steps of
+     tests/fixtures/torch_port_phases_golden.npz (written by
+     scripts/make_torch_port_phases_golden.py) replayed on the card in fp32
+     (full + freeze with both optimizers, none + freeze where the nof
+     optimizer goes, msk), and the val step;
+  11. the phases end to end: ``train(config, args)`` at c2f.yaml widths
+     with its loss weights and both Adams, on a 256x256 scene whose body has
+     SMPL's 6890 vertices, from step 4996 across full -> none + freeze ->
+     none and from 9998 across none -> msk, bf16 and fp32, with the launch
+     counts of each phase; a msk and a full step timed (3 warm + 5 timed),
+     the val step at val_size 108x108 timed, one bf16 msk step profiled
+     (build/chip_smoke_train/msk_step_profile.txt).
+The last three lines are the card, the kernel JSON (launch counts from the
+main paths of phases 5, 8 and 11) and the result JSON. Needs one CUDA card;
+imports neither JAX nor moco_flow_tpu.
 """
 
 from __future__ import annotations
@@ -60,6 +79,7 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
+DEVICE = "cuda"     # the training entry point's --device (phases 8, 11)
 
 from moco_flow_tpu_torch.data.synthetic import make_synthetic_scene  # noqa: E402
 from moco_flow_tpu_torch.nn.embedding import anneal_weights  # noqa: E402
@@ -97,6 +117,12 @@ TRAIN_KERNELS = (
      "moco_flow_tpu/ops/megakernel.py:1154"),
     ("chain_bwd", "moco_flow_tpu_torch/ops/csrc/nof_chain.cu",
      "moco_flow_tpu/ops/megakernel.py:1214"))
+# the single warp of the msk / full phases and the val step
+NOF_KERNELS = (
+    ("nof_fwd", "moco_flow_tpu_torch/ops/csrc/nof_rays.cu",
+     "moco_flow_tpu/ops/megakernel.py:876"),
+    ("nof_bwd", "moco_flow_tpu_torch/ops/csrc/nof_rays.cu",
+     "moco_flow_tpu/ops/megakernel.py:1012"))
 
 
 def log(msg: str):
@@ -649,7 +675,7 @@ def phase_train_golden(dev):
         f"{STEP_TOL['params_atol']:g})")
 
 
-TRAIN_START, TRAIN_STEPS = 6000, 10
+TRAIN_START, TRAIN_STEPS = 6000, 6
 
 
 def train_config(dtype: str) -> dict:
@@ -672,11 +698,13 @@ def train_config(dtype: str) -> dict:
     return cfg
 
 
-def _profile_step(tr, card: str) -> None:
+def _profile_step(tr, card: str, tag: str = "[8 train slice] profiled bf16",
+                  fname: str = "train_step_profile.txt") -> None:
     """One profiled step: device time by kernel group and the idle share,
-    written to build/chip_smoke_train/train_step_profile.txt."""
+    written to build/chip_smoke_train/<fname>."""
     kernels = {"nerf_bwd": "nerf_bwd_kernel", "chain_bwd": "chain_bwd_kernel",
                "chain_fwd": "chain_fwd_kernel", "nerf_fwd": "render_pass",
+               "nof_bwd": "nof_bwd_kernel", "nof_fwd": "nof_fwd_kernel",
                "dW sums": "mlp::sum_", "sort": "sort"}   # lower-case keys
     ranges = {"sample_pdf": "sample_pdf", "optimizer": "Optimizer.step"}
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -713,19 +741,19 @@ def _profile_step(tr, card: str) -> None:
     line = ", ".join(f"{k} {v:.2f}" for k, v in split.items())
     idle = (f"{1.0 - busy / wall:.3f}" if busy > 0 else
             "not measured (the profiler saw no device time)")
-    log(f"[8 train slice] profiled bf16 step: wall {wall:.1f} ms, device "
+    log(f"{tag} step: wall {wall:.1f} ms, device "
         f"busy {busy:.1f} ms, idle share {idle}; device ms by group: "
         f"{line} on {card}")
     out = os.path.join(HERE, "build", "chip_smoke_train")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "train_step_profile.txt"), "w") as f:
+    with open(os.path.join(out, fname), "w") as f:
         f.write(prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=40))
 
 
 def phase_train_slice(card: str) -> dict:
     """The training slice through its entry point: train(config, args) from
-    a seeded checkpoint at step 6000, 10 steps, bf16 then fp32."""
+    a seeded checkpoint at step 6000, TRAIN_STEPS steps, bf16 then fp32."""
     from moco_flow_tpu_torch.ops import nerf_rays as nr
     from moco_flow_tpu_torch.ops import nof_chain as nc
     from moco_flow_tpu_torch.train.__main__ import parse_args as train_args
@@ -745,7 +773,7 @@ def phase_train_slice(card: str) -> dict:
         save_checkpoint(seed, {"params": params}, extra={
             "clock": {"epoch": 1, "minibatch": 0, "step": TRAIN_START}})
         args = train_args(["-c", "(dict)", "-r", seed + ".npz", "-n", "smoke",
-                           "--device", "cuda"])
+                           "--device", DEVICE])
         for f in counters:
             f.launches = 0
         tr = train(cfg, args, scene=scene)
@@ -794,6 +822,319 @@ def phase_train_slice(card: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# The msk / full phases and the val step (phases 9-11)
+# ---------------------------------------------------------------------------
+
+def _nof_case(P, fcfg, an_f, n, s, gen, dev):
+    from moco_flow_tpu_torch.ops.folds import _NofSpec, _nof_fold
+    xyz = (0.6 * torch.randn(3, n, s, generator=gen)).to(dev)
+    emb = torch.randn(n, 33, generator=gen).to(dev)
+    ws, parts = _nof_fold(P, fcfg, 5, an_f, emb)
+    g = (torch.randn(3, n, s, generator=gen) / (n * s) ** 0.5).to(dev)
+    return _NofSpec(4, 128, 15, (2,), True, True), xyz, parts, ws, g
+
+
+def phase_nof_kernels(dev, card: str,
+                      sizes=((1, 2000, True), (1, 10000, True),
+                             (16384, 128, False))) -> dict:
+    """Kernels #3/#4 (the single NoF warp) against their plain versions at
+    full width on ``sizes`` (rays, samples, with the backward), then each
+    timed with its plain version and bound on the first (the step's
+    correspondence ray) and the last forward (the val tile)."""
+    from moco_flow_tpu_torch.ops import nof_rays as nr
+    gen = torch.Generator().manual_seed(2)
+    fcfg = NoFConfig()
+    P = init_nof(gen, fcfg, dev)
+    an_f = anneal_weights(505000, 5, 5000, 1005000).to(dev)
+    err = {"nof_fwd": 0.0, "nof_bwd": 0.0}
+    cases = {}
+    for n_r, s, with_bwd in sizes:
+        spec, xyz, parts, ws, g = _nof_case(P, fcfg, an_f, n_r, s, gen, dev)
+        cases[(n_r, s)] = (spec, xyz, parts, ws, g)
+        plain32 = None
+        for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+            tag = f"nof N={n_r} S={s} {dname}"
+            ko = nr.nof_fwd(spec, dt, xyz, parts, ws)
+            ro = nr._nof_fwd_ref(spec, dt, xyz, parts, ws)
+            torch.cuda.synchronize()
+            pb = plain32 or (None, None)
+            e, e_rel = check_train(f"{tag} out", ko, ro, dname, pb[0])
+            err["nof_fwd"] = max(err["nof_fwd"], e)
+            line = (f"[9 nof kernels] {tag}: forward max|d| {e:.3e} "
+                    f"({e_rel:.1e} of max|ref|)")
+            rb = None
+            if with_bwd:
+                kb = nr.nof_bwd(spec, dt, xyz, parts, ws, g)
+                rb = nr._nof_bwd_ref(spec, dt, xyz, parts, ws, g)
+                torch.cuda.synchronize()
+                got = [kb[0], *kb[1], *kb[2]]
+                want = [rb[0], *rb[1], *rb[2]]
+                refs32 = (None if pb[1] is None else
+                          [pb[1][0], *pb[1][1], *pb[1][2]])
+                worst, w_rel = 0.0, 0.0
+                for i, (a, b) in enumerate(zip(got, want)):
+                    w = check_train(f"{tag} grad[{i}]", a, b, dname,
+                                    None if refs32 is None else refs32[i],
+                                    grad=True)
+                    worst, w_rel = max(worst, w[0]), max(w_rel, w[1])
+                err["nof_bwd"] = max(err["nof_bwd"], worst)
+                line += (f", backward max|d| {worst:.3e} (at most "
+                         f"{w_rel:.1e} of a tensor's max|ref|) over dxyz, "
+                         f"{len(kb[1])} d(partial) and {len(kb[2])} dW "
+                         "(tolerance: TRAIN_TOL)")
+            log(line)
+            if dname == "fp32":
+                plain32 = (ro, rb)
+    # bound: each input read once (xyz 12 B a row, the cotangent 12 B, the
+    # per-ray partials, the weights in the compute type), each output
+    # written once (warped or dxyz 12 B a row, dW fp32)
+    step_shape, val_shape = sizes[0][:2], sizes[-1][:2]
+    n_w = sum(w.numel() for w in cases[step_shape][3])
+    n_p = len(cases[step_shape][2])
+    times = {}
+    shapes = [("nof_fwd", step_shape), ("nof_bwd", step_shape),
+              ("nof_fwd", val_shape)]
+    for dname, dt in (("bf16", torch.bfloat16), ("fp32", None)):
+        wb = 2 if dt is not None else 4
+        for name, (n_r, s) in shapes:
+            spec, xyz, parts, ws, g = cases[(n_r, s)]
+            rows, part_b = n_r * s, n_r * 128 * 4 * n_p
+            if name == "nof_fwd":
+                kern = lambda: nr.nof_fwd(spec, dt, xyz, parts, ws)  # noqa: E731
+                plain = lambda: nr._nof_fwd_ref(spec, dt, xyz, parts, ws)  # noqa: E731
+                flops = 2 * NOF_MACS * rows
+                nbytes = rows * 24 + wb * n_w + part_b
+            else:
+                kern = lambda: nr.nof_bwd(spec, dt, xyz, parts, ws, g)  # noqa: E731
+                plain = lambda: nr._nof_bwd_ref(spec, dt, xyz, parts, ws, g)  # noqa: E731
+                flops = 3 * 2 * NOF_MACS * rows
+                nbytes = rows * 36 + (wb + 4) * n_w + 2 * part_b
+            k_ms = cuda_ms(kern, reps=5)
+            p_ms = cuda_ms(plain, reps=5)
+            b_ms, b_by = bound_ms(flops, nbytes, dname)
+            if dname == "bf16" and (n_r, s) == step_shape:
+                times[name] = (k_ms, p_ms, b_ms, b_by)
+            log(f"[9 nof kernels] {name} {dname} N={n_r} S={s}, one launch: "
+                f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                f"{b_ms:.5f} ms ({b_by}: {flops / 1e9:.3f} GFLOP, "
+                f"{nbytes / 1e6:.2f} MB) on {card}")
+    torch.cuda.synchronize()
+    return {"err": err, "times": times}
+
+
+def phase_phases_golden(dev):
+    """The fixture's full / none + freeze / msk steps and its val step
+    replayed on the card (fp32), under STEP_TOL."""
+    from scripts.make_torch_port_phases_golden import (
+        FIXTURE as PHASES_FIXTURE, RUNS, SCENE, load, port_run)
+    if not os.path.exists(PHASES_FIXTURE):
+        raise FileNotFoundError(PHASES_FIXTURE)
+    arrs = load()
+    worst = perr = 0.0
+    for run in RUNS:
+        scene = (make_synthetic_scene(None, **SCENE) if run == "msk"
+                 else None)
+        metrics, deleted, tr = port_run(arrs, run, dev, scene)
+        torch.cuda.synchronize()
+        for i, m in enumerate(metrics):
+            want = {k.split("/")[-1]: float(v) for k, v in arrs.items()
+                    if k.startswith(f"metrics/{run}/{i}/")}
+            if set(m) != set(want):
+                raise AssertionError(f"{run} step {i}: loss terms {set(m)} "
+                                     f"!= JAX's {set(want)}")
+            if deleted[i] != bool(arrs[f"deleted/{run}/{i}"]):
+                raise AssertionError(f"{run} step {i}: nof_opt_deleted "
+                                     f"{deleted[i]}")
+            for k, v in m.items():
+                rel = abs(v - want[k]) / max(abs(want[k]), 1e-30)
+                worst = max(worst, rel)
+                if rel > STEP_TOL["metrics_rtol"]:
+                    raise AssertionError(f"phases fixture {run} step {i} "
+                                         f"{k}: port {v} JAX {want[k]}")
+        from moco_flow_tpu_torch.train.checkpoint import _flatten
+        for k, v in _flatten(tr.params).items():
+            d = float(np.abs(v - arrs[f"params_{run}/{k}"]).max())
+            perr = max(perr, d)
+            if d > STEP_TOL["params_atol"]:
+                raise AssertionError(f"phases fixture {run} params {k}: "
+                                     f"max|diff| {d:.3e}")
+        if run == "msk":
+            val = tr.val_step()
+            torch.cuda.synchronize()
+            for k, v in val.items():
+                want = float(arrs[f"val/{k}"])
+                rel = abs(v - want) / max(abs(want), 1e-30)
+                worst = max(worst, rel)
+                if rel > STEP_TOL["metrics_rtol"]:
+                    raise AssertionError(f"phases fixture val {k}: port {v} "
+                                         f"JAX {want}")
+    log(f"[10 phases vs JAX fixture] full x3 (4998-5000) and msk x2 "
+        f"(10000-10001) steps and the val step: loss terms, train_psnr and "
+        f"val metrics max rel diff {worst:.2e} (tol "
+        f"{STEP_TOL['metrics_rtol']:g}), params max|diff| {perr:.2e} (tol "
+        f"{STEP_TOL['params_atol']:g})")
+
+
+# per-step launches of each phase: the single warp twice (bw and fw NoF
+# supervision, the mask loss reuses bw) in full, once (the mask loss) in
+# msk, never in none; the chain and the NeRF kernels twice every step
+PHASE_LAUNCHES = {"full": {"nof_fwd": 2, "nof_bwd": 2},
+                  "msk": {"nof_fwd": 1, "nof_bwd": 1},
+                  "none": {"nof_fwd": 0, "nof_bwd": 0}}
+PHASE_RUNS = ((4996, 6), (9998, 4))   # (resume step, steps)
+VAL_SIZE = 108
+
+
+def phases_config(dtype: str) -> dict:
+    """train_config() with c2f.yaml's NoF supervision: N_sampled 1000, nof
+    10 x L1, msk 10 x BCE, the nof Adam."""
+    cfg = train_config(dtype)
+    cfg["save_dir"] = os.path.join(HERE, "build", "chip_smoke_phases", dtype)
+    cfg["model"]["N_sampled"] = 1000
+    cfg["loss"].update({"nof_loss": {"type": "L1", "weight": 10},
+                        "msk_loss": {"type": "BCE", "weight": 10}})
+    cfg["optimizer"]["nof"] = {"type": "adam", "lr": 1e-4, "weight_decay": 0}
+    return cfg
+
+
+def _timed_steps(tr, warm: int = 3, steps: int = 5) -> float:
+    for _ in range(warm):
+        tr.train_step()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(steps):
+        tr.train_step()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / steps
+
+
+def phase_phases_slice(card: str) -> dict:
+    """The msk / full phases through train(config, args) at full width,
+    then step and val times."""
+    from moco_flow_tpu_torch.data.dataset import get_dataset
+    from moco_flow_tpu_torch.geometry.smpl import synthetic_smpl_data
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    from moco_flow_tpu_torch.ops import nof_chain as nc
+    from moco_flow_tpu_torch.ops import nof_rays as nf
+    from moco_flow_tpu_torch.train.__main__ import parse_args as train_args
+    from moco_flow_tpu_torch.train.__main__ import train
+    from moco_flow_tpu_torch.train.stage_mocoflow import MoCoFlowTrainer
+    counters = (nf.nof_fwd, nf.nof_bwd, nr.nerf_fwd, nr.nerf_bwd,
+                nc.chain_fwd, nc.chain_bwd)
+    smpl = synthetic_smpl_data(6890)
+    scene = make_synthetic_scene(None, n_frames=8, size=256, focal=300.0,
+                                 smpl=smpl)
+    val_scene = make_synthetic_scene(None, n_frames=8, size=VAL_SIZE,
+                                     focal=300.0 * VAL_SIZE / 256, smpl=smpl)
+    log(f"[11 phases slice] scene 256x256 x 8 frames, val {VAL_SIZE}x"
+        f"{VAL_SIZE}, body of {smpl.num_vertices} vertices")
+    counts = {"nof_fwd": 0, "nof_bwd": 0}
+    result = {}
+    orig = MoCoFlowTrainer.train_func
+    record = []
+
+    def counted(self):
+        before = {f.__name__: f.launches for f in counters}
+        w0 = self.params["coarse_NeRF"]["trunk"][0]["w"].detach().clone()
+        out = orig(self)
+        w1 = self.params["coarse_NeRF"]["trunk"][0]["w"].detach()
+        record.append((self.clock.step, self.phase(self.clock.step),
+                       {f.__name__: f.launches - before[f.__name__]
+                        for f in counters},
+                       bool((w1 != w0).any()), self.nof_opt_deleted,
+                       self.opt_nof is None))
+        return out
+
+    MoCoFlowTrainer.train_func = counted
+    try:
+        for dtype in ("bfloat16", "float32"):
+            cfg = phases_config(dtype)
+            params = init_params(torch.Generator().manual_seed(0),
+                                 build_statics(cfg["model"]), with_nof=True,
+                                 with_fw_nof=True)
+            for net in ("coarse_NeRF", "fine_NeRF"):
+                params[net]["sigma"]["b"] += 1.0
+            for start, n_steps in PHASE_RUNS:
+                cfg["trainer"]["num_iters"] = start + n_steps
+                seed = os.path.join(cfg["save_dir"], f"seeded{start}")
+                save_checkpoint(seed, {"params": params}, extra={
+                    "clock": {"epoch": 1, "minibatch": 0, "step": start}})
+                args = train_args(["-c", "(dict)", "-r", seed + ".npz", "-n",
+                                   f"smoke{start}", "--device", DEVICE])
+                record.clear()
+                for f in counters:
+                    f.launches = 0
+                tr = train(cfg, args, scene=scene)
+                torch.cuda.synchronize()
+                for step, (mode, freeze), got, moved, deleted, gone in record:
+                    want = dict(PHASE_LAUNCHES[mode], nerf_fwd=2, nerf_bwd=2,
+                                chain_fwd=2, chain_bwd=2)
+                    if got != want:
+                        raise AssertionError(f"step {step} ({mode}): "
+                                             f"launches {got}, want {want}")
+                    if moved == freeze:
+                        raise AssertionError(
+                            f"step {step}: the NeRF trunk "
+                            f"{'moved' if moved else 'stood'} with the "
+                            f"density {'frozen' if freeze else 'free'}")
+                    if mode == "none" and not (deleted and gone):
+                        raise AssertionError(f"step {step}: the nof "
+                                             "optimizer is not deleted")
+                    if mode == "full" and (deleted or gone):
+                        raise AssertionError(f"step {step}: the nof "
+                                             "optimizer is gone in full")
+                counts["nof_fwd"] += nf.nof_fwd.launches
+                counts["nof_bwd"] += nf.nof_bwd.launches
+                losses = {k: float(v) for k, v in tr.losses.items()}
+                if not all(np.isfinite(v) for v in losses.values()):
+                    raise AssertionError(f"{dtype} from {start}: {losses}")
+                log(f"[11 phases slice] {dtype} from {start}: "
+                    + ", ".join(f"{st} {m}{'+freeze' if fr else ''} "
+                                f"nof {g['nof_fwd']}/{g['nof_bwd']}"
+                                for st, (m, fr), g, *_ in record)
+                    + f"; last losses {json.dumps(losses)}")
+            # step times (tr: the msk run's trainer, at 10001): msk, then
+            # full with both optimizers rebuilt (fresh state)
+            tr.clock.step = 10000
+            ms_msk = _timed_steps(tr)
+            tr.clock.step = 4000
+            tr.nof_opt_deleted, tr.opt = False, None
+            ms_full = _timed_steps(tr)
+            tr.clock.step = 10000
+            tr.val_dataset = get_dataset(dict(cfg["dataloader"],
+                                              val_size=[VAL_SIZE, VAL_SIZE]),
+                                         "val", scene=val_scene)
+            nf.nof_fwd.launches = nf.nof_bwd.launches = 0
+            val = tr.val_func()                              # warm
+            n_val = nf.nof_fwd.launches
+            if n_val != 2 or nf.nof_bwd.launches != 0 or not all(
+                    np.isfinite(v) for v in val.values()):
+                raise AssertionError(f"val: {val}, nof_fwd {n_val}, nof_bwd "
+                                     f"{nf.nof_bwd.launches} launches")
+            counts["nof_fwd"] += n_val
+            ms_val = cuda_ms(tr.val_step, reps=2)
+            result[dtype] = (ms_msk, ms_full, ms_val)
+            log(f"[11 phases slice] {dtype}: msk step {ms_msk:.1f} ms, full "
+                f"step {ms_full:.1f} ms (1024 rays x (128 + 128) samples + "
+                f"2000 correspondence points), val step {ms_val:.1f} ms "
+                f"({VAL_SIZE}x{VAL_SIZE} rays in one 16384-ray tile, "
+                f"{n_val} nof_fwd launches; {json.dumps(val)}) on {card}")
+            if dtype == "bfloat16":
+                tr.clock.step = 10000
+                tr.nof_opt_deleted, tr.opt = True, None
+                tr.train_step()                 # warm: the optimizer's state
+                _profile_step(tr, card, "[11 phases slice] profiled bf16 msk",
+                              "msk_step_profile.txt")
+            torch.cuda.synchronize()
+    finally:
+        MoCoFlowTrainer.train_func = orig
+    result["launches"] = counts
+    return result
+
+
 def main():
     card = phase_card()
     dev = torch.device("cuda")
@@ -808,6 +1149,12 @@ def main():
     phase_train_golden(dev)
     torch.cuda.synchronize()
     tsl = phase_train_slice(card)
+    torch.cuda.synchronize()
+    nk = phase_nof_kernels(dev, card)
+    torch.cuda.synchronize()
+    phase_phases_golden(dev)
+    torch.cuda.synchronize()
+    psl = phase_phases_slice(card)
     torch.cuda.synchronize()
     fine = k["times"]["fine S=256 N=4096 nof bf16"]
     n_fine = 4096 * 256
@@ -829,11 +1176,21 @@ def main():
             "launches": tsl["launches"][name],
             "max_abs_err": tk["err"][name], "ms": t[0], "plain_ms": t[1],
             "bound_ms": t[2], "bound_by": t[3], "library_ms": None})
+    for name, src, rep in NOF_KERNELS:
+        t = nk["times"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": psl["launches"][name],
+            "max_abs_err": nk["err"][name], "ms": t[0], "plain_ms": t[1],
+            "bound_ms": t[2], "bound_by": t[3], "library_ms": None})
+    for kern in kernels:
+        if kern["launches"] <= 0:
+            raise AssertionError(f"{kern['name']}: no launch on its main path")
+    log(card)
     print(json.dumps({"kernels": kernels}))
-    # count: the one card this run used
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

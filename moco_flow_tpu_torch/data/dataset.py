@@ -7,8 +7,9 @@ normalized frame indices, full-frame rays and composited targets (val mode),
 and for training the per-frame ``FrameTable`` with its padded valid-pixel
 table (the filled convex hull of the projected AABB) and
 ``sample_train_rays``, which picks a step's rays with the pixel slots and
-background of a ``Draws`` record. The correspondence table (NoF supervision)
-and the spherical poses wait for later slices.
+background of a ``Draws`` record, and the SMPL correspondence table of the
+train frames (NoF supervision, built at first use). The spherical poses wait
+for a later slice.
 
 Tensors live on the CPU; the trainer moves the table and the images to its
 device once, and each val frame's rays as it renders them.
@@ -26,6 +27,7 @@ import torch
 from ..geometry.camera import (Camera, aabb_corners, near_far_from_aabb,
                                rescale_aabb)
 from ..geometry.smpl import SMPLData, load_smpl_data, smpl_forward
+from .correspondence import CorrespondenceTable, build_correspondence_table
 from .draws import Draws
 
 
@@ -138,8 +140,19 @@ class MoCoFlowDataset:
         betas = torch.as_tensor(np.stack(
             [np.asarray(fr["betas"], np.float32) for fr in frames]))
         self._verts = smpl_forward(self.smpl, poses, betas).numpy()
+        self._poses, self._betas = poses, betas
+        self._corr_table = None
         if self.mode == "train":
             self._build_table()
+
+    @property
+    def correspondence_table(self) -> CorrespondenceTable:
+        """Posed vertices and src -> canonical chains of every frame
+        (canonical frame 0), on the CPU."""
+        if self._corr_table is None:
+            self._corr_table = build_correspondence_table(
+                self.smpl, self._poses, self._betas, tgt_frame=0)
+        return self._corr_table
 
     def _build_table(self):
         """The FrameTable: recentered cameras, near/far from the AABB

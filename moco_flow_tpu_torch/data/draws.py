@@ -21,24 +21,39 @@ class Draws:
     chained: int | None         # the chained frame of the global chain
     perturb: torch.Tensor       # (N, S) uniforms of the depth jitter
     pdf: torch.Tensor           # (N, I) uniforms of the importance depths
+    # the correspondence draws, only in the full / msk phases
+    cube: torch.Tensor | None = None    # (N_sampled, 3) uniform in +-1.5
+    pick: torch.Tensor | None = None    # (N_sampled,) int64 vertex ids
+    noise: torch.Tensor | None = None   # (N_sampled, 3) standard normal
 
     def to(self, device) -> "Draws":
+        def mv(t):
+            return None if t is None else t.to(device)
         return dataclasses.replace(
-            self, pixels=self.pixels.to(device),
-            background=self.background.to(device),
-            perturb=self.perturb.to(device), pdf=self.pdf.to(device))
+            self, pixels=mv(self.pixels), background=mv(self.background),
+            perturb=mv(self.perturb), pdf=mv(self.pdf), cube=mv(self.cube),
+            pick=mv(self.pick), noise=mv(self.noise))
 
 
 def draw(gen: torch.Generator, frame: int, valid_count: int, n_rand: int,
          n_samples: int, n_importance: int, num_frames: int,
-         chain_global: bool) -> Draws:
+         chain_global: bool, n_sampled: int = 0,
+         num_verts: int = 0) -> Draws:
     """One step's draws for ``frame`` (drawn by the caller's frame policy)
-    whose valid-pixel table holds ``valid_count`` pixels. Made on the CPU
-    from ``gen``; move them with :meth:`Draws.to`."""
+    whose valid-pixel table holds ``valid_count`` pixels; with
+    ``n_sampled > 0`` also the correspondence draws over ``num_verts`` SMPL
+    vertices. Made on the CPU from ``gen``; move them with
+    :meth:`Draws.to`."""
     pixels = torch.randint(0, valid_count, (n_rand,), generator=gen)
     background = torch.rand((1, 3), generator=gen)
     chained = (int(torch.randint(0, num_frames, (), generator=gen))
                if chain_global else None)
     perturb = torch.rand((n_rand, n_samples), generator=gen)
     pdf = torch.rand((n_rand, max(n_importance, 0)), generator=gen)
-    return Draws(frame, pixels, background, chained, perturb, pdf)
+    corr = {}
+    if n_sampled > 0:
+        corr = {"cube": torch.rand((n_sampled, 3), generator=gen) * 3.0 - 1.5,
+                "pick": torch.randint(0, num_verts, (n_sampled,),
+                                      generator=gen),
+                "noise": torch.randn((n_sampled, 3), generator=gen)}
+    return Draws(frame, pixels, background, chained, perturb, pdf, **corr)

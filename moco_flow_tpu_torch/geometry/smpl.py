@@ -2,8 +2,10 @@
 24-joint tree and linear blend skinning.
 
 Port of ``moco_flow_tpu/geometry/smpl.py``. The dataset needs posed vertices
-for each frame's AABB, and so for near/far. ``synthetic_smpl_data`` draws the
-same arrays as the JAX package from the same seed (numpy).
+for each frame's AABB, and so for near/far, and the per-vertex rest -> posed
+transforms for the NoF supervision's correspondence table.
+``synthetic_smpl_data`` draws the same arrays as the JAX package from the
+same seed (numpy).
 """
 
 from __future__ import annotations
@@ -166,3 +168,12 @@ def smpl_forward(data: SMPLData, pose: torch.Tensor,
     tr = torch.einsum("vj,bjmn->bvmn", w, g)
     homo = torch.cat([v_posed, torch.ones_like(v_posed[..., :1])], dim=-1)
     return torch.einsum("bvmn,bvn->bvm", tr, homo)[..., :3]
+
+
+def smpl_vertex_transforms(data: SMPLData, pose: torch.Tensor,
+                           betas: torch.Tensor) -> torch.Tensor:
+    """Per-vertex rest -> posed 4x4 transforms (B, V, 4, 4)."""
+    g, _ = _joint_transforms(data, pose, betas)
+    w = torch.as_tensor(data.lbs_weights, dtype=torch.float32,
+                        device=pose.device)
+    return torch.einsum("vj,bjmn->bvmn", w, g)

@@ -1,9 +1,10 @@
 """Loss functions of the stage-3 step.
 
 Port of ``moco_flow_tpu/nn/losses.py``: the MSE / L1 image loss on the
-coarse (+ fine) rgb and the masked mean behind the consensus terms.
-``masked_loss`` and ``masked_bce`` (NoF supervision and the alpha-mask loss)
-belong to the ``msk`` / ``full`` phases, ROADMAP 'Modules to port' item 1.
+coarse (+ fine) rgb, the masked mean behind the consensus terms, and the
+masked L1 (NoF supervision) and masked BCE (alpha mask) of the ``full`` /
+``msk`` phases. Masks select with static shapes: a masked mean, the plain
+mean when the mask is empty.
 """
 
 from __future__ import annotations
@@ -13,6 +14,18 @@ import torch
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean((pred - target) ** 2)
+
+
+def l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(pred - target))
+
+
+def bce(pred: torch.Tensor, target: torch.Tensor,
+        eps: float = 1e-7) -> torch.Tensor:
+    """Binary cross entropy on probabilities, clamped to [eps, 1 - eps]."""
+    p = torch.clamp(pred, eps, 1.0 - eps)
+    return torch.mean(-(target * torch.log(p)
+                        + (1.0 - target) * torch.log(1.0 - p)))
 
 
 _ELEMENTWISE = {"MSE": lambda p, t: (p - t) ** 2,
@@ -36,3 +49,21 @@ def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     total = torch.sum(mask)
     safe = torch.where(total > 0, mask, torch.ones_like(mask))
     return torch.sum(values * safe) / torch.sum(safe)
+
+
+def masked_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+                kind: str = "L1") -> torch.Tensor:
+    """Masked-mean elementwise loss; ``mask`` broadcasts over the last
+    axis."""
+    elem = _ELEMENTWISE[kind](pred, target)
+    return masked_mean(elem, mask[..., None].expand(elem.shape))
+
+
+def masked_bce(pred: torch.Tensor, mask: torch.Tensor,
+               target_value: float = 0.0, eps: float = 1e-7) -> torch.Tensor:
+    """Masked BCE against a constant target (the alpha-mask loss)."""
+    p = torch.clamp(pred, eps, 1.0 - eps)
+    t = torch.full_like(p, target_value)
+    elem = -(t * torch.log(p) + (1.0 - t) * torch.log(1.0 - p))
+    mask = mask.reshape(mask.shape + (1,) * (elem.ndim - mask.ndim))
+    return masked_mean(elem, mask.expand(elem.shape))

@@ -16,8 +16,10 @@ path.
   the two warped sets, the fine NeRF and the fine consensus terms. Random
   numbers come in a :class:`Draws` record.
 
-A training render with the NoF but without a warp chain runs the single-warp
-NoF kernel, which is not ported yet: it raises and names its ROADMAP item.
+A training render with the NoF but without a warp chain (the val step's)
+warps each sample set once through the single-warp NoF kernel
+(:func:`nof_warp`, :func:`nof_fused_rays`); with ``perturb == 0`` it draws
+nothing and needs no ``Draws``.
 """
 
 from __future__ import annotations
@@ -32,14 +34,10 @@ from ..nn.nof import NoFConfig
 from ..nn.losses import masked_mean
 from ..ops.nerf_rays import nerf_fused_rays_t
 from ..ops.nof_chain import nof_chain_rays_t
+from ..ops.nof_rays import nof_fused_rays
 from ..ops.render_pass import render_pass
 from .sampling import (compact_fine_samples, merge_cano_by_z_t, sample_pdf,
                        stratified_zvals, unsort_by_pos)
-
-# the training paths that wait for the single-warp NoF kernel
-_SINGLE_WARP = ("ROADMAP 'Modules to port' item 1 (the single-warp NoF "
-                "kernels #3/#4)")
-
 
 @dataclasses.dataclass(frozen=True)
 class EmbeddingSpec:
@@ -106,6 +104,32 @@ def embed_padded(x: torch.Tensor, spec: EmbeddingSpec, target_dim: int,
     if pad:
         emb = torch.cat([emb, emb.new_zeros((*emb.shape[:-1], pad))], dim=-1)
     return emb
+
+
+def encode_nerf_xyz(nerf_params: dict, nerf_cfg: NeRFConfig,
+                    statics: "ModelStatics", flat: torch.Tensor,
+                    anneal: dict) -> torch.Tensor:
+    """(M, 3) positions -> the NeRF's input features: the annealed
+    sinusoidal PE, zero-padded to ``in_channels_xyz``."""
+    if nerf_cfg.encoding == "hashgrid":
+        raise NotImplementedError(
+            "the hash-grid encoding is not ported yet; ROADMAP 'Modules to "
+            "port' item 7")
+    return embed_padded(flat, statics.nerf_xyz, nerf_cfg.in_channels_xyz,
+                        anneal.get("nerf_xyz"))
+
+
+def nof_warp(params: dict, statics: "ModelStatics", anneal: dict,
+             xyz: torch.Tensor, ind: torch.Tensor,
+             rcfg: "RenderConfig") -> torch.Tensor:
+    """Warp (N, S, 3) sample positions through one NoF, the frame index
+    ``ind`` (N, 1) per ray, with the single-warp kernel. Returns
+    (N, S, 3)."""
+    cfg = statics.nof
+    ind_emb = embed_padded(ind, statics.nof_ind, cfg.extra_feat_dim)
+    return nof_fused_rays(params, cfg, statics.nof_xyz.n_freqs,
+                          statics.nof_xyz.logscale, anneal.get("nof_xyz"),
+                          xyz, ind_emb, compute_dtype=rcfg.dtype)
 
 
 def composite(sigmas: torch.Tensor, z_vals: torch.Tensor,
@@ -244,18 +268,14 @@ def _render_train(params: dict, statics: ModelStatics, anneal: dict,
                   rays: torch.Tensor, background, rcfg: RenderConfig,
                   draws) -> dict:
     """The training branch of :func:`render_rays` (see the module note)."""
-    if draws is None:
-        raise ValueError("a training render needs its Draws")
+    if draws is None and rcfg.perturb > 0:
+        raise ValueError("a perturbed training render needs its Draws")
     if rcfg.noise_std > 0:
         raise NotImplementedError(
             "sigma noise (noise_std > 0) is not drawn by Draws yet; "
             "ROADMAP 'Modules to port' item 2")
     use_nof = rcfg.use_nof and statics.nof is not None
     chains = rcfg.chain_local or rcfg.chain_global
-    if use_nof and not chains:
-        raise NotImplementedError(
-            "a training render with the NoF and no warp chain runs the "
-            f"single-warp NoF kernel: {_SINGLE_WARP}")
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
     img_ind = rays[:, 8:9]
@@ -267,12 +287,19 @@ def _render_train(params: dict, statics: ModelStatics, anneal: dict,
                              "index column")
         chained_ind = rays[:, 9:10]
     z_vals = stratified_zvals(near, far, rcfg.n_samples, rcfg.use_disp,
-                              rcfg.perturb, u=draws.perturb)
+                              rcfg.perturb,
+                              u=None if draws is None else draws.perturb)
     o_t, d_t = rays_o.T, rays_d.T                               # (3, N)
     xyz_coarse = o_t[:, :, None] + d_t[:, :, None] * z_vals[None]
 
     def warp_stack(xyz_t):
-        """bw warp + local / global chains of one sample set, (3, N, S)."""
+        """bw warp + local / global chains of one sample set, (3, N, S);
+        without a chain, the bw warp alone through the single-warp kernel
+        (on the row-major layout, as JAX's chain-off branch)."""
+        if not chains:
+            cano = nof_warp(params["bw_NoF"], statics, anneal,
+                            xyz_t.permute(1, 2, 0), img_ind, rcfg)
+            return {"cano": cano.permute(2, 0, 1)}
         cfg = statics.nof
         ind_emb = embed_padded(img_ind, statics.nof_ind, cfg.extra_feat_dim)
         ch_emb = (embed_padded(chained_ind, statics.nof_ind,
@@ -305,7 +332,8 @@ def _render_train(params: dict, statics: ModelStatics, anneal: dict,
     z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
     with torch.profiler.record_function("sample_pdf"):
         z_fine = sample_pdf(z_mid, weights_c[:, 1:-1], rcfg.n_importance,
-                            det=(rcfg.perturb == 0), u=draws.pdf).detach()
+                            det=(rcfg.perturb == 0),
+                            u=None if draws is None else draws.pdf).detach()
     if use_nof and rcfg.share_coarse_warps:
         # the fine set is the coarse depths plus the new ones, and the warp
         # chain is the same networks for both passes: warp only the new

@@ -10,10 +10,12 @@ go to ``save_dir/exp_name/<job_name>/ckpts`` every ``save_every_n_step``
 steps and as ``final`` at the end. ``train(config, args)`` takes the config
 as a dict, so callers can skip YAML.
 
-The port trains the ``none`` phase of the NoF-supervision schedule
-(``coarse2fine_start_iter < step < coarse2fine_end_iter``, ``(step // 1000)
-% 10 != 0``). A step in another phase, and ``val_every_n_step > 0``, raise
-and name their ROADMAP item.
+Every phase of the NoF-supervision schedule trains (``full``, ``none``,
+``msk``; ``MoCoFlowTrainer.phase``), with both optimizers' state resumed
+from the checkpoint. The val step runs as ``trainer.val_func()``; the JAX
+loop follows each val step with ``visualize_batch`` (``train/vis.py``: the
+spherical video and the mesh), which is not ported, so
+``val_every_n_step > 0`` raises and names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ import os.path as osp
 import time
 
 from .checkpoint import find_latest_checkpoint
-from .stage_mocoflow import _VAL_STEP, MoCoFlowTrainer
+from .stage_mocoflow import MoCoFlowTrainer
+
+_VIS = ("ROADMAP 'Modules to port' item 4 (train/vis.py: the "
+        "visualisation that follows each val step)")
 
 
 def job_dir(config: dict, args) -> str:
@@ -42,14 +47,16 @@ def train(config: dict, args, smpl_data=None, scene=None) -> MoCoFlowTrainer:
     tcfg = config["trainer"]
     if tcfg.get("val_every_n_step", 0):
         raise NotImplementedError(
-            f"val_every_n_step > 0 is not ported: {_VAL_STEP}; set it to 0")
+            f"val_every_n_step > 0 is not ported: {_VIS}; set it to 0 and "
+            "call trainer.val_func()")
     seed = int(args.seed) if getattr(args, "seed", None) is not None else 0
     trainer = MoCoFlowTrainer(config, device=getattr(args, "device", "cuda"),
                               seed=seed, smpl_data=smpl_data, scene=scene)
     trainer.job_dir = job_dir(config, args)
     os.makedirs(osp.join(trainer.job_dir, "ckpts"), exist_ok=True)
     trainer.build_model(config["model"])
-    trainer.prepare_train_data(config["dataloader"])
+    trainer.prepare_dataloader(config["dataloader"])     # val
+    trainer.prepare_train_data(config["dataloader"])     # its num_frames wins
     trainer.configure_optimizers(config["optimizer"], config.get("scheduler"))
     latest = find_latest_checkpoint(osp.join(trainer.save_dir, "*", "ckpts",
                                              "*.npz"))

@@ -1,18 +1,25 @@
-"""The stage-3 MoCo-Flow trainer: test-time rendering and the training step.
+"""The stage-3 MoCo-Flow trainer: rendering, the training step and the val
+step.
 
 Port of ``moco_flow_tpu/train/stage_mocoflow.py`` and the parts of
 ``moco_flow_tpu/train/base.py`` it uses: model build, PE annealing from the
-step, checkpoint save and load (parameters, the clock and
-``nof_opt_deleted``), the val dataset, chunked full-frame rendering and
-sequence evaluation, and the training step of the ``none`` phase of the
-NoF-supervision schedule: frame and ray sampling, the chained-frame column,
-the training render, the image and consensus losses, the backward through
-the kernels and one Adam update.
+step, checkpoint save and load (parameters, both optimizers' state in the
+JAX ``opt_named`` form, the clock and ``nof_opt_deleted``), the train and
+val datasets, chunked full-frame rendering and sequence evaluation, and the
+training step in every phase of the NoF-supervision schedule (``phase``):
 
-The ``full`` / ``msk`` phases (NoF supervision, the mask loss, the density
-freeze and the second optimizer) and the val step run the single-warp NoF
-kernel, which is not ported yet: they raise and name their ROADMAP item.
-Optimizer state is not checkpointed yet: a resumed run starts a fresh Adam.
+- ``full`` (before the c2f start): the image and consensus losses, the NoF
+  L1 supervision of both NoFs on the SMPL correspondences and the
+  alpha-mask BCE, with the density frozen and the second (``nof``)
+  optimizer stepping after ``moco`` on the same gradients (the reference's
+  double update);
+- ``none``: image and consensus losses; the ``nof`` optimizer is deleted at
+  the first such step (the c2f start itself still freezes the density);
+- ``msk``: ``none`` plus the alpha-mask BCE.
+
+The val step renders a val frame with the chains off and ``perturb = 0``
+(``rcfg_val``) and reports PSNR and, under the key ``ssim``, the DSSIM, as
+the JAX trainer does.
 """
 
 from __future__ import annotations
@@ -22,24 +29,36 @@ import os.path as osp
 import numpy as np
 import torch
 
+from ..data.correspondence import sample_correspondences
 from ..data.dataset import get_dataset, sample_train_rays
 from ..data.draws import Draws, draw
 from ..nn.embedding import anneal_weights
-from ..nn.losses import image_loss
+from ..nn.losses import image_loss, masked_bce, masked_loss
 from ..nn.metrics import dssim, psnr, ssim
+from ..nn.nerf import nerf_sigma
 from ..parallel.mesh import FRAME_SAMPLING_POLICIES, sample_frame
-from ..render.volume import RenderConfig, render_rays
+from ..render.volume import RenderConfig, encode_nerf_xyz, render_rays
 from .base import TrainClock
 from .checkpoint import _flatten, load_checkpoint, merge_into, save_checkpoint
 from .factory import build_statics, init_params, render_config
-from .optim import make_optimizer
+from .optim import make_optimizer, zero_grads_where
+from .stage_nof import nof_points
 
-# the phases and options of the JAX trainer that wait for later slices
-_NOF_PHASES = ("ROADMAP 'Modules to port' item 1 (the msk/full phases: "
-               "nof_points, kernels #3/#4, correspondences, the mask loss, "
-               "the density freeze and the second optimizer)")
-_VAL_STEP = ("ROADMAP 'Modules to port' item 1 (the val step renders with "
-             "the chains off, through the single-warp NoF kernel #3)")
+_NOF_NETS = ("bw_NoF", "fw_NoF")
+
+
+def _freeze_density(path: str) -> bool:
+    """Frozen before the c2f start: the NeRFs' trunk and sigma head; the rgb
+    branch (final / extra / rgb) keeps training."""
+    parts = path.split("/")
+    return len(parts) >= 2 and parts[0].endswith("NeRF") and \
+        parts[1] in ("trunk", "sigma")
+
+
+def _alpha(sigma: torch.Tensor, delta: float) -> torch.Tensor:
+    """1 - exp(-delta softplus(sigma)), softplus as jax.nn.softplus."""
+    return 1.0 - torch.exp(-delta * torch.logaddexp(sigma,
+                                                    torch.zeros_like(sigma)))
 
 
 class MoCoFlowTrainer:
@@ -65,6 +84,8 @@ class MoCoFlowTrainer:
         self.clock = TrainClock()
         self.params: dict = {}
         self.opt = None
+        self.opt_nof = None
+        self._opt_named = None    # optimizer state of a loaded checkpoint
         self.nof_opt_deleted = False
         self.save_dir = osp.join(config.get("save_dir", "./log"),
                                  config.get("exp_name", "exp"))
@@ -103,6 +124,11 @@ class MoCoFlowTrainer:
         self.rcfg_train = render_config(
             model_config, use_nof=True, chain_local=self.chain_local,
             chain_global=self.chain_global)
+        # val consumes rgb only: chains off (frame rays carry no chained
+        # index), no jitter, so it draws nothing
+        self.rcfg_val = render_config(model_config, use_nof=True,
+                                      chain_local=False, chain_global=False,
+                                      perturb=0.0)
         self.rcfg_test = render_config(model_config, use_nof=True,
                                        test_time=True, perturb=0.0)
         self.rcfg_test_cano = render_config(model_config, use_nof=False,
@@ -115,6 +141,7 @@ class MoCoFlowTrainer:
                   "nof": w["nof_loss"].get("weight", 0.0),
                   "msk": w["msk_loss"].get("weight", 0.0)}
         self.img_loss_kind = w["img_loss"].get("type", "MSE")
+        self.nof_loss_kind = w["nof_loss"].get("type", "L1")
 
     def anneal(self, step: int | None = None) -> dict:
         """PE annealing weights at ``step`` (default: the loaded step)."""
@@ -130,30 +157,51 @@ class MoCoFlowTrainer:
         return out
 
     def load_ckpt(self, path: str):
-        """Parameters (``strict=False``), the clock and ``nof_opt_deleted``
-        of a checkpoint. Optimizer state is not restored: the next training
-        step starts a fresh optimizer on the loaded parameters."""
+        """Parameters (``strict=False``), the clock, ``nof_opt_deleted`` and
+        the optimizers' ``opt_named`` state of a checkpoint of either
+        package; the state is restored when the optimizers are built (at
+        the next training step)."""
         tree, extra = load_checkpoint(path)
         self.params = merge_into(self.params, tree.get("params", tree))
         if "clock" in extra:
             self.clock.restore_checkpoint(extra["clock"])
         self.nof_opt_deleted = bool(extra.get("nof_opt_deleted", False))
-        self.opt = None
+        self._opt_named = tree.get("opt_named")
+        self.opt = self.opt_nof = None
         print(f"loaded checkpoint {path}")
 
     def save_ckpt(self, name: str | None = None, job_dir: str | None = None):
-        """Parameters, clock and ``nof_opt_deleted`` as
-        ``<job_dir>/ckpts/<name>.npz`` (+ ``.json``), the JAX format."""
+        """Parameters, the optimizers' state (``opt_named``; a deleted
+        ``nof`` optimizer is not written), the clock and
+        ``nof_opt_deleted`` as ``<job_dir>/ckpts/<name>.npz`` (+ ``.json``),
+        the JAX format."""
         if name is None:
             name = f"epoch{self.clock.epoch}_iter{self.clock.step}"
         path = osp.join(job_dir or self.job_dir, "ckpts", name)
-        save_checkpoint(path, {"params": self.params}, extra={
+        tree = {"params": self.params}
+        named = self._opt_state_named()
+        if named:
+            tree["opt_named"] = named
+        save_checkpoint(path, tree, extra={
             "clock": self.clock.make_checkpoint(),
             "nof_opt_deleted": self.nof_opt_deleted})
         print(f"saved checkpoint {path}")
         return path
 
+    def _opt_state_named(self) -> dict | None:
+        if self.opt is None:              # no step since the load
+            if self._opt_named is None:
+                return None
+            return {k: v for k, v in self._opt_named.items()
+                    if not (self.nof_opt_deleted and k.startswith("['nof']"))}
+        out = self.opt.state_named("['moco']")
+        if self.opt_nof is not None:
+            out.update(self.opt_nof.state_named("['nof']"))
+        return out
+
     def prepare_dataloader(self, data_config: dict):
+        """The val dataset (``val_size``), for the val step and for
+        evaluation."""
         self.val_dataset = get_dataset(data_config, "val",
                                        smpl_data=self.smpl_data,
                                        scene=self.scene)
@@ -164,19 +212,23 @@ class MoCoFlowTrainer:
     # ------------------------------------------------------------------
 
     def prepare_train_data(self, data_config: dict):
-        """The train dataset; its frame table, direction grid, images and
-        background go to the trainer's device (:meth:`set_train_data`)."""
+        """The train dataset; its frame table, direction grid, images,
+        background and SMPL correspondence table go to the trainer's device
+        (:meth:`set_train_data`)."""
         ds = get_dataset(data_config, "train", smpl_data=self.smpl_data,
                          scene=self.scene)
         if ds.images is None:
             raise ValueError("the train dataset has no images")
         self.set_train_data(ds.table, ds.directions_flat, ds.images,
-                            ds.bkgd_img, ds.rand_bkgd)
+                            ds.bkgd_img, ds.rand_bkgd,
+                            corr=ds.correspondence_table)
 
     def set_train_data(self, table, directions, images, bkgd_img,
-                       rand_bkgd: bool):
+                       rand_bkgd: bool, corr=None):
         """Train on ``table`` (a ``FrameTable``), the (H*W, 3) direction
-        grid, (F, H*W, C) uint8 ``images`` and the (H*W, 3) background."""
+        grid, (F, H*W, C) uint8 ``images``, the (H*W, 3) background and the
+        ``CorrespondenceTable`` of the NoF supervision (needed by the
+        ``full`` / ``msk`` steps)."""
         self.num_frames = int(table.valid_count.shape[0])
         self._valid_count = [int(c) for c in table.valid_count]
         self._table = table.to(self.device)
@@ -185,21 +237,43 @@ class MoCoFlowTrainer:
         self._bkgd = bkgd_img.to(self.device)
         self._rand_bkgd = bool(rand_bkgd)
         self._has_alpha = images.shape[-1] == 4
+        self._corr = None if corr is None else corr.to(self.device)
 
     def configure_optimizers(self, optimizer_config: dict,
                              scheduler_config: dict | None):
-        """The ``moco`` optimizer over every parameter. The ``nof`` one
-        only steps in the ``full`` / ``msk`` phases before its deletion
-        (``nof_opt_deleted``), which are not ported."""
-        self.opt_cfg = (optimizer_config["moco"], scheduler_config)
-        self.opt = None
+        """The ``moco`` optimizer over every parameter and the ``nof`` one
+        over the bw / fw NoFs, built at the first training step (and after
+        each checkpoint load)."""
+        self.opt_cfg = (optimizer_config, scheduler_config)
+        self.opt = self.opt_nof = None
 
-    def _optimizer(self):
-        if self.opt is None:
-            leaves = list(_flatten(self.params, leaf=lambda t: t).values())
-            for t in leaves:
-                t.requires_grad_(True)
-            self.opt = make_optimizer(leaves, *self.opt_cfg)
+    def _named(self) -> dict:
+        return _flatten(self.params, leaf=lambda t: t)
+
+    def _optimizers(self):
+        """The ``moco`` optimizer, and ``opt_nof`` unless it is deleted,
+        with a loaded checkpoint's state."""
+        if self.opt is not None:
+            return self.opt
+        named = self._named()
+        for t in named.values():
+            t.requires_grad_(True)
+        opt_cfg, sched = self.opt_cfg
+        self.opt = make_optimizer(list(named.values()), opt_cfg["moco"],
+                                  sched, names=list(named))
+        if not self.nof_opt_deleted:
+            if "nof" not in opt_cfg:
+                raise ValueError("a full / msk step before the nof "
+                                 "optimizer's deletion needs optimizer.nof")
+            nof = {k: t for k, t in named.items()
+                   if k.split("/")[0] in _NOF_NETS}
+            self.opt_nof = make_optimizer(list(nof.values()), opt_cfg["nof"],
+                                          sched, names=list(nof))
+        if self._opt_named is not None:
+            self.opt.load_named(self._opt_named, "['moco']")
+            if self.opt_nof is not None:
+                self.opt_nof.load_named(self._opt_named, "['nof']")
+            self._opt_named = None
         return self.opt
 
     def phase(self, step: int):
@@ -226,39 +300,71 @@ class MoCoFlowTrainer:
             int(self.seed) * 1_000_003 + int(step))
         frame = sample_frame(policy, self.seed, step, self.num_frames, gen)
         rcfg = self.rcfg_train
+        corr = self.phase(step)[0] != "none"
         return draw(gen, frame, self._valid_count[frame],
                     int(mcfg["N_rand"]), rcfg.n_samples, rcfg.n_importance,
-                    self.num_frames, self.chain_global)
+                    self.num_frames, self.chain_global,
+                    n_sampled=int(mcfg.get("N_sampled", 1000)) if corr else 0,
+                    num_verts=int(self._corr.verts.shape[1]) if corr else 0)
 
-    def _losses(self, params, anneal, rays, rgbs, bg, draws: Draws):
-        """The losses of the ``none`` phase, and the train PSNR."""
-        res = render_rays(params, self.statics, anneal, rays, bg,
-                          self.rcfg_train, draws=draws)
+    def _losses(self, params, anneal, rays, rgbs, bg, draws: Draws, corr,
+                norm_idx, nof_mode: str):
+        """Every loss of the step's phase, and the train PSNR."""
+        statics, rcfg, w = self.statics, self.rcfg_train, self.w
+        res = render_rays(params, statics, anneal, rays, bg, rcfg,
+                          draws=draws)
         losses = {"img_loss": image_loss(res, rgbs, self.img_loss_kind)
-                  * self.w["img"]}
+                  * w["img"]}
         for name, on in (("local", self.chain_local),
                          ("global", self.chain_global)):
             if on:
                 v = res[f"nof_{name}_disp_coarse"]
                 if f"nof_{name}_disp_fine" in res:
                     v = v + res[f"nof_{name}_disp_fine"]
-                losses[f"nof_{name}"] = v * self.w[name]
+                losses[f"nof_{name}"] = v * w[name]
+        if nof_mode != "none" and corr is not None:
+            query, cano, inside = corr["query"], corr["cano"], corr["inside"]
+            bw = nof_points(params["bw_NoF"], statics, anneal, query,
+                            norm_idx, rcfg)
+            if nof_mode == "full":
+                losses["nof_bw"] = masked_loss(
+                    bw, cano, inside, self.nof_loss_kind) * w["nof"]
+                if "fw_NoF" in params:
+                    fw = nof_points(params["fw_NoF"], statics, anneal, cano,
+                                    norm_idx, rcfg)
+                    losses["nof_fw"] = masked_loss(
+                        fw, query, inside, self.nof_loss_kind) * w["nof"]
+            if w["msk"] > 0:
+                # NoF-warped outside points must be empty in the canonical
+                # field; the density is fp32 whatever the compute type, as
+                # JAX's nerf_sigma without a compute dtype
+                outside = ~inside
+                sig = nerf_sigma(params["coarse_NeRF"], encode_nerf_xyz(
+                    params["coarse_NeRF"], statics.coarse, statics, bw,
+                    anneal), statics.coarse)
+                msk = masked_bce(_alpha(sig[:, 0], 1.0 / rcfg.n_samples),
+                                 outside, 0.0)
+                if "fine_NeRF" in params and rcfg.n_importance > 0:
+                    sig_f = nerf_sigma(params["fine_NeRF"], encode_nerf_xyz(
+                        params["fine_NeRF"], statics.fine, statics, bw,
+                        anneal), statics.fine)
+                    a_f = _alpha(sig_f[:, 0], 1.0 / (rcfg.n_samples
+                                                     + rcfg.n_importance))
+                    msk = 0.5 * (msk + masked_bce(a_f, outside, 0.0))
+                losses["alphas_mask"] = msk * w["msk"]
         typ = "rgb_fine" if "rgb_fine" in res else "rgb_coarse"
         return losses, psnr(res[typ].detach(), rgbs)
 
     def train_step(self, draws: Draws | None = None) -> dict:
         """One training step at ``self.step`` (the clock is not ticked):
-        draws (or the given ``draws``), rays, render, losses, backward and
-        one optimizer update. Returns the losses and ``train_psnr`` as
-        0-dim tensors."""
+        draws (or the given ``draws``), rays, correspondences, render,
+        losses, backward, the density freeze and the optimizer updates.
+        Returns the losses and ``train_psnr`` as 0-dim tensors."""
         step = self.clock.step
         nof_mode, freeze = self.phase(step)
-        if nof_mode != "none" or freeze:
-            raise NotImplementedError(
-                f"step {step} is in the {nof_mode!r} phase"
-                f"{' with the density frozen' if freeze else ''}: "
-                f"{_NOF_PHASES}")
-        self.nof_opt_deleted = True
+        if nof_mode == "none":
+            self.nof_opt_deleted = True
+            self.opt_nof = None
         if draws is None:
             draws = self.draw(step)
         draws = draws.to(self.device)
@@ -270,12 +376,26 @@ class MoCoFlowTrainer:
                     * 2.0 / self.num_frames - 1.0)
             rays = torch.cat([rays, torch.zeros_like(rays[:, :1]) + cidx],
                              dim=1)
-        opt = self._optimizer()
+        corr = None
+        if nof_mode != "none":
+            if self._corr is None or draws.cube is None:
+                raise ValueError(
+                    f"step {step} ({nof_mode!r}) needs the correspondence "
+                    "table and the correspondence draws")
+            corr = sample_correspondences(self._corr, draws.frame,
+                                          draws.cube, draws.pick,
+                                          draws.noise, thickness=0.2)
+        opt = self._optimizers()
         opt.zero_grad()
-        losses, train_psnr = self._losses(self.params, self.anneal(step),
-                                          rays, rgbs, bg, draws)
+        losses, train_psnr = self._losses(
+            self.params, self.anneal(step), rays, rgbs, bg, draws, corr,
+            self._table.norm_idx[draws.frame], nof_mode)
         sum(losses.values()).backward()
+        if freeze:
+            zero_grads_where(self._named(), _freeze_density)
         opt.step()
+        if self.opt_nof is not None:
+            self.opt_nof.step()     # the same gradients, the updated params
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["train_psnr"] = train_psnr
         return metrics
@@ -289,6 +409,44 @@ class MoCoFlowTrainer:
             print(f"[step {self.clock.step}] " + " ".join(
                 f"{k} {v:.6f}" for k, v in metrics.items()))
         self.losses = metrics
+        return metrics
+
+    # ------------------------------------------------------------------
+    # validation
+    # ------------------------------------------------------------------
+
+    def val_rng(self) -> np.random.Generator:
+        """Host RNG of the val choices, keyed on (seed, step) as in the JAX
+        trainer."""
+        return np.random.default_rng((int(self.seed), int(self.clock.step)))
+
+    def val_step(self) -> dict:
+        """Render one val frame (drawn by :meth:`val_rng`) with ``rcfg_val``
+        and score it: ``val_psnr``, and the DSSIM under ``ssim`` (the JAX
+        trainer's key)."""
+        ds = self.val_dataset
+        idx = int(self.val_rng().integers(ds.num_frames))
+        rgbs = ds.frame_rgbs(idx)
+        if rgbs is None:
+            return {}
+        with torch.no_grad():
+            res = self.render_rays_chunked(ds.frame_rays(idx), ds.bkgd_img,
+                                           self.rcfg_val,
+                                           anneal=self.anneal())
+        typ = "rgb_fine" if "rgb_fine" in res else "rgb_coarse"
+        h, w = ds.size
+        rgbs = rgbs.to(self.device)
+        pred = res[typ].reshape(h, w, 3).permute(2, 0, 1)[None]
+        gt = rgbs.reshape(h, w, 3).permute(2, 0, 1)[None]
+        return {"val_psnr": float(psnr(res[typ], rgbs)),
+                "ssim": float(dssim(pred, gt))}
+
+    def val_func(self) -> dict:
+        """The val step, its metrics printed."""
+        metrics = self.val_step()
+        if metrics:
+            print(f"[val step {self.clock.step}] " + " ".join(
+                f"{k} {v:.6f}" for k, v in metrics.items()))
         return metrics
 
     def render_rays_chunked(self, rays: torch.Tensor, background,

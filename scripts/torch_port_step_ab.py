@@ -1,0 +1,104 @@
+#!/usr/bin/env python
+"""Time the port's stage-3 ``none`` training step in two trees of this
+repository on one card, interleaved A, B, B, A.
+
+    python scripts/torch_port_step_ab.py A_DIR B_DIR [--steps 10]
+
+Each directory is a checkout holding ``chip_smoke.py`` and
+``moco_flow_tpu_torch/`` (for example a parent commit unpacked with ``git
+archive`` under the git-ignored ``build/``). Both trees build their kernels
+first, in parallel, each into its own ``build/torch_kernels/``. Then each
+run is a process of its own in its tree: the training slice of
+chip_smoke.py's phase 8 (``train(config, args)`` at c2f.yaml widths, 1024
+rays x (128 + 128) samples, both chains, from a seeded checkpoint at step
+6000), 3 warm steps and ``--steps`` steps timed with CUDA events, in bf16
+and fp32. Prints one JSON line per run and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+CHILD = r"""
+import json, os, sys
+import torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+from moco_flow_tpu_torch.ops import _build
+if sys.argv[1] == "build":
+    _build.build()
+    _build.load_library()
+    sys.exit(0)
+from moco_flow_tpu_torch.train.__main__ import parse_args, train
+from moco_flow_tpu_torch.train.checkpoint import save_checkpoint
+from moco_flow_tpu_torch.train.factory import build_statics, init_params
+torch.backends.cuda.matmul.allow_tf32 = False
+steps = int(sys.argv[2])
+scene = cs.make_synthetic_scene(None, n_frames=8, size=256, focal=300.0)
+out = {}
+for dtype in ("bfloat16", "float32"):
+    cfg = cs.train_config(dtype)
+    cfg["save_dir"] = os.path.join(os.getcwd(), "build", "step_ab", dtype)
+    cfg["trainer"]["num_iters"] = cs.TRAIN_START + 1
+    params = init_params(torch.Generator().manual_seed(0),
+                         build_statics(cfg["model"]), with_nof=True,
+                         with_fw_nof=True)
+    for net in ("coarse_NeRF", "fine_NeRF"):
+        params[net]["sigma"]["b"] += 1.0
+    seed = os.path.join(cfg["save_dir"], "seeded")
+    save_checkpoint(seed, {"params": params}, extra={
+        "clock": {"epoch": 1, "minibatch": 0, "step": cs.TRAIN_START}})
+    args = parse_args(["-c", "(dict)", "-r", seed + ".npz", "-n", "ab",
+                       "--device", "cuda"])
+    tr = train(cfg, args, scene=scene)
+    for _ in range(3):
+        tr.train_step()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(steps):
+        tr.train_step()
+    e1.record()
+    torch.cuda.synchronize()
+    out[dtype] = e0.elapsed_time(e1) / steps
+print("STEP_MS " + json.dumps(out), flush=True)
+"""
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("a")
+    p.add_argument("b")
+    p.add_argument("--steps", type=int, default=10)
+    args = p.parse_args(argv)
+    trees = {"A": os.path.abspath(args.a), "B": os.path.abspath(args.b)}
+    builds = {k: subprocess.Popen([sys.executable, "-c", CHILD, "build"],
+                                  cwd=d) for k, d in trees.items()}
+    for k, proc in builds.items():
+        if proc.wait() != 0:
+            raise SystemExit(f"build of {k} ({trees[k]}) failed")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    for k in ("A", "B", "B", "A"):
+        run = subprocess.run([sys.executable, "-c", CHILD, "time",
+                              str(args.steps)], cwd=trees[k],
+                             capture_output=True, text=True)
+        line = next((ln for ln in run.stdout.splitlines()
+                     if ln.startswith("STEP_MS ")), None)
+        if run.returncode != 0 or line is None:
+            sys.stderr.write(run.stdout[-4000:] + run.stderr[-4000:])
+            raise SystemExit(f"run {k} failed ({run.returncode})")
+        ms = json.loads(line[len("STEP_MS "):])
+        print(json.dumps({"tree": k, "dir": trees[k], "steps": args.steps,
+                          "step_ms": ms}), flush=True)
+    print(card)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""The render-pass CUDA kernel against its plain PyTorch version, on a GPU.
+"""The render-pass and single-warp NoF CUDA kernels against their plain
+PyTorch versions, on a GPU.
 
 Marked ``cuda``; each test skips where no card is present. The file imports
 neither JAX nor the JAX package, so it runs on the GPU machine too, where
@@ -20,6 +21,8 @@ import torch
 from moco_flow_tpu_torch.nn.embedding import anneal_weights
 from moco_flow_tpu_torch.nn.nerf import NeRFConfig, init_nerf
 from moco_flow_tpu_torch.nn.nof import NoFConfig, init_nof
+from moco_flow_tpu_torch.ops import nof_rays
+from moco_flow_tpu_torch.ops.folds import _NofSpec, _nof_fold
 from moco_flow_tpu_torch.ops.render_pass import render_pass, render_pass_ref
 from moco_flow_tpu_torch.render.volume import EmbeddingSpec, embed_padded
 
@@ -68,3 +71,40 @@ def test_kernel_matches_plain(card, use_nof, sigma_only, dt):
         assert kr is None and rr is None
     else:
         torch.testing.assert_close(kr, rr, atol=atol, rtol=rtol)
+
+
+def _rel_max(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", [(1, 2000), (1, 5000), (37, 64)],
+                         ids=["ray2000", "ray5000", "37x64"])
+def test_nof_kernels_match_plain(card, n, s):
+    """Kernels #3/#4 (fp32) at full NoF width: the warp within 1e-4 +
+    1e-4|ref|; dxyz, d(partials) and every dW within 0.1 of each tensor's
+    largest magnitude (chip_smoke.py's TRAIN_TOL: another summation order
+    and ReLU flips at pre-activations within rounding of zero; measured
+    below 1e-6 at these shapes)."""
+    gen = torch.Generator().manual_seed(n + s)
+    fcfg = NoFConfig()
+    p = init_nof(gen, fcfg, card)
+    an = anneal_weights(505000, 5, 5000, 1005000).to(card)
+    ws, parts = _nof_fold(p, fcfg, 5, an,
+                          torch.randn(n, 33, generator=gen).to(card))
+    spec = _NofSpec(4, 128, 15, (2,), True, True)
+    xyz = (0.6 * torch.randn(3, n, s, generator=gen)).to(card)
+    g = torch.randn(3, n, s, generator=gen).to(card)
+    before = (nof_rays.nof_fwd.launches, nof_rays.nof_bwd.launches)
+    out = nof_rays.nof_fwd(spec, None, xyz, parts, ws)
+    kb = nof_rays.nof_bwd(spec, None, xyz, parts, ws, g)
+    torch.cuda.synchronize()
+    assert (nof_rays.nof_fwd.launches, nof_rays.nof_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out, nof_rays._nof_fwd_ref(spec, None, xyz,
+                                                          parts, ws),
+                               atol=1e-4, rtol=1e-4)
+    rb = nof_rays._nof_bwd_ref(spec, None, xyz, parts, ws, g)
+    for a, b in zip([kb[0], *kb[1], *kb[2]], [rb[0], *rb[1], *rb[2]]):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert _rel_max(a, b) <= 0.1

@@ -103,15 +103,33 @@ def test_fine_budget_and_probe(stored):
 
 
 def test_training_branch_raises(stored):
-    """The training render with the NoF but no warp chain runs the
-    single-warp NoF kernel, which is not ported: it raises and names its
-    ROADMAP item (the chained branch is tests/test_torch_train_render.py)."""
+    """The training render with the NoF but no warp chain (the val step's,
+    through the single-warp NoF kernel) runs; what it still lacks raises:
+    sigma noise names its ROADMAP item, and a perturbed render without its
+    Draws is refused (the chained branch is tests/test_torch_train_render.py,
+    the val step tests/test_torch_train_phases.py)."""
+    params = params_from_jax(_unflatten(
+        {k[len("params/"):]: v for k, v in stored.items()
+         if k.startswith("params/")}))
+    anneal = {k[len("anneal/"):]: torch.from_numpy(v)
+              for k, v in stored.items() if k.startswith("anneal/")}
     rays = torch.from_numpy(stored["rays"])
+    bg = torch.from_numpy(stored["background"])
     n, s, i = rays.shape[0], MODEL_CFG["N_samples"], MODEL_CFG["N_importance"]
+    statics = build_statics(MODEL_CFG)
     draws = Draws(frame=0, pixels=torch.zeros(n, dtype=torch.long),
                   background=torch.zeros(1, 3), chained=None,
                   perturb=torch.rand(n, s), pdf=torch.rand(n, i))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*#3"):
-        render_rays({}, build_statics(MODEL_CFG), {}, rays, None,
-                    RenderConfig(n_samples=s, n_importance=i, perturb=1.0,
-                                 use_nof=True, test_time=False), draws=draws)
+
+    def rcfg(**kw):
+        return RenderConfig(n_samples=s, n_importance=i, use_nof=True,
+                            test_time=False, **kw)
+
+    out = render_rays(params, statics, anneal, rays, bg, rcfg(perturb=0.0))
+    assert out["rgb_fine"].shape == (n, 3)
+    assert torch.isfinite(out["rgb_fine"]).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 2"):
+        render_rays(params, statics, anneal, rays, bg,
+                    rcfg(perturb=1.0, noise_std=1.0), draws=draws)
+    with pytest.raises(ValueError, match="Draws"):
+        render_rays(params, statics, anneal, rays, bg, rcfg(perturb=1.0))
