@@ -70,6 +70,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -698,14 +699,18 @@ def train_config(dtype: str) -> dict:
     return cfg
 
 
-def _profile_step(tr, card: str, tag: str = "[8 train slice] profiled bf16",
-                  fname: str = "train_step_profile.txt") -> None:
-    """One profiled step: device time by kernel group and the idle share,
-    written to build/chip_smoke_train/<fname>."""
-    kernels = {"nerf_bwd": "nerf_bwd_kernel", "chain_bwd": "chain_bwd_kernel",
+STEP_GROUPS = {"nerf_bwd": "nerf_bwd_kernel", "chain_bwd": "chain_bwd_kernel",
                "chain_fwd": "chain_fwd_kernel", "nerf_fwd": "render_pass",
                "nof_bwd": "nof_bwd_kernel", "nof_fwd": "nof_fwd_kernel",
                "dW sums": "mlp::sum_", "sort": "sort"}   # lower-case keys
+
+
+def _profile_step(tr, card: str, tag: str = "[8 train slice] profiled bf16",
+                  fname: str = "train_step_profile.txt",
+                  out_dir: str = "chip_smoke_train",
+                  kernels: dict = STEP_GROUPS) -> None:
+    """One profiled step: device time by kernel group and the idle share,
+    written to build/<out_dir>/<fname>."""
     ranges = {"sample_pdf": "sample_pdf", "optimizer": "Optimizer.step"}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -744,7 +749,7 @@ def _profile_step(tr, card: str, tag: str = "[8 train slice] profiled bf16",
     log(f"{tag} step: wall {wall:.1f} ms, device "
         f"busy {busy:.1f} ms, idle share {idle}; device ms by group: "
         f"{line} on {card}")
-    out = os.path.join(HERE, "build", "chip_smoke_train")
+    out = os.path.join(HERE, "build", out_dir)
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, fname), "w") as f:
         f.write(prof.key_averages().table(sort_by="cuda_time_total",
@@ -1135,6 +1140,397 @@ def phase_phases_slice(card: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# The per-op route, mlp_impl: pallas (phases 12-15)
+# ---------------------------------------------------------------------------
+
+MLP_SOURCE = "moco_flow_tpu_torch/ops/csrc/fused_mlp.cu"
+MLP_KERNELS = (("nerf_pallas", "moco_flow_tpu/ops/fused_mlp.py:94"),
+               ("nof_pallas", "moco_flow_tpu/ops/fused_mlp.py:233"))
+# init_nerf.yaml:38-45 (coarse_NeRF = fine_NeRF): 8x256, skip 4, 63 inputs
+# (N_freqs 0 padded), a 'dir' extra of 27 (4 frequencies)
+STAGE1_NERF = NeRFConfig(depth=8, width=256, in_channels_xyz=63, skips=(4,),
+                         extra_feat_type="dir", extra_feat_dim=27)
+STAGE1_RAYS = 5120                   # init_nerf.yaml:25 N_rand
+
+
+def _mlp_macs(ws: list) -> int:
+    """Multiply-adds a row: one per weight element (the even entries)."""
+    return sum(w.numel() for w in ws[0::2])
+
+
+def phase_mlp_kernels(dev, card: str, scale: int = 1) -> dict:
+    """Kernels #8 (NeRF) and #9 (NoF) against their plain versions at full
+    width: #8 at one stage-1 step's shapes (5120 rays x 128 and x 256 rows,
+    'dir' extra) and the render tile's sigma-only 16384 x 128, #9 at the
+    render tile 16384 x 128 of c2f's NoF, and both at a ragged 100003 rows;
+    fp32 and bf16. Then each is timed with its plain version and bound at
+    the main path's shapes. ``scale`` divides the row counts (a CPU
+    rehearsal)."""
+    from moco_flow_tpu_torch.ops import fused_mlp as fm
+    gen = torch.Generator().manual_seed(3)
+    nerf_p = init_nerf(gen, STAGE1_NERF, dev)
+    fcfg = NoFConfig()
+    nof_p = init_nof(gen, fcfg, dev)
+
+    def nerf_case(rows, sigma_only):
+        x = (torch.rand(rows, 63, generator=gen) * 2 - 1).to(dev)
+        e = (torch.rand(rows, 27, generator=gen) * 2 - 1).to(dev)
+        return (STAGE1_NERF, x, None if sigma_only else e, sigma_only,
+                fm._nerf_weights_flat(nerf_p, sigma_only))
+
+    def nof_case(rows):
+        inp = (torch.rand(rows, fcfg.in_dim, generator=gen) * 2 - 1).to(dev)
+        xyz = (0.6 * torch.randn(rows, 3, generator=gen)).to(dev)
+        return fcfg, inp, xyz, fm._nof_weights_flat(nof_p)
+
+    step = [nerf_case(STAGE1_RAYS * s // scale, False) for s in (128, 256)]
+    cases = {
+        "nerf": step + [nerf_case(16384 * 128 // scale, True),
+                        nerf_case(100003 // scale, False)],
+        "nof": [nof_case(16384 * 128 // scale), nof_case(100003 // scale)]}
+    run = {"nerf": (fm.nerf_pallas, fm._nerf_pallas_ref),
+           "nof": (fm.nof_pallas, fm._nof_pallas_ref)}
+    err = {"nerf_pallas": 0.0, "nof_pallas": 0.0}
+    dts = (("fp32", None), ("bf16", torch.bfloat16))
+    for net, cs in cases.items():
+        kern, plain = run[net]
+        for c in cs:
+            rows = c[1].shape[0]
+            gap_ref = {}
+            for dname, dt in dts:
+                if net == "nerf":
+                    cfg, x, e, so, ws = c
+                    ko, ro = kern(cfg, dt, x, e, so, ws), plain(cfg, dt, x, e,
+                                                                so, ws)
+                    tag = (f"nerf {'sigma-only' if so else 'full'} rows="
+                           f"{rows} {dname}")
+                else:
+                    cfg, inp, xyz, ws = c
+                    ko, ro = kern(cfg, dt, inp, xyz, ws), plain(cfg, dt, inp,
+                                                                xyz, ws)
+                    tag = f"nof rows={rows} {dname}"
+                torch.cuda.synchronize()
+                atol, rtol = TOL[dname]
+                e_max = check_close(tag, ko, ro, atol, rtol)
+                err[f"{net}_pallas"] = max(err[f"{net}_pallas"], e_max)
+                gap_ref[dname] = (ro, e_max)
+                log(f"[12 mlp kernels] {tag}: max|d| {e_max:.3e} (tol "
+                    f"{atol:g} + {rtol:g}|ref|)")
+            gap = (gap_ref["bf16"][0] - gap_ref["fp32"][0]).abs().max().item()
+            log(f"[12 mlp kernels] bf16-vs-fp32 gap of the plain version, "
+                f"{tag[:-5]}: {gap:.3e}")
+            # TOL['bf16'] is loose next to this gap: the kernel's bf16 body
+            # must also stay within the gap, so that a mis-wired bf16 layer
+            # cannot pass at these shapes
+            if not gap_ref["bf16"][1] <= gap:
+                raise AssertionError(
+                    f"{tag[:-5]}: bf16 kernel vs plain {gap_ref['bf16'][1]:.3e}"
+                    f" exceeds the plain version's bf16-vs-fp32 gap {gap:.3e}")
+    # times at the main path's shapes: #8 one stage-1 step's two launches,
+    # #9 one launch of the pallas render's tile (16384 rays x 128 samples)
+    times = {}
+    for dname, dt in (("bf16", torch.bfloat16), ("fp32", None)):
+        wb = 2 if dt is not None else 4
+        work = {}
+        for name, cs, f in (("nerf_pallas", step, _mlp_nerf_call),
+                            ("nof_pallas", cases["nof"][:1], _mlp_nof_call)):
+            rows = [c[1].shape[0] for c in cs]
+            macs = [_mlp_macs(c[-1]) for c in cs]
+            flops = sum(2 * m * r for m, r in zip(macs, rows))
+            if name == "nerf_pallas":   # x, extra in; 4 fp32 out a row
+                nbytes = sum(r * 4 * (63 + 27 + 4) for r in rows)
+            else:                       # inputs, xyz in; 3 fp32 out a row
+                nbytes = sum(r * 4 * (fcfg.in_dim + 3 + 3) for r in rows)
+            nbytes += len(cs) * wb * sum(w.numel() for w in cs[0][-1])
+            work[name] = ([lambda c=c, f=f: f(fm, True, c, dt) for c in cs],
+                          [lambda c=c, f=f: f(fm, False, c, dt) for c in cs],
+                          flops, nbytes)
+        for name, (kern, plain, flops, nbytes) in work.items():
+            k_ms = cuda_ms(lambda: [f() for f in kern], reps=3)
+            p_ms = cuda_ms(lambda: [f() for f in plain], reps=3)
+            b_ms, b_by = bound_ms(flops, nbytes, dname)
+            if dname == "bf16":
+                times[name] = (k_ms, p_ms, b_ms, b_by)
+            what = ("one stage-1 step's two launches (5120 x 128 + 5120 x "
+                    "256 rows)" if name == "nerf_pallas" else
+                    "one launch (16384 x 128 rows)")
+            log(f"[12 mlp kernels] {name} {dname}, {what}: kernel "
+                f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}: {flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB) "
+                f"on {card}")
+    torch.cuda.synchronize()
+    return {"err": err, "times": times}
+
+
+def _mlp_nerf_call(fm, kernel: bool, c, dt):
+    cfg, x, e, so, ws = c
+    f = fm.nerf_pallas if kernel else fm._nerf_pallas_ref
+    return f(cfg, dt, x, e, so, ws)
+
+
+def _mlp_nof_call(fm, kernel: bool, c, dt):
+    cfg, inp, xyz, ws = c
+    f = fm.nof_pallas if kernel else fm._nof_pallas_ref
+    return f(cfg, dt, inp, xyz, ws)
+
+
+def phase_stage1_golden(dev):
+    """The stage-1 fixture's three steps and its val step replayed on the
+    card (fp32), under STEP_TOL."""
+    from scripts.make_torch_port_stage1_golden import (
+        N_STEPS, SCENE, load, port_replay)
+    from moco_flow_tpu_torch.train.checkpoint import _flatten
+    arrs = load()
+    metrics, val, tr = port_replay(arrs, dev,
+                                   make_synthetic_scene(None, **SCENE))
+    torch.cuda.synchronize()
+    worst = 0.0
+    got = [(f"metrics/{i}/{k}", v) for i, m in enumerate(metrics)
+           for k, v in m.items()] + [(f"val/{k}", v) for k, v in val.items()]
+    for key, v in got:
+        want = float(arrs[key])
+        rel = abs(v - want) / max(abs(want), 1e-30)
+        worst = max(worst, rel)
+        if rel > STEP_TOL["metrics_rtol"]:
+            raise AssertionError(f"stage-1 fixture {key}: port {v} JAX "
+                                 f"{want} (rel {rel:.2e})")
+    perr = 0.0
+    for k, v in _flatten(tr.params).items():
+        d = float(np.abs(v - arrs[f"params{N_STEPS}/{k}"]).max())
+        perr = max(perr, d)
+        if d > STEP_TOL["params_atol"]:
+            raise AssertionError(f"stage-1 fixture params {k}: max|diff| "
+                                 f"{d:.3e}")
+    log(f"[13 stage 1 vs JAX fixture] {N_STEPS} radam steps on the per-op "
+        f"route and the val step: img_loss, train_psnr and val metrics max "
+        f"rel diff {worst:.2e} (tol {STEP_TOL['metrics_rtol']:g}), params "
+        f"max|diff| {perr:.2e} (tol {STEP_TOL['params_atol']:g})")
+
+
+STAGE1_START, STAGE1_STEPS, STAGE1_VAL = 0, 3, 216
+
+
+def stage1_config(dtype: str, impl: str = "pallas") -> dict:
+    """configs/people_snapshot/male-3-casual/init_nerf.yaml:9-67 as a dict
+    (the GPU machine has no yaml), on the 256x256 synthetic scene in place
+    of the 1080x1080 init_nerf renders, with ``mlp_impl`` ``impl`` and the
+    compute type ``dtype``; a few steps, no periodic val or checkpoints."""
+    nerf = {"type": "NeRF", "D": 8, "W": 256, "in_channels_xyz": 63,
+            "skips": [4], "extra_feat_type": "dir", "extra_feat_dim": 27}
+    return {
+        "save_dir": os.path.join(HERE, "build", "chip_smoke_stage1", dtype),
+        "exp_name": "init_nerf",
+        "dataloader": {"type": "moco_flow", "root_dir": None,
+                       "imgs_dir": "images", "size": [256, 256],
+                       "val_size": [256, 256],
+                       "aabb": [[1.2, 1.2, 1.2], [0, 0, 0]], "bkgd": 1.0,
+                       "interval": 1},
+        "model": {
+            "type": "nerf", "pretrained_path": None, "N_rand": STAGE1_RAYS,
+            "chunk": 16384, "N_samples": 128, "N_importance": 128,
+            "use_disp": False, "perturb": 1.0, "noise_std": 0.0,
+            "nerf_activate_type": "softplus", "compute_dtype": dtype,
+            "mlp_impl": impl,
+            "nerf_embedding_xyz": {"type": "Embedding", "in_channels": 3,
+                                   "N_freqs": 0, "logscale": True},
+            "nerf_embedding_dir": {"type": "Embedding", "in_channels": 3,
+                                   "N_freqs": 4, "logscale": True},
+            "nerf_embedding_ind": None,
+            "coarse_NeRF": nerf, "fine_NeRF": dict(nerf)},
+        "loss": {"type": "MSE"},
+        "optimizer": {"type": "radam", "lr": 0.001, "weight_decay": 0},
+        "scheduler": {"type": "steplr", "decay_step": [100000],
+                      "decay_gamma": 0.5},
+        "trainer": {"num_iters": STAGE1_START + STAGE1_STEPS,
+                    "val_every_n_step": 0, "save_every_n_step": 0,
+                    "log_freq": 1},
+    }
+
+
+STAGE1_GROUPS = {"nerf_pallas": "nerf_mma_kernel",
+                 "gemm (the recompute backward)": "gemm"}
+
+
+def phase_stage1_slice(card: str, size: int = 256,
+                       val_size: int = STAGE1_VAL) -> dict:
+    """Stage 1 through train(config, args, scene=...) at init_nerf.yaml's
+    model on the per-op route, fp32 then bf16: launches, step time, peak
+    memory, the val step, a profile; then the YAML's own route (mlp_impl
+    'xla', which the port runs on the fused kernels #1/#2) for comparison."""
+    from moco_flow_tpu_torch.data.dataset import get_dataset
+    from moco_flow_tpu_torch.ops import fused_mlp as fm
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    from moco_flow_tpu_torch.train.__main__ import parse_args as train_args
+    from moco_flow_tpu_torch.train.__main__ import train
+    from moco_flow_tpu_torch.train.checkpoint import _flatten
+    scene = make_synthetic_scene(None, n_frames=8, size=size,
+                                 focal=300.0 * size / 256)
+    val_scene = make_synthetic_scene(None, n_frames=8, size=val_size,
+                                     focal=300.0 * val_size / 256)
+    log(f"[14 stage-1 slice] scene {size}x{size} x 8 frames, val "
+        f"{val_size}x{val_size}; N_rand {STAGE1_RAYS}, radam")
+    result, launches = {}, 0
+    for dtype in ("float32", "bfloat16"):
+        cfg = stage1_config(dtype)
+        cfg["dataloader"].update(size=[size, size], val_size=[size, size])
+        shutil.rmtree(cfg["save_dir"], ignore_errors=True)   # from step 0
+        args = train_args(["-c", "(dict)", "-n", "smoke", "--device",
+                           DEVICE])
+        init = init_params(torch.Generator().manual_seed(0),
+                           build_statics(cfg["model"]))
+        fm.nerf_pallas.launches = 0
+        tr = train(cfg, args, scene=scene)
+        torch.cuda.synchronize()
+        got = fm.nerf_pallas.launches
+        if got != 2 * STAGE1_STEPS:
+            raise AssertionError(f"stage 1 {dtype}: nerf_pallas launched "
+                                 f"{got} times in {STAGE1_STEPS} steps, "
+                                 f"expected {2 * STAGE1_STEPS}")
+        launches += got
+        losses = {k: float(v) for k, v in tr.losses.items()}
+        now = _flatten(tr.params)
+        moved = max(float(np.abs(now[k] - v).max())
+                    for k, v in _flatten(init).items())
+        if not all(np.isfinite(v) for v in losses.values()) or \
+                not 0 < moved < 1:
+            raise AssertionError(f"stage 1 {dtype}: losses {losses}, "
+                                 f"params moved {moved}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = _timed_steps(tr)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tr.val_dataset = get_dataset(
+            dict(cfg["dataloader"], val_size=[val_size, val_size]),
+            "val", scene=val_scene)
+        fm.nerf_pallas.launches = 0
+        val = tr.val_func()
+        n_val = fm.nerf_pallas.launches
+        launches += n_val
+        tiles = -(-val_size ** 2 // 16384)
+        if n_val != 2 * tiles or not all(np.isfinite(v)
+                                         for v in val.values()):
+            raise AssertionError(f"stage-1 val {dtype}: {val}, "
+                                 f"{n_val} nerf_pallas launches")
+        ms_val = cuda_ms(tr.val_step, reps=1)
+        result[dtype] = {"step_ms": ms, "peak_gib": peak, "val_ms": ms_val}
+        log(f"[14 stage-1 slice] {dtype}: {STAGE1_STEPS} steps, "
+            f"nerf_pallas {got} launches, last losses {json.dumps(losses)}, "
+            f"params moved {moved:.2e}; step {ms:.1f} ms = "
+            f"{STAGE1_RAYS / ms * 1e3:.0f} rays/s, peak memory {peak:.2f} "
+            f"GiB; val step {ms_val:.1f} ms ({n_val} nerf_pallas launches, "
+            f"{json.dumps(val)}) on {card}")
+        if dtype == "bfloat16":
+            _profile_step(tr, card, "[14 stage-1 slice] profiled bf16",
+                          "stage1_step_profile.txt", "chip_smoke_stage1",
+                          STAGE1_GROUPS)
+        del tr
+        torch.cuda.empty_cache()
+    # the YAML as written: mlp_impl 'xla' is the fused route in the port
+    for dtype in ("float32", "bfloat16"):
+        cfg = stage1_config(dtype, impl="xla")
+        cfg["dataloader"].update(size=[size, size], val_size=[size, size])
+        cfg["save_dir"] += "_xla"
+        shutil.rmtree(cfg["save_dir"], ignore_errors=True)
+        cfg["trainer"]["num_iters"] = STAGE1_START + 1
+        nr.nerf_fwd.launches = nr.nerf_bwd.launches = 0
+        tr = train(cfg, train_args(["-c", "(dict)", "-n", "smoke_xla",
+                                    "--device", DEVICE]), scene=scene)
+        torch.cuda.synchronize()
+        if (nr.nerf_fwd.launches, nr.nerf_bwd.launches) != (2, 2) or \
+                not all(np.isfinite(float(v)) for v in tr.losses.values()):
+            raise AssertionError(f"stage 1 as written {dtype}: launches "
+                                 f"{nr.nerf_fwd.launches}/"
+                                 f"{nr.nerf_bwd.launches}, {tr.losses}")
+        ms = _timed_steps(tr, warm=1, steps=3)
+        result[dtype]["fused_step_ms"] = ms
+        log(f"[14 stage-1 slice] {dtype}, init_nerf.yaml's mlp_impl 'xla' "
+            f"(the fused kernels #1/#2, 2 launches each a step): step "
+            f"{ms:.1f} ms = {STAGE1_RAYS / ms * 1e3:.0f} rays/s on {card}")
+        del tr
+        torch.cuda.empty_cache()
+    result["launches"] = launches
+    return result
+
+
+def phase_pallas_frame(card: str, size: int = 256) -> dict:
+    """The phase-5 model's 256x256 frame through test(config, args) under
+    mlp_impl: pallas (the bw warp #9, the sigma-only coarse #8 and the fine
+    #8), bf16 and fp32: launches, frame time, and the difference from the
+    fused render (#7) of the same weights."""
+    import dataclasses
+    from moco_flow_tpu_torch.ops import fused_mlp as fm
+    scene = make_synthetic_scene(None, n_frames=8, size=size,
+                                 focal=300.0 * size / 256)
+    cfg0 = slice_config()
+    ckpt = seeded_checkpoint(cfg0, os.path.join(cfg0["save_dir"], "seeded"))
+    args = parse_args(["-c", "(dict)", "-r", ckpt, "--render_gt", "--reso",
+                       str(size), "--eval_metrics", "--eval_max_frames", "1",
+                       "--device", DEVICE])
+    n_rays = size * size
+    tiles = -(-n_rays // 16384)
+    frames, result = {}, {}
+    fm.nerf_pallas.launches = fm.nof_pallas.launches = 0
+    trainers = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = slice_config()
+        cfg["model"].update({"compute_dtype": dtype, "mlp_impl": "pallas"})
+        trainers[dtype] = test(cfg, args, scene=scene)
+        torch.cuda.synchronize()
+    counts = {"nerf_pallas": fm.nerf_pallas.launches,
+              "nof_pallas": fm.nof_pallas.launches}
+    want = 2 * tiles * len(trainers)
+    log(f"[15 pallas frame] launches in the two test() runs: {counts} "
+        f"(expected 2 passes x {tiles} tiles x {len(trainers)} runs = {want} "
+        "each)")
+    if counts != {"nerf_pallas": want, "nof_pallas": want}:
+        raise AssertionError(f"pallas frame launches {counts}, want {want}")
+    for dtype, tr in trainers.items():
+        m = tr.metrics
+        if m["frames"] != 1 or not all(np.isfinite(m[k])
+                                       for k in ("psnr", "ssim", "dssim")):
+            raise AssertionError(f"pallas frame {dtype} metrics: {m}")
+        ds = tr.val_dataset
+        rays = ds.frame_rays(0)
+        fused_rcfg = dataclasses.replace(tr.rcfg_test, mlp_impl="fused")
+        for route, rcfg in (("pallas", tr.rcfg_test), ("fused", fused_rcfg)):
+            render = lambda: tr.render_rays_chunked(  # noqa: E731
+                rays, ds.bkgd_img, rcfg, anneal=tr.anneal())
+            res = render()
+            ms = cuda_ms(render, reps=1)
+            for k, v in res.items():
+                if v.shape[0] != n_rays or not torch.isfinite(v).all():
+                    raise AssertionError(f"{route} frame {dtype} {k}")
+            frames[(route, dtype)] = res
+            result[(route, dtype)] = ms
+        log(f"[15 pallas frame] {dtype}: metrics {json.dumps(m)}; one "
+            f"{size}x{size} frame ({n_rays} rays): pallas "
+            f"{result[('pallas', dtype)]:.1f} ms, fused "
+            f"{result[('fused', dtype)]:.1f} ms on {card}")
+    keys = frames[("fused", "float32")].keys()
+    for k in keys:
+        p32, f32 = frames[("pallas", "float32")][k], frames[("fused",
+                                                             "float32")][k]
+        e32 = check_close(f"pallas vs fused fp32 {k}", p32, f32, *TOL["fp32"])
+        # bf16: the two routes round at other points, so the bound is the
+        # fused render's own bf16-vs-fp32 gap (or the fp32 tolerance, where
+        # bf16 leaves an output all but exact, as a saturated opacity)
+        gap = (frames[("fused", "bfloat16")][k] - f32).abs().max().item()
+        e16 = (frames[("pallas", "bfloat16")][k]
+               - frames[("fused", "bfloat16")][k]).abs().max().item()
+        bound = max(gap, TOL["fp32"][0])
+        if not e16 <= bound:
+            raise AssertionError(f"pallas vs fused bf16 {k}: max|d| "
+                                 f"{e16:.3e} above {bound:.3e}, the larger "
+                                 f"of the fused render's bf16-vs-fp32 gap "
+                                 f"{gap:.3e} and {TOL['fp32'][0]:g}")
+        log(f"[15 pallas frame] {k}: pallas vs fused fp32 max|d| {e32:.3e} "
+            f"(tol {TOL['fp32'][0]:g} + {TOL['fp32'][1]:g}|ref|), bf16 "
+            f"{e16:.3e} (bound {bound:.3e}: the larger of the fused "
+            f"bf16-vs-fp32 gap {gap:.3e} and {TOL['fp32'][0]:g})")
+    torch.cuda.synchronize()
+    return {"launches": counts, "ms": result}
+
+
 def main():
     card = phase_card()
     dev = torch.device("cuda")
@@ -1155,6 +1551,14 @@ def main():
     phase_phases_golden(dev)
     torch.cuda.synchronize()
     psl = phase_phases_slice(card)
+    torch.cuda.synchronize()
+    mk = phase_mlp_kernels(dev, card)
+    torch.cuda.synchronize()
+    phase_stage1_golden(dev)
+    torch.cuda.synchronize()
+    s1 = phase_stage1_slice(card)
+    torch.cuda.synchronize()
+    pf = phase_pallas_frame(card)
     torch.cuda.synchronize()
     fine = k["times"]["fine S=256 N=4096 nof bf16"]
     n_fine = 4096 * 256
@@ -1182,6 +1586,18 @@ def main():
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": psl["launches"][name],
             "max_abs_err": nk["err"][name], "ms": t[0], "plain_ms": t[1],
+            "bound_ms": t[2], "bound_by": t[3], "library_ms": None})
+    # #8 runs on two main paths (the stage-1 steps and val steps of phase
+    # 14, the pallas frames of phase 15), #9 on the second
+    mlp_launches = {"nerf_pallas": s1["launches"]
+                    + pf["launches"]["nerf_pallas"],
+                    "nof_pallas": pf["launches"]["nof_pallas"]}
+    for name, rep in MLP_KERNELS:
+        t = mk["times"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": MLP_SOURCE,
+            "replaces": rep, "launches": mlp_launches[name],
+            "max_abs_err": mk["err"][name], "ms": t[0], "plain_ms": t[1],
             "bound_ms": t[2], "bound_by": t[3], "library_ms": None})
     for kern in kernels:
         if kern["launches"] <= 0:

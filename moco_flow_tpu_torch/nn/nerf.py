@@ -4,6 +4,8 @@ Port of ``moco_flow_tpu/nn/nerf.py``: a D=8, W=256 density trunk over
 positional-encoded xyz with a skip connection, a sigma head, and an rgb
 branch conditioned on an extra feature (frame index, view direction or
 nothing). Only the PE encoding is ported; ``encoding: hashgrid`` raises.
+``nerf_apply`` takes a per-sample extra feature (the per-op route),
+``nerf_apply_perray_extra`` a per-ray one.
 """
 
 from __future__ import annotations
@@ -105,5 +107,23 @@ def nerf_apply_perray_extra(params: dict, x_emb: torch.Tensor,
                                out_dtype=compute_dtype) + bcast)
     else:
         he = torch.relu(linear(params["extra"], hf, compute_dtype))
+    rgb = torch.sigmoid(linear(params["rgb"], he, compute_dtype))
+    return torch.cat([rgb, sigma], dim=-1)
+
+
+def nerf_apply(params: dict, x_emb: torch.Tensor,
+               extra_emb: torch.Tensor | None, cfg: NeRFConfig,
+               compute_dtype=None) -> torch.Tensor:
+    """(B, in_channels_xyz) [+ per-sample (B, extra_feat_dim)] -> (B, 4)
+    rgb + sigma, the extra feature concatenated to ``final``'s output (fp32)
+    before the extra layer. ``x_emb`` is zero-padded to
+    ``in_channels_xyz``."""
+    h = nerf_trunk(params, x_emb, cfg, compute_dtype)
+    sigma = linear(params["sigma"], h, compute_dtype)
+    hf = linear(params["final"], h, compute_dtype)
+    if cfg.extra_feat_type != "none":
+        assert extra_emb is not None
+        hf = torch.cat([hf, extra_emb.to(hf.dtype)], dim=-1)
+    he = torch.relu(linear(params["extra"], hf, compute_dtype))
     rgb = torch.sigmoid(linear(params["rgb"], he, compute_dtype))
     return torch.cat([rgb, sigma], dim=-1)

@@ -11,7 +11,7 @@ import dataclasses
 
 import torch
 
-from .mlp import init_linear, linear
+from .mlp import init_linear, linear, linear_relu
 from .quaternion import log_quaternion_to_rotation_matrix
 
 
@@ -104,4 +104,17 @@ def nof_apply_split(params: dict, xyz_emb: torch.Tensor, ind_emb: torch.Tensor,
                            + dotp(h, w[cx + ce:]) + b)
         else:
             h = torch.relu(dotp(h, w) + b)
+    return _head(params, h, xyz, cfg, compute_dtype)
+
+
+def nof_apply(params: dict, inputs: torch.Tensor, xyz: torch.Tensor,
+              cfg: NoFConfig, compute_dtype=None) -> torch.Tensor:
+    """(B, in_channels_xyz + extra_feat_dim) embedded inputs, (B, 3)
+    positions -> warped (B, 3); the skip concatenates the inputs before the
+    hidden activation."""
+    h = inputs
+    for i in range(cfg.depth):
+        if i in cfg.skips:
+            h = torch.cat([inputs, h], dim=-1)
+        h = linear_relu(params["layers"][i], h, compute_dtype)
     return _head(params, h, xyz, cfg, compute_dtype)

@@ -97,7 +97,8 @@ def load_library() -> ctypes.CDLL:
     lib.render_pass_error.restype = ctypes.c_char_p
     args = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     for name in ("nerf_bwd_launch", "chain_fwd_launch", "chain_bwd_launch",
-                 "nof_rays_fwd_launch", "nof_rays_bwd_launch"):
+                 "nof_rays_fwd_launch", "nof_rays_bwd_launch",
+                 "fused_mlp_nerf_launch", "fused_mlp_nof_launch"):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = ctypes.c_int
     lib.nerf_bwd_tile_rows.argtypes = args[:2]
@@ -106,7 +107,8 @@ def load_library() -> ctypes.CDLL:
         getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_int,
                                        ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
-    for name in ("nerf_bwd_error", "chain_error", "nof_rays_error"):
+    for name in ("nerf_bwd_error", "chain_error", "nof_rays_error",
+                 "fused_mlp_error"):
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_char_p
     return lib

@@ -28,7 +28,7 @@ from ..nn.nerf import NeRFConfig
 from ..nn.nof import NoFConfig
 
 _MAX_LAYERS = 16   # csrc/render_pass.cu kMaxLayers
-_MAX_WIDTH = 256   # csrc/render_pass.cu kMaxWidth
+_MAX_WIDTH = 256   # csrc/pass_tile.cuh kMaxWidth
 
 
 @dataclasses.dataclass(frozen=True)

@@ -109,6 +109,18 @@ def compact_fine_samples(z_all: torch.Tensor, bins: torch.Tensor,
     return z_k, torch.gather(d_top, 1, pos)
 
 
+def merge_cano_by_z(z_a: torch.Tensor, z_b: torch.Tensor,
+                    cano_a: torch.Tensor, cano_b: torch.Tensor):
+    """:func:`merge_cano_by_z_t` on row-major warps ``cano_*`` ((N, S*, 3),
+    the per-op route's layout): returns ``(z_all, cano (N, Sa+Sb, 3),
+    pos)``."""
+    keys = torch.cat([z_a, z_b], dim=-1)
+    cat = torch.cat([cano_a, cano_b], dim=1)
+    z_all, pos = torch.sort(keys, dim=-1, stable=True)
+    cano = torch.gather(cat, 1, pos[..., None].expand_as(cat))
+    return z_all, cano, pos
+
+
 def merge_cano_by_z_t(z_a: torch.Tensor, z_b: torch.Tensor,
                       cano_a_t: torch.Tensor, cano_b_t: torch.Tensor):
     """Depth-merge two per-ray sample sets, permuting only the canonical

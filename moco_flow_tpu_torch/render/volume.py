@@ -20,6 +20,15 @@ A training render with the NoF but without a warp chain (the val step's)
 warps each sample set once through the single-warp NoF kernel
 (:func:`nof_warp`, :func:`nof_fused_rays`); with ``perturb == 0`` it draws
 nothing and needs no ``Draws``.
+
+``mlp_impl: pallas`` (``RenderConfig.mlp_impl``) takes the per-op route
+instead, the JAX package's row-major branch (:func:`_render_rows`): the
+sample and warp tensors are (N, S, 3), positions are embedded in PyTorch
+and every MLP evaluation is one call of the per-op kernels (#8 the NeRF, #9
+the NoF; ``ops/fused_mlp.py``) through the funnels :func:`_eval_nerf` and
+:func:`_eval_nof`. It renders stage 1's training and val steps (no NoF) and
+the stage-3 test render (the bw warp of each sample set, a sigma-only
+coarse pass, the fine pass on the depth-merged warps).
 """
 
 from __future__ import annotations
@@ -32,12 +41,14 @@ from ..nn.embedding import posenc
 from ..nn.nerf import NeRFConfig
 from ..nn.nof import NoFConfig
 from ..nn.losses import masked_mean
+from ..ops.fused_mlp import nerf_fused, nof_fused
 from ..ops.nerf_rays import nerf_fused_rays_t
 from ..ops.nof_chain import nof_chain_rays_t
 from ..ops.nof_rays import nof_fused_rays
 from ..ops.render_pass import render_pass
-from .sampling import (compact_fine_samples, merge_cano_by_z_t, sample_pdf,
-                       stratified_zvals, unsort_by_pos)
+from .sampling import (compact_fine_samples, merge_cano_by_z,
+                       merge_cano_by_z_t, sample_pdf, stratified_zvals,
+                       unsort_by_pos)
 
 @dataclasses.dataclass(frozen=True)
 class EmbeddingSpec:
@@ -70,9 +81,10 @@ class ModelStatics:
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Render-time options. There is no switch between the kernel and the
+    """Render-time options. There is no switch between a kernel and its
     plain version: the device of the rays decides (CUDA runs the kernel,
-    the CPU the plain version)."""
+    the CPU the plain version). ``mlp_impl`` picks the kernels: 'pallas'
+    the per-op route (#8 / #9), 'fused' the whole-ray kernels (#1-#7)."""
     n_samples: int = 64
     n_importance: int = 0
     use_disp: bool = False
@@ -87,6 +99,7 @@ class RenderConfig:
     share_coarse_warps: bool = True
     fine_budget: int = 0   # keep this many fine samples (0 = all, exact)
     coarse_probe: int = 0  # strided coarse probe size (0 = all, exact)
+    mlp_impl: str = "fused"  # 'fused' | 'pallas'
 
     @property
     def dtype(self):
@@ -119,17 +132,57 @@ def encode_nerf_xyz(nerf_params: dict, nerf_cfg: NeRFConfig,
                         anneal.get("nerf_xyz"))
 
 
+def _eval_nerf(params: dict, cfg: NeRFConfig, x_emb: torch.Tensor,
+               extra_emb: torch.Tensor | None, sigma_only: bool,
+               rcfg: "RenderConfig") -> torch.Tensor:
+    """The per-op route's NeRF funnel: embedded rows through kernel #8."""
+    return nerf_fused(params, cfg, x_emb, extra_emb, sigma_only,
+                      compute_dtype=rcfg.dtype)
+
+
+def _eval_nof(params: dict, cfg: NoFConfig, inputs: torch.Tensor,
+              xyz: torch.Tensor, rcfg: "RenderConfig") -> torch.Tensor:
+    """The per-op route's NoF funnel: embedded rows through kernel #9."""
+    return nof_fused(params, cfg, inputs, xyz, compute_dtype=rcfg.dtype)
+
+
 def nof_warp(params: dict, statics: "ModelStatics", anneal: dict,
              xyz: torch.Tensor, ind: torch.Tensor,
              rcfg: "RenderConfig") -> torch.Tensor:
     """Warp (N, S, 3) sample positions through one NoF, the frame index
-    ``ind`` (N, 1) per ray, with the single-warp kernel. Returns
-    (N, S, 3)."""
+    ``ind`` (N, 1) per ray: with the single-warp kernel, or under
+    ``mlp_impl: pallas`` as embedded rows ``[xyz_emb, ind_emb]`` (the frame
+    embedding broadcast to every sample) through :func:`_eval_nof`.
+    Returns (N, S, 3)."""
     cfg = statics.nof
     ind_emb = embed_padded(ind, statics.nof_ind, cfg.extra_feat_dim)
-    return nof_fused_rays(params, cfg, statics.nof_xyz.n_freqs,
-                          statics.nof_xyz.logscale, anneal.get("nof_xyz"),
-                          xyz, ind_emb, compute_dtype=rcfg.dtype)
+    if rcfg.mlp_impl != "pallas":
+        return nof_fused_rays(params, cfg, statics.nof_xyz.n_freqs,
+                              statics.nof_xyz.logscale,
+                              anneal.get("nof_xyz"), xyz, ind_emb,
+                              compute_dtype=rcfg.dtype)
+    n, s = xyz.shape[0], xyz.shape[1]
+    flat = xyz.reshape(-1, 3)
+    xyz_emb = embed_padded(flat, statics.nof_xyz, cfg.in_channels_xyz,
+                           anneal.get("nof_xyz"))
+    bc = ind_emb[:, None, :].expand(n, s, cfg.extra_feat_dim)
+    inputs = torch.cat([xyz_emb, bc.reshape(-1, cfg.extra_feat_dim)], dim=-1)
+    return _eval_nof(params, cfg, inputs, flat, rcfg).reshape(n, s, 3)
+
+
+def _extra_embedding(nerf_cfg: NeRFConfig, statics: "ModelStatics",
+                     ind: torch.Tensor, direction: torch.Tensor, n: int,
+                     s: int) -> torch.Tensor | None:
+    """The per-ray extra feature (frame-index or view-direction PE)
+    broadcast to every sample, (N*S, E), or None."""
+    if nerf_cfg.extra_feat_type == "ind":
+        e = embed_padded(ind, statics.nerf_ind, nerf_cfg.extra_feat_dim)
+    elif nerf_cfg.extra_feat_type == "dir":
+        e = embed_padded(direction, statics.nerf_dir, nerf_cfg.extra_feat_dim)
+    else:
+        return None
+    e = e[:, None, :].expand(n, s, nerf_cfg.extra_feat_dim)
+    return e.reshape(-1, nerf_cfg.extra_feat_dim)
 
 
 def composite(sigmas: torch.Tensor, z_vals: torch.Tensor,
@@ -239,6 +292,31 @@ def nerf_inference(params: dict, nerf_cfg: NeRFConfig, statics: ModelStatics,
                            rcfg, background, transposed_rgb=True)
 
 
+def nerf_inference_rows(params: dict, nerf_cfg: NeRFConfig,
+                        statics: ModelStatics, anneal: dict,
+                        xyz: torch.Tensor, ind: torch.Tensor,
+                        direction: torch.Tensor, z_vals: torch.Tensor,
+                        rcfg: RenderConfig, background=None,
+                        weights_only: bool = False):
+    """:func:`nerf_inference` on the per-op route: ``xyz`` (N, S, 3) is
+    embedded (and the extra feature broadcast to every sample) here, and the
+    NeRF runs through :func:`_eval_nerf`."""
+    n, s = xyz.shape[0], xyz.shape[1]
+    dir_norm = torch.linalg.norm(direction, dim=-1, keepdim=True)
+    x_emb = encode_nerf_xyz(params, nerf_cfg, statics, xyz.reshape(-1, 3),
+                            anneal)
+    if weights_only:
+        sigmas = _eval_nerf(params, nerf_cfg, x_emb, None, True, rcfg)
+        alphas, weights = composite(sigmas.reshape(n, s), z_vals, dir_norm,
+                                    None, rcfg.activation)
+        return None, None, weights, alphas
+    extra = _extra_embedding(nerf_cfg, statics, ind, direction, n, s)
+    out = _eval_nerf(params, nerf_cfg, x_emb, extra, False,
+                     rcfg).reshape(n, s, 4)
+    return _composite_tail(out[..., :3], out[..., 3], z_vals, dir_norm, None,
+                           rcfg, background)
+
+
 def _consensus(disp_src: torch.Tensor, disp_rec: torch.Tensor,
                alphas: torch.Tensor) -> torch.Tensor:
     """Masked-mean consensus disparity: the per-sample mean |src - recon|
@@ -264,16 +342,90 @@ def _consensus_parts(parts) -> torch.Tensor:
                        tot / cnt)
 
 
-def _render_train(params: dict, statics: ModelStatics, anneal: dict,
-                  rays: torch.Tensor, background, rcfg: RenderConfig,
-                  draws) -> dict:
-    """The training branch of :func:`render_rays` (see the module note)."""
+def _check_train(rcfg: RenderConfig, draws):
     if draws is None and rcfg.perturb > 0:
         raise ValueError("a perturbed training render needs its Draws")
     if rcfg.noise_std > 0:
         raise NotImplementedError(
             "sigma noise (noise_std > 0) is not drawn by Draws yet; "
             "ROADMAP 'Modules to port' item 2")
+
+
+def _render_rows(params: dict, statics: ModelStatics, anneal: dict,
+                 rays: torch.Tensor, background, rcfg: RenderConfig,
+                 draws) -> dict:
+    """:func:`render_rays` on the per-op route (``mlp_impl: pallas``), the
+    JAX package's row-major branch: training without the NoF (stage 1) and
+    the test render (with the bw warp of each sample set, shared between
+    the passes under ``share_coarse_warps``)."""
+    use_nof = rcfg.use_nof and statics.nof is not None
+    if rcfg.fine_budget or rcfg.coarse_probe:
+        raise ValueError("fine_budget / coarse_probe are implemented on the "
+                         "fused test-time route only, not on mlp_impl: "
+                         "pallas")
+    if not rcfg.test_time:
+        _check_train(rcfg, draws)
+        if use_nof:
+            raise NotImplementedError(
+                "the stage-3 training step under mlp_impl: pallas is not "
+                "ported yet; ROADMAP 'Modules to port' item 1")
+    rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+    near, far = rays[:, 6:7], rays[:, 7:8]
+    img_ind = rays[:, 8:9]
+    z_vals = stratified_zvals(near, far, rcfg.n_samples, rcfg.use_disp,
+                              rcfg.perturb,
+                              u=None if draws is None else draws.perturb)
+
+    def at(z):
+        return rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+
+    def warp(xyz):
+        return nof_warp(params["bw_NoF"], statics, anneal, xyz, img_ind,
+                        rcfg)
+
+    result: dict = {}
+    coarse_input = warp(at(z_vals)) if use_nof else at(z_vals)
+    # sigma-only coarse pass at test time when a fine pass follows
+    coarse_weights_only = rcfg.n_importance > 0 and rcfg.test_time
+    rgb_c, depth_c, weights_c, _ = nerf_inference_rows(
+        params["coarse_NeRF"], statics.coarse, statics, anneal, coarse_input,
+        img_ind, rays_d, z_vals, rcfg, background=background,
+        weights_only=coarse_weights_only)
+    result["opacity_coarse"] = torch.sum(weights_c, dim=1)
+    if not coarse_weights_only:
+        result["rgb_coarse"] = rgb_c
+        result["depth_coarse"] = depth_c
+    if rcfg.n_importance <= 0:
+        return result
+    z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+    with torch.profiler.record_function("sample_pdf"):
+        z_fine = sample_pdf(z_mid, weights_c[:, 1:-1], rcfg.n_importance,
+                            det=(rcfg.perturb == 0),
+                            u=None if draws is None else draws.pdf).detach()
+    if use_nof and rcfg.share_coarse_warps:
+        # warp only the new samples and depth-merge them with the coarse
+        # warps (the same network on the same points)
+        z_all, fine_input, _ = merge_cano_by_z(z_vals, z_fine, coarse_input,
+                                               warp(at(z_fine)))
+    else:
+        z_all = torch.sort(torch.cat([z_vals, z_fine], dim=-1),
+                           dim=-1).values
+        fine_input = warp(at(z_all)) if use_nof else at(z_all)
+    rgb_f, depth_f, weights_f, _ = nerf_inference_rows(
+        params["fine_NeRF"], statics.fine or statics.coarse, statics,
+        anneal, fine_input, img_ind, rays_d, z_all, rcfg,
+        background=background)
+    result["rgb_fine"] = rgb_f
+    result["depth_fine"] = depth_f
+    result["opacity_fine"] = torch.sum(weights_f, dim=1)
+    return result
+
+
+def _render_train(params: dict, statics: ModelStatics, anneal: dict,
+                  rays: torch.Tensor, background, rcfg: RenderConfig,
+                  draws) -> dict:
+    """The training branch of :func:`render_rays` (see the module note)."""
+    _check_train(rcfg, draws)
     use_nof = rcfg.use_nof and statics.nof is not None
     chains = rcfg.chain_local or rcfg.chain_global
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
@@ -391,6 +543,9 @@ def render_rays(params: dict, statics: ModelStatics, anneal: dict,
     scalars ``nof_local_disp_coarse`` / ``_fine`` and
     ``nof_global_disp_coarse`` / ``_fine`` of the chains that are on.
     """
+    if rcfg.mlp_impl == "pallas":
+        return _render_rows(params, statics, anneal, rays, background, rcfg,
+                            draws)
     if not rcfg.test_time:
         return _render_train(params, statics, anneal, rays, background,
                              rcfg, draws)

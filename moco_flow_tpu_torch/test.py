@@ -8,7 +8,9 @@ Renders the validation sequence of a stage-3 checkpoint (a ``.npz`` written
 by either package) at test time. ``--eval_metrics`` prints mean PSNR / SSIM
 / DSSIM as JSON; ``--render_frame F`` writes a GT | prediction | depth PNG
 (frame -1: the canonical space). ``test(config, args)`` takes the config as
-a dict, so callers can skip YAML.
+a dict, so callers can skip YAML. The config's ``model.mlp_impl`` picks the
+kernels (``train/factory.py::render_config``): ``pallas`` renders through
+the per-op MLPs #8/#9, where ``--fine_budget`` / ``--coarse_probe`` raise.
 """
 
 from __future__ import annotations

@@ -3,19 +3,22 @@
     python -m moco_flow_tpu_torch.train -c cfg.yaml [-r ckpt.npz] \
         [-n job_name] [-s seed] [--device cuda|cpu]
 
-Trains a stage-3 model from the config, resuming from the newest checkpoint
-under ``save_dir/exp_name/*/ckpts`` and then from ``-r`` (parameters, the
-clock and ``nof_opt_deleted``; a checkpoint of either package). Checkpoints
-go to ``save_dir/exp_name/<job_name>/ckpts`` every ``save_every_n_step``
-steps and as ``final`` at the end. ``train(config, args)`` takes the config
-as a dict, so callers can skip YAML.
+Trains the stage that ``model.type`` names (``train/__init__.py``:
+``nerf``, stage 1; ``moco_flow``, stage 3; stage 2's ``nof`` is not ported
+yet), resuming from the newest checkpoint under ``save_dir/exp_name/*/ckpts``
+and then from ``-r`` (parameters, the optimizers' state, the clock and the
+stage's extra state; a checkpoint of either package). Checkpoints go to
+``save_dir/exp_name/<job_name>/ckpts`` every ``save_every_n_step`` steps and
+as ``final`` at the end. ``train(config, args)`` takes the config as a dict,
+so callers can skip YAML.
 
-Every phase of the NoF-supervision schedule trains (``full``, ``none``,
-``msk``; ``MoCoFlowTrainer.phase``), with both optimizers' state resumed
-from the checkpoint. The val step runs as ``trainer.val_func()``; the JAX
-loop follows each val step with ``visualize_batch`` (``train/vis.py``: the
-spherical video and the mesh), which is not ported, so
-``val_every_n_step > 0`` raises and names its ROADMAP item.
+Stage 1 trains with its optimizer (``radam`` in ``init_nerf.yaml``); every
+phase of stage 3's NoF-supervision schedule trains (``full``, ``none``,
+``msk``; ``MoCoFlowTrainer.phase``). The val step runs as
+``trainer.val_func()``; the JAX loop follows each val step with
+``visualize_batch`` (``train/vis.py``: the spherical video and the mesh),
+which is not ported, so ``val_every_n_step > 0`` raises and names its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ import os
 import os.path as osp
 import time
 
+from . import get_trainer
+from .base import BaseTrainer
 from .checkpoint import find_latest_checkpoint
-from .stage_mocoflow import MoCoFlowTrainer
 
 _VIS = ("ROADMAP 'Modules to port' item 4 (train/vis.py: the "
         "visualisation that follows each val step)")
@@ -38,7 +42,7 @@ def job_dir(config: dict, args) -> str:
                     config.get("exp_name", "exp"), name)
 
 
-def train(config: dict, args, smpl_data=None, scene=None) -> MoCoFlowTrainer:
+def train(config: dict, args, smpl_data=None, scene=None) -> BaseTrainer:
     """Build the trainer, resume, and step the clock up to
     ``trainer.num_iters``.
 
@@ -50,8 +54,8 @@ def train(config: dict, args, smpl_data=None, scene=None) -> MoCoFlowTrainer:
             f"val_every_n_step > 0 is not ported: {_VIS}; set it to 0 and "
             "call trainer.val_func()")
     seed = int(args.seed) if getattr(args, "seed", None) is not None else 0
-    trainer = MoCoFlowTrainer(config, device=getattr(args, "device", "cuda"),
-                              seed=seed, smpl_data=smpl_data, scene=scene)
+    trainer = get_trainer(config, device=getattr(args, "device", "cuda"),
+                          seed=seed, smpl_data=smpl_data, scene=scene)
     trainer.job_dir = job_dir(config, args)
     os.makedirs(osp.join(trainer.job_dir, "ckpts"), exist_ok=True)
     trainer.build_model(config["model"])
@@ -78,7 +82,7 @@ def train(config: dict, args, smpl_data=None, scene=None) -> MoCoFlowTrainer:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description="stage-3 training (port)")
+    p = argparse.ArgumentParser(description="training (port)")
     p.add_argument("-c", "--config", required=True, type=str)
     p.add_argument("-r", "--resume", default=None, type=str)
     p.add_argument("-n", "--job_name", default=None, type=str)

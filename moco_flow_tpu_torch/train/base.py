@@ -1,11 +1,27 @@
-"""The training clock (epoch / minibatch / global step), checkpointed with
-the parameters.
+"""The trainers' stage-independent half, and the training clock.
 
-Port of ``moco_flow_tpu/utils/clock.py``'s ``TrainClock``; the training loop
-that ticks it is ``train/__main__.py::train``.
+Port of ``moco_flow_tpu/train/base.py`` and ``moco_flow_tpu/utils/clock.py``'s
+``TrainClock``. ``BaseTrainer`` holds what every stage shares: the device,
+the clock, checkpoints (parameters, the optimizer state as the JAX
+package's ``opt_named`` keystr paths, the clock and a stage's extra state),
+the val and train datasets, the generator of a step's draws, ``val_rng``,
+chunked full-frame rendering, the val step, sequence evaluation and
+``train_func`` / ``val_func``. A stage (``stage_nerf.py``,
+``stage_mocoflow.py``) adds the model, its optimizers and the training
+step; the loop that ticks the clock is ``train/__main__.py::train``.
 """
 
 from __future__ import annotations
+
+import os.path as osp
+
+import numpy as np
+import torch
+
+from ..data.dataset import get_dataset
+from ..nn.metrics import dssim, psnr, ssim
+from ..render.volume import RenderConfig, render_rays
+from .checkpoint import _flatten, load_checkpoint, merge_into, save_checkpoint
 
 
 class TrainClock:
@@ -30,3 +46,266 @@ class TrainClock:
         self.epoch = d["epoch"]
         self.minibatch = d["minibatch"]
         self.step = d["step"]
+
+
+class BaseTrainer:
+    """Holds a model's parameters on ``device``, renders and trains it.
+
+    Args:
+      config: the YAML config as a dict (``dataloader``, ``model``,
+        ``loss``, ``trainer`` blocks).
+      device: where parameters and renders live. There is no fallback: a
+        CUDA device that is missing fails at the first tensor placed on it.
+      seed: seeds the parameter init (overwritten by a checkpoint) and the
+        step's draws.
+      scene: an in-memory ``SyntheticScene`` to use instead of reading
+        ``dataloader.root_dir``.
+    """
+
+    def __init__(self, config: dict, device: torch.device | str = "cuda",
+                 seed: int = 0, smpl_data=None, scene=None):
+        self.config = config
+        self.device = torch.device(device)
+        self.seed = seed
+        self.smpl_data = smpl_data
+        self.scene = scene
+        self.clock = TrainClock()
+        self.params: dict = {}
+        self.opt = None
+        self._opt_named = None    # optimizer state of a loaded checkpoint
+        self.save_dir = osp.join(config.get("save_dir", "./log"),
+                                 config.get("exp_name", "exp"))
+        self.job_dir = None   # the run's directory (train/__main__.py)
+
+    @property
+    def step(self) -> int:
+        return self.clock.step
+
+    @step.setter
+    def step(self, value: int):
+        self.clock.step = int(value)
+
+    # -- the stage's hooks -------------------------------------------------
+
+    def build_model(self, model_config: dict):
+        raise NotImplementedError
+
+    def configure_optimizers(self, optimizer_config: dict,
+                             scheduler_config: dict | None):
+        raise NotImplementedError
+
+    def train_step(self, draws=None) -> dict:
+        raise NotImplementedError
+
+    def anneal(self, step: int | None = None) -> dict:
+        """PE annealing weights at ``step``: none."""
+        return {}
+
+    def extra_state(self) -> dict:
+        """JSON-able stage state written beside the clock."""
+        return {}
+
+    def load_extra_state(self, extra: dict):
+        pass
+
+    def _correspondences(self, ds):
+        """The train dataset's correspondence table, if the stage uses one."""
+        return None
+
+    # -- checkpoints -------------------------------------------------------
+
+    def load_ckpt(self, path: str):
+        """Parameters (``strict=False``), the clock, the stage's extra state
+        and the optimizers' ``opt_named`` state of a checkpoint of either
+        package; the state is restored when the optimizers are built (at
+        the next training step)."""
+        tree, extra = load_checkpoint(path)
+        self.params = merge_into(self.params, tree.get("params", tree))
+        if "clock" in extra:
+            self.clock.restore_checkpoint(extra["clock"])
+        self.load_extra_state(extra)
+        self._opt_named = tree.get("opt_named")
+        self.opt = None
+        print(f"loaded checkpoint {path}")
+
+    def save_ckpt(self, name: str | None = None, job_dir: str | None = None):
+        """Parameters, the optimizers' state (``opt_named``), the clock and
+        the stage's extra state as ``<job_dir>/ckpts/<name>.npz`` (+
+        ``.json``), the JAX format."""
+        if name is None:
+            name = f"epoch{self.clock.epoch}_iter{self.clock.step}"
+        path = osp.join(job_dir or self.job_dir, "ckpts", name)
+        tree = {"params": self.params}
+        named = self._opt_state_named()
+        if named:
+            tree["opt_named"] = named
+        save_checkpoint(path, tree, extra={
+            "clock": self.clock.make_checkpoint(), **self.extra_state()})
+        print(f"saved checkpoint {path}")
+        return path
+
+    def _opt_state_named(self) -> dict | None:
+        """One optimizer's state at optax's top-level paths (``[0].count``,
+        ...), or a loaded checkpoint's while no step has built it."""
+        if self.opt is None:
+            return self._opt_named
+        return self.opt.state_named("")
+
+    def _named(self) -> dict:
+        return _flatten(self.params, leaf=lambda t: t)
+
+    # -- data --------------------------------------------------------------
+
+    def prepare_dataloader(self, data_config: dict):
+        """The val dataset (``val_size``), for the val step and for
+        evaluation."""
+        self.val_dataset = get_dataset(data_config, "val",
+                                       smpl_data=self.smpl_data,
+                                       scene=self.scene)
+        self.num_frames = self.val_dataset.num_frames
+
+    def prepare_train_data(self, data_config: dict):
+        """The train dataset; its frame table, direction grid, images,
+        background (and the stage's correspondence table) go to the
+        trainer's device (:meth:`set_train_data`)."""
+        ds = get_dataset(data_config, "train", smpl_data=self.smpl_data,
+                         scene=self.scene)
+        if ds.images is None:
+            raise ValueError("the train dataset has no images")
+        self.set_train_data(ds.table, ds.directions_flat, ds.images,
+                            ds.bkgd_img, ds.rand_bkgd,
+                            corr=self._correspondences(ds))
+
+    def set_train_data(self, table, directions, images, bkgd_img,
+                       rand_bkgd: bool, corr=None):
+        """Train on ``table`` (a ``FrameTable``), the (H*W, 3) direction
+        grid, (F, H*W, C) uint8 ``images``, the (H*W, 3) background and, for
+        the stage-3 NoF supervision, the ``CorrespondenceTable``."""
+        self.num_frames = int(table.valid_count.shape[0])
+        self._valid_count = [int(c) for c in table.valid_count]
+        self._table = table.to(self.device)
+        self._directions = directions.to(self.device)
+        self._images = images.to(self.device)
+        self._bkgd = bkgd_img.to(self.device)
+        self._rand_bkgd = bool(rand_bkgd)
+        self._has_alpha = images.shape[-1] == 4
+        self._corr = None if corr is None else corr.to(self.device)
+
+    def _step_generator(self, step: int) -> torch.Generator:
+        """The generator of ``step``'s draws, seeded with (seed, step), so a
+        resumed run draws what the run before it would have drawn."""
+        return torch.Generator().manual_seed(
+            int(self.seed) * 1_000_003 + int(step))
+
+    # -- train / val entry points -----------------------------------------
+
+    def train_func(self) -> dict:
+        """One training step; on log steps the metrics are read back and
+        printed (a read every step would wait for the card every step)."""
+        metrics = self.train_step()
+        if self.clock.step % self.config["trainer"].get("log_freq", 100) == 0:
+            metrics = {k: float(v) for k, v in metrics.items()}
+            print(f"[step {self.clock.step}] " + " ".join(
+                f"{k} {v:.6f}" for k, v in metrics.items()))
+        self.losses = metrics
+        return metrics
+
+    def val_rng(self) -> np.random.Generator:
+        """Host RNG of the val choices, keyed on (seed, step) as in the JAX
+        trainer."""
+        return np.random.default_rng((int(self.seed), int(self.clock.step)))
+
+    def val_step(self) -> dict:
+        """Render one val frame (drawn by :meth:`val_rng`) with ``rcfg_val``
+        and score it: ``val_psnr``, and the DSSIM under ``ssim`` (the JAX
+        trainers' key)."""
+        ds = self.val_dataset
+        idx = int(self.val_rng().integers(ds.num_frames))
+        rgbs = ds.frame_rgbs(idx)
+        if rgbs is None:
+            return {}
+        with torch.no_grad():
+            res = self.render_rays_chunked(ds.frame_rays(idx), ds.bkgd_img,
+                                           self.rcfg_val,
+                                           anneal=self.anneal())
+        typ = "rgb_fine" if "rgb_fine" in res else "rgb_coarse"
+        h, w = ds.size
+        rgbs = rgbs.to(self.device)
+        pred = res[typ].reshape(h, w, 3).permute(2, 0, 1)[None]
+        gt = rgbs.reshape(h, w, 3).permute(2, 0, 1)[None]
+        return {"val_psnr": float(psnr(res[typ], rgbs)),
+                "ssim": float(dssim(pred, gt))}
+
+    def val_func(self) -> dict:
+        """The val step, its metrics printed."""
+        metrics = self.val_step()
+        if metrics:
+            print(f"[val step {self.clock.step}] " + " ".join(
+                f"{k} {v:.6f}" for k, v in metrics.items()))
+        return metrics
+
+    # -- chunked full-frame rendering --------------------------------------
+
+    def render_rays_chunked(self, rays: torch.Tensor, background,
+                            rcfg: RenderConfig, anneal=None,
+                            chunk: int | None = None) -> dict:
+        """Render any number of rays in tiles of ``chunk`` (default
+        ``model.chunk``). A tail tile is padded (repeating its last ray) up
+        to the next power of two, at least 2048 and at most ``chunk``, so
+        tile shapes come from a small fixed set; per-ray outputs of the
+        padding are dropped."""
+        if chunk is None:
+            chunk = int(self.config["model"].get("chunk", 16384))
+        n = rays.shape[0]
+        if n == 0:
+            raise ValueError("render_rays_chunked: no rays")
+        rays = rays.to(self.device, torch.float32)
+        bg = (torch.ones((n, 3)) if background is None else background).to(
+            self.device, torch.float32)
+        outs = []
+        i = 0
+        while i < n:
+            rows = min(chunk, n - i)
+            bucket = rows if rows == chunk else \
+                min(chunk, max(2048, 1 << (rows - 1).bit_length()))
+            tile, bgt = rays[i:i + rows], bg[i:i + rows]
+            if bucket > rows:
+                tile = torch.cat([tile, tile[-1:].expand(bucket - rows, -1)])
+                bgt = torch.cat([bgt, bgt[-1:].expand(bucket - rows, -1)])
+            outs.append((rows, render_rays(self.params, self.statics,
+                                           anneal or {}, tile, bgt, rcfg)))
+            i += rows
+        return {k: torch.cat([o[k][:r] for r, o in outs])
+                for k in outs[0][1]}
+
+    def evaluate_sequence(self, max_frames: int | None = None,
+                          chunk: int = 16384) -> dict:
+        """Mean PSNR / SSIM / DSSIM over the val sequence at test time."""
+        ds = self.val_dataset
+        rcfg = self.rcfg_test
+        n = ds.num_frames if max_frames is None else min(max_frames,
+                                                         ds.num_frames)
+        h, w = ds.size
+        psnrs, ssims, dssims = [], [], []
+        for idx in range(n):
+            rgbs = ds.frame_rgbs(idx)
+            if rgbs is None:
+                continue
+            res = self.render_rays_chunked(ds.frame_rays(idx), ds.bkgd_img,
+                                           rcfg, anneal=self.anneal(),
+                                           chunk=chunk)
+            typ = "rgb_fine" if "rgb_fine" in res else "rgb_coarse"
+            rgbs = rgbs.to(self.device)
+            pred = res[typ].reshape(h, w, 3).permute(2, 0, 1)[None]
+            gt = rgbs.reshape(h, w, 3).permute(2, 0, 1)[None]
+            psnrs.append(float(psnr(res[typ], rgbs)))
+            ssims.append(float(ssim(pred, gt)))
+            dssims.append(float(dssim(pred, gt)))
+        out = {"psnr": float(np.mean(psnrs)) if psnrs else float("nan"),
+               "ssim": float(np.mean(ssims)) if ssims else float("nan"),
+               "dssim": float(np.mean(dssims)) if dssims else float("nan"),
+               "frames": len(psnrs)}
+        if rcfg.fine_budget or rcfg.coarse_probe:
+            out["eval_fine_budget"] = rcfg.fine_budget
+            out["eval_coarse_probe"] = rcfg.coarse_probe
+        return out

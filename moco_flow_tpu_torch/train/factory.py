@@ -1,9 +1,12 @@
 """Model statics, parameters and render configs from config dicts.
 
-Port of ``moco_flow_tpu/train/factory.py``. ``render_config`` has no
-``mlp_impl`` switch: the JAX package picks its kernels by that key, the port
-by the device of the tensors (a CUDA tensor runs the kernel, a CPU tensor
-the plain version), so the key of a shared YAML file is not read here.
+Port of ``moco_flow_tpu/train/factory.py``. ``render_config`` reads
+``mlp_impl`` as a choice of kernels, never of a kernel against its plain
+version (the device of the tensors decides that: a CUDA tensor runs the
+kernel, a CPU tensor the plain version): ``pallas`` takes the per-op route
+(kernels #8 / #9, ``ops/fused_mlp.py``); ``fused``, ``xla`` and ``auto``
+take the whole-ray kernels (#1-#7), since the port has no XLA route; the
+hybrids ``fused_nof`` / ``fused_nerf`` are not ported.
 """
 
 from __future__ import annotations
@@ -56,6 +59,10 @@ def init_params(gen: torch.Generator, statics: ModelStatics,
     return params
 
 
+_ROUTES = {"pallas": "pallas", "fused": "fused", "xla": "fused",
+           "auto": "fused"}
+
+
 def render_config(model_cfg: dict, use_nof: bool = False,
                   chain_local: bool = False, chain_global: bool = False,
                   test_time: bool = False, perturb=None,
@@ -64,10 +71,24 @@ def render_config(model_cfg: dict, use_nof: bool = False,
         raise NotImplementedError(
             "occupancy-grid skipping (occ_res > 0) is not ported yet "
             "(ROADMAP 'Modules to port' item 6); set occ_res: 0")
+    impl = model_cfg.get("mlp_impl", "auto")
+    if impl in ("fused_nof", "fused_nerf"):
+        raise NotImplementedError(
+            f"mlp_impl {impl!r} (a hybrid of the fused and XLA routes) is not "
+            "ported; ROADMAP 'Modules to port' item 2")
+    if impl not in _ROUTES:
+        raise ValueError(f"unknown mlp_impl {impl!r}")
+    route = _ROUTES[impl]
     fine_budget = int(model_cfg.get("fine_budget", 0))
     coarse_probe = int(model_cfg.get("coarse_probe", 0))
     if not test_time:
         fine_budget = coarse_probe = 0
+    elif (fine_budget or coarse_probe) and route != "fused":
+        raise ValueError(
+            f"fine_budget={fine_budget} / coarse_probe={coarse_probe} are "
+            f"only implemented on the fused test-time route, but mlp_impl is "
+            f"{impl!r}. Set them to 0 for an exact render, or use "
+            "mlp_impl: fused.")
     return RenderConfig(
         n_samples=model_cfg.get("N_samples", 64),
         n_importance=model_cfg.get("N_importance", 0),
@@ -82,4 +103,5 @@ def render_config(model_cfg: dict, use_nof: bool = False,
         fine_budget=fine_budget,
         coarse_probe=coarse_probe,
         share_coarse_warps=bool(model_cfg.get("share_coarse_warps", True)),
+        mlp_impl=route,
     )

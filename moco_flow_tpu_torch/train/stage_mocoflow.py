@@ -1,11 +1,8 @@
-"""The stage-3 MoCo-Flow trainer: rendering, the training step and the val
-step.
+"""The stage-3 MoCo-Flow trainer.
 
-Port of ``moco_flow_tpu/train/stage_mocoflow.py`` and the parts of
-``moco_flow_tpu/train/base.py`` it uses: model build, PE annealing from the
-step, checkpoint save and load (parameters, both optimizers' state in the
-JAX ``opt_named`` form, the clock and ``nof_opt_deleted``), the train and
-val datasets, chunked full-frame rendering and sequence evaluation, and the
+Port of ``moco_flow_tpu/train/stage_mocoflow.py``: model build, PE
+annealing from the step, both optimizers (their state in checkpoints in the
+JAX ``opt_named`` form, with ``nof_opt_deleted`` beside the clock) and the
 training step in every phase of the NoF-supervision schedule (``phase``):
 
 - ``full`` (before the c2f start): the image and consensus losses, the NoF
@@ -17,29 +14,26 @@ training step in every phase of the NoF-supervision schedule (``phase``):
   the first such step (the c2f start itself still freezes the density);
 - ``msk``: ``none`` plus the alpha-mask BCE.
 
-The val step renders a val frame with the chains off and ``perturb = 0``
-(``rcfg_val``) and reports PSNR and, under the key ``ssim``, the DSSIM, as
-the JAX trainer does.
+The datasets, checkpoints, chunked rendering, sequence evaluation and the
+val step (a val frame with the chains off and ``perturb = 0``) are
+``train/base.py``'s.
 """
 
 from __future__ import annotations
 
-import os.path as osp
-
-import numpy as np
 import torch
 
 from ..data.correspondence import sample_correspondences
-from ..data.dataset import get_dataset, sample_train_rays
+from ..data.dataset import sample_train_rays
 from ..data.draws import Draws, draw
 from ..nn.embedding import anneal_weights
 from ..nn.losses import image_loss, masked_bce, masked_loss
-from ..nn.metrics import dssim, psnr, ssim
+from ..nn.metrics import psnr
 from ..nn.nerf import nerf_sigma
 from ..parallel.mesh import FRAME_SAMPLING_POLICIES, sample_frame
-from ..render.volume import RenderConfig, encode_nerf_xyz, render_rays
-from .base import TrainClock
-from .checkpoint import _flatten, load_checkpoint, merge_into, save_checkpoint
+from ..render.volume import encode_nerf_xyz, render_rays
+from .base import BaseTrainer
+from .checkpoint import load_checkpoint, merge_into
 from .factory import build_statics, init_params, render_config
 from .optim import make_optimizer, zero_grads_where
 from .stage_nof import nof_points
@@ -61,43 +55,17 @@ def _alpha(sigma: torch.Tensor, delta: float) -> torch.Tensor:
                                                     torch.zeros_like(sigma)))
 
 
-class MoCoFlowTrainer:
-    """Holds a stage-3 model's parameters on ``device`` and renders with it.
-
-    Args:
-      config: the YAML config as a dict (``dataloader``, ``model``,
-        ``loss``, ``trainer`` blocks).
-      device: where parameters and renders live. There is no fallback: a
-        CUDA device that is missing fails at the first tensor placed on it.
-      seed: seeds the parameter init (overwritten by a checkpoint).
-      scene: an in-memory ``SyntheticScene`` to use instead of reading
-        ``dataloader.root_dir``.
-    """
+class MoCoFlowTrainer(BaseTrainer):
+    """The stage-3 model: both NeRFs and both NoFs, the ``moco`` and ``nof``
+    optimizers, the phase schedule and the step; the shared half (device,
+    checkpoints, data, rendering, the val step) is :class:`BaseTrainer`."""
 
     def __init__(self, config: dict, device: torch.device | str = "cuda",
                  seed: int = 0, smpl_data=None, scene=None):
-        self.config = config
-        self.device = torch.device(device)
-        self.seed = seed
-        self.smpl_data = smpl_data
-        self.scene = scene
-        self.clock = TrainClock()
-        self.params: dict = {}
-        self.opt = None
+        super().__init__(config, device=device, seed=seed,
+                         smpl_data=smpl_data, scene=scene)
         self.opt_nof = None
-        self._opt_named = None    # optimizer state of a loaded checkpoint
         self.nof_opt_deleted = False
-        self.save_dir = osp.join(config.get("save_dir", "./log"),
-                                 config.get("exp_name", "exp"))
-        self.job_dir = None   # the run's directory (train/__main__.py)
-
-    @property
-    def step(self) -> int:
-        return self.clock.step
-
-    @step.setter
-    def step(self, value: int):
-        self.clock.step = int(value)
 
     def build_model(self, model_config: dict):
         loss_cfg = self.config.get("loss") or {}
@@ -156,37 +124,15 @@ class MoCoFlowTrainer:
                 out[name] = w.to(self.device)
         return out
 
-    def load_ckpt(self, path: str):
-        """Parameters (``strict=False``), the clock, ``nof_opt_deleted`` and
-        the optimizers' ``opt_named`` state of a checkpoint of either
-        package; the state is restored when the optimizers are built (at
-        the next training step)."""
-        tree, extra = load_checkpoint(path)
-        self.params = merge_into(self.params, tree.get("params", tree))
-        if "clock" in extra:
-            self.clock.restore_checkpoint(extra["clock"])
-        self.nof_opt_deleted = bool(extra.get("nof_opt_deleted", False))
-        self._opt_named = tree.get("opt_named")
-        self.opt = self.opt_nof = None
-        print(f"loaded checkpoint {path}")
+    def extra_state(self) -> dict:
+        return {"nof_opt_deleted": self.nof_opt_deleted}
 
-    def save_ckpt(self, name: str | None = None, job_dir: str | None = None):
-        """Parameters, the optimizers' state (``opt_named``; a deleted
-        ``nof`` optimizer is not written), the clock and
-        ``nof_opt_deleted`` as ``<job_dir>/ckpts/<name>.npz`` (+ ``.json``),
-        the JAX format."""
-        if name is None:
-            name = f"epoch{self.clock.epoch}_iter{self.clock.step}"
-        path = osp.join(job_dir or self.job_dir, "ckpts", name)
-        tree = {"params": self.params}
-        named = self._opt_state_named()
-        if named:
-            tree["opt_named"] = named
-        save_checkpoint(path, tree, extra={
-            "clock": self.clock.make_checkpoint(),
-            "nof_opt_deleted": self.nof_opt_deleted})
-        print(f"saved checkpoint {path}")
-        return path
+    def load_extra_state(self, extra: dict):
+        self.nof_opt_deleted = bool(extra.get("nof_opt_deleted", False))
+        self.opt_nof = None
+
+    def _correspondences(self, ds):
+        return ds.correspondence_table
 
     def _opt_state_named(self) -> dict | None:
         if self.opt is None:              # no step since the load
@@ -199,46 +145,6 @@ class MoCoFlowTrainer:
             out.update(self.opt_nof.state_named("['nof']"))
         return out
 
-    def prepare_dataloader(self, data_config: dict):
-        """The val dataset (``val_size``), for the val step and for
-        evaluation."""
-        self.val_dataset = get_dataset(data_config, "val",
-                                       smpl_data=self.smpl_data,
-                                       scene=self.scene)
-        self.num_frames = self.val_dataset.num_frames
-
-    # ------------------------------------------------------------------
-    # training
-    # ------------------------------------------------------------------
-
-    def prepare_train_data(self, data_config: dict):
-        """The train dataset; its frame table, direction grid, images,
-        background and SMPL correspondence table go to the trainer's device
-        (:meth:`set_train_data`)."""
-        ds = get_dataset(data_config, "train", smpl_data=self.smpl_data,
-                         scene=self.scene)
-        if ds.images is None:
-            raise ValueError("the train dataset has no images")
-        self.set_train_data(ds.table, ds.directions_flat, ds.images,
-                            ds.bkgd_img, ds.rand_bkgd,
-                            corr=ds.correspondence_table)
-
-    def set_train_data(self, table, directions, images, bkgd_img,
-                       rand_bkgd: bool, corr=None):
-        """Train on ``table`` (a ``FrameTable``), the (H*W, 3) direction
-        grid, (F, H*W, C) uint8 ``images``, the (H*W, 3) background and the
-        ``CorrespondenceTable`` of the NoF supervision (needed by the
-        ``full`` / ``msk`` steps)."""
-        self.num_frames = int(table.valid_count.shape[0])
-        self._valid_count = [int(c) for c in table.valid_count]
-        self._table = table.to(self.device)
-        self._directions = directions.to(self.device)
-        self._images = images.to(self.device)
-        self._bkgd = bkgd_img.to(self.device)
-        self._rand_bkgd = bool(rand_bkgd)
-        self._has_alpha = images.shape[-1] == 4
-        self._corr = None if corr is None else corr.to(self.device)
-
     def configure_optimizers(self, optimizer_config: dict,
                              scheduler_config: dict | None):
         """The ``moco`` optimizer over every parameter and the ``nof`` one
@@ -246,9 +152,6 @@ class MoCoFlowTrainer:
         each checkpoint load)."""
         self.opt_cfg = (optimizer_config, scheduler_config)
         self.opt = self.opt_nof = None
-
-    def _named(self) -> dict:
-        return _flatten(self.params, leaf=lambda t: t)
 
     def _optimizers(self):
         """The ``moco`` optimizer, and ``opt_nof`` unless it is deleted,
@@ -296,8 +199,7 @@ class MoCoFlowTrainer:
         if policy not in FRAME_SAMPLING_POLICIES:
             raise ValueError("model.frame_sampling must be one of "
                              f"{FRAME_SAMPLING_POLICIES}, got {policy!r}")
-        gen = torch.Generator().manual_seed(
-            int(self.seed) * 1_000_003 + int(step))
+        gen = self._step_generator(step)
         frame = sample_frame(policy, self.seed, step, self.num_frames, gen)
         rcfg = self.rcfg_train
         corr = self.phase(step)[0] != "none"
@@ -399,116 +301,3 @@ class MoCoFlowTrainer:
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["train_psnr"] = train_psnr
         return metrics
-
-    def train_func(self) -> dict:
-        """One training step; on log steps the metrics are read back and
-        printed (a read every step would wait for the card every step)."""
-        metrics = self.train_step()
-        if self.clock.step % self.config["trainer"].get("log_freq", 100) == 0:
-            metrics = {k: float(v) for k, v in metrics.items()}
-            print(f"[step {self.clock.step}] " + " ".join(
-                f"{k} {v:.6f}" for k, v in metrics.items()))
-        self.losses = metrics
-        return metrics
-
-    # ------------------------------------------------------------------
-    # validation
-    # ------------------------------------------------------------------
-
-    def val_rng(self) -> np.random.Generator:
-        """Host RNG of the val choices, keyed on (seed, step) as in the JAX
-        trainer."""
-        return np.random.default_rng((int(self.seed), int(self.clock.step)))
-
-    def val_step(self) -> dict:
-        """Render one val frame (drawn by :meth:`val_rng`) with ``rcfg_val``
-        and score it: ``val_psnr``, and the DSSIM under ``ssim`` (the JAX
-        trainer's key)."""
-        ds = self.val_dataset
-        idx = int(self.val_rng().integers(ds.num_frames))
-        rgbs = ds.frame_rgbs(idx)
-        if rgbs is None:
-            return {}
-        with torch.no_grad():
-            res = self.render_rays_chunked(ds.frame_rays(idx), ds.bkgd_img,
-                                           self.rcfg_val,
-                                           anneal=self.anneal())
-        typ = "rgb_fine" if "rgb_fine" in res else "rgb_coarse"
-        h, w = ds.size
-        rgbs = rgbs.to(self.device)
-        pred = res[typ].reshape(h, w, 3).permute(2, 0, 1)[None]
-        gt = rgbs.reshape(h, w, 3).permute(2, 0, 1)[None]
-        return {"val_psnr": float(psnr(res[typ], rgbs)),
-                "ssim": float(dssim(pred, gt))}
-
-    def val_func(self) -> dict:
-        """The val step, its metrics printed."""
-        metrics = self.val_step()
-        if metrics:
-            print(f"[val step {self.clock.step}] " + " ".join(
-                f"{k} {v:.6f}" for k, v in metrics.items()))
-        return metrics
-
-    def render_rays_chunked(self, rays: torch.Tensor, background,
-                            rcfg: RenderConfig, anneal=None,
-                            chunk: int | None = None) -> dict:
-        """Render any number of rays in tiles of ``chunk`` (default
-        ``model.chunk``). A tail tile is padded (repeating its last ray) up
-        to the next power of two, at least 2048 and at most ``chunk``, so
-        tile shapes come from a small fixed set; per-ray outputs of the
-        padding are dropped."""
-        if chunk is None:
-            chunk = int(self.config["model"].get("chunk", 16384))
-        n = rays.shape[0]
-        if n == 0:
-            raise ValueError("render_rays_chunked: no rays")
-        rays = rays.to(self.device, torch.float32)
-        bg = (torch.ones((n, 3)) if background is None else background).to(
-            self.device, torch.float32)
-        outs = []
-        i = 0
-        while i < n:
-            rows = min(chunk, n - i)
-            bucket = rows if rows == chunk else \
-                min(chunk, max(2048, 1 << (rows - 1).bit_length()))
-            tile, bgt = rays[i:i + rows], bg[i:i + rows]
-            if bucket > rows:
-                tile = torch.cat([tile, tile[-1:].expand(bucket - rows, -1)])
-                bgt = torch.cat([bgt, bgt[-1:].expand(bucket - rows, -1)])
-            outs.append((rows, render_rays(self.params, self.statics,
-                                           anneal or {}, tile, bgt, rcfg)))
-            i += rows
-        return {k: torch.cat([o[k][:r] for r, o in outs])
-                for k in outs[0][1]}
-
-    def evaluate_sequence(self, max_frames: int | None = None,
-                          chunk: int = 16384) -> dict:
-        """Mean PSNR / SSIM / DSSIM over the val sequence at test time."""
-        ds = self.val_dataset
-        rcfg = self.rcfg_test
-        n = ds.num_frames if max_frames is None else min(max_frames,
-                                                         ds.num_frames)
-        h, w = ds.size
-        psnrs, ssims, dssims = [], [], []
-        for idx in range(n):
-            rgbs = ds.frame_rgbs(idx)
-            if rgbs is None:
-                continue
-            res = self.render_rays_chunked(ds.frame_rays(idx), ds.bkgd_img,
-                                           rcfg, anneal=self.anneal(),
-                                           chunk=chunk)
-            typ = "rgb_fine" if "rgb_fine" in res else "rgb_coarse"
-            rgbs = rgbs.to(self.device)
-            pred = res[typ].reshape(h, w, 3).permute(2, 0, 1)[None]
-            gt = rgbs.reshape(h, w, 3).permute(2, 0, 1)[None]
-            psnrs.append(float(psnr(res[typ], rgbs)))
-            ssims.append(float(ssim(pred, gt)))
-            dssims.append(float(dssim(pred, gt)))
-        out = {"psnr": float(np.mean(psnrs)) if psnrs else float("nan"),
-               "ssim": float(np.mean(ssims)) if ssims else float("nan"),
-               "dssim": float(np.mean(dssims)) if dssims else float("nan"),
-               "frames": len(psnrs)}
-        if rcfg.fine_budget or rcfg.coarse_probe:
-            out["eval_fine_budget"] = rcfg.fine_budget
-            out["eval_coarse_probe"] = rcfg.coarse_probe
-        return out

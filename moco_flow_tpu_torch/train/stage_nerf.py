@@ -1,0 +1,99 @@
+"""Stage 1: the canonical NeRF trainer.
+
+Port of ``moco_flow_tpu/train/stage_nerf.py``: a coarse + fine NeRF
+(``dir``-conditioned in ``init_nerf.yaml``) trained on random rays of a
+uniformly drawn frame, with the image loss of both passes and the
+optimizer of the config (``radam`` with ``steplr`` there). Under
+``mlp_impl: pallas`` each step's coarse and fine passes each run kernel #8
+(``ops/fused_mlp.py``) once. The val step, checkpoints and chunked
+rendering are ``train/base.py``'s; ``visualize_batch`` is not ported
+(``train/__main__.py`` refuses ``val_every_n_step > 0``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..data.dataset import sample_train_rays
+from ..data.draws import Draws, draw
+from ..nn.losses import image_loss
+from ..nn.metrics import psnr
+from ..render.volume import render_rays
+from .base import BaseTrainer
+from .checkpoint import load_checkpoint, merge_into
+from .factory import build_statics, init_params, render_config
+from .optim import make_optimizer
+
+
+class NeRFTrainer(BaseTrainer):
+    """The stage-1 model: the coarse and fine NeRFs and one optimizer."""
+
+    def build_model(self, model_config: dict):
+        self.statics = build_statics(model_config)
+        gen = torch.Generator().manual_seed(int(self.seed))
+        self.params = init_params(gen, self.statics, device=self.device)
+        loss = self.config.get("loss")
+        self.loss_kind = (loss.get("type", "MSE") if isinstance(loss, dict)
+                          else "MSE")
+        self.rcfg_train = render_config(model_config)
+        # deterministic val sampling, so jitter does not noise the val PSNR
+        self.rcfg_val = render_config(model_config, perturb=0.0)
+        self.rcfg_test = render_config(model_config, test_time=True,
+                                       perturb=0.0)
+        if model_config.get("pretrained_path"):
+            tree, _ = load_checkpoint(model_config["pretrained_path"])
+            self.params = merge_into(self.params, tree.get("params", tree))
+
+    def configure_optimizers(self, optimizer_config: dict,
+                             scheduler_config: dict | None):
+        """One optimizer over every parameter, built at the first training
+        step (and after each checkpoint load)."""
+        self.opt_cfg = (optimizer_config, scheduler_config)
+        self.opt = None
+
+    def _optimizers(self):
+        """The optimizer, with a loaded checkpoint's state."""
+        if self.opt is not None:
+            return self.opt
+        named = self._named()
+        for t in named.values():
+            t.requires_grad_(True)
+        self.opt = make_optimizer(list(named.values()), *self.opt_cfg,
+                                  names=list(named))
+        if self._opt_named is not None:
+            self.opt.load_named(self._opt_named, "")
+            self._opt_named = None
+        return self.opt
+
+    def draw(self, step: int) -> Draws:
+        """Every random input of ``step`` (frame drawn uniformly, pixels,
+        background, depth jitter, importance uniforms) from the step's
+        generator."""
+        gen = self._step_generator(step)
+        frame = int(torch.randint(0, self.num_frames, (), generator=gen))
+        rcfg = self.rcfg_train
+        return draw(gen, frame, self._valid_count[frame],
+                    int(self.config["model"]["N_rand"]), rcfg.n_samples,
+                    rcfg.n_importance, self.num_frames, chain_global=False)
+
+    def train_step(self, draws: Draws | None = None) -> dict:
+        """One training step at ``self.step`` (the clock is not ticked):
+        draws (or the given ``draws``), rays, render, the image loss of
+        both passes, backward and the optimizer update. Returns
+        ``img_loss`` and ``train_psnr`` as 0-dim tensors."""
+        if draws is None:
+            draws = self.draw(self.clock.step)
+        draws = draws.to(self.device)
+        rays, rgbs, bg = sample_train_rays(
+            self._table, self._directions, self._images, self._bkgd, draws,
+            self._rand_bkgd, self._has_alpha)
+        opt = self._optimizers()
+        opt.zero_grad()
+        res = render_rays(self.params, self.statics, {}, rays, bg,
+                          self.rcfg_train, draws=draws)
+        loss = image_loss(res, rgbs, self.loss_kind)
+        typ = "rgb_fine" if "rgb_fine" in res else "rgb_coarse"
+        train_psnr = psnr(res[typ].detach(), rgbs)
+        loss.backward()
+        opt.step()
+        return {"img_loss": loss.detach(), "train_psnr": train_psnr}

@@ -1,8 +1,9 @@
 #!/usr/bin/env python
-"""Time the port's stage-3 ``none`` training step in two trees of this
-repository on one card, interleaved A, B, B, A.
+"""Time the port's stage-3 ``none`` training step, or its render-pass
+kernel, in two trees of this repository on one card, interleaved A, B, B, A.
 
     python scripts/torch_port_step_ab.py A_DIR B_DIR [--steps 10]
+        [--what step|render]
 
 Each directory is a checkout holding ``chip_smoke.py`` and
 ``moco_flow_tpu_torch/`` (for example a parent commit unpacked with ``git
@@ -12,7 +13,11 @@ run is a process of its own in its tree: the training slice of
 chip_smoke.py's phase 8 (``train(config, args)`` at c2f.yaml widths, 1024
 rays x (128 + 128) samples, both chains, from a seeded checkpoint at step
 6000), 3 warm steps and ``--steps`` steps timed with CUDA events, in bf16
-and fp32. Prints one JSON line per run and the card's name and power limit.
+and fp32. With ``--what render`` a run is chip_smoke.py's phase 3 instead:
+the render-pass kernel (#1/#7) at N=4096 rays, coarse S=128 sigma-only and
+fine S=256, with and without the NoF, bf16 and fp32, each the mean of 5
+launches after a warm one. Prints one JSON line per run and the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -32,6 +37,11 @@ from moco_flow_tpu_torch.ops import _build
 if sys.argv[1] == "build":
     _build.build()
     _build.load_library()
+    sys.exit(0)
+if sys.argv[1] == "render":
+    times = cs.phase_kernel_vs_plain(torch.device("cuda"))["times"]
+    print("MS " + json.dumps({k: v[0] for k, v in times.items()}),
+          flush=True)
     sys.exit(0)
 from moco_flow_tpu_torch.train.__main__ import parse_args, train
 from moco_flow_tpu_torch.train.checkpoint import save_checkpoint
@@ -65,7 +75,7 @@ for dtype in ("bfloat16", "float32"):
     e1.record()
     torch.cuda.synchronize()
     out[dtype] = e0.elapsed_time(e1) / steps
-print("STEP_MS " + json.dumps(out), flush=True)
+print("MS " + json.dumps(out), flush=True)
 """
 
 
@@ -74,6 +84,7 @@ def main(argv=None):
     p.add_argument("a")
     p.add_argument("b")
     p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--what", choices=("step", "render"), default="step")
     args = p.parse_args(argv)
     trees = {"A": os.path.abspath(args.a), "B": os.path.abspath(args.b)}
     builds = {k: subprocess.Popen([sys.executable, "-c", CHILD, "build"],
@@ -86,17 +97,17 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     for k in ("A", "B", "B", "A"):
-        run = subprocess.run([sys.executable, "-c", CHILD, "time",
+        run = subprocess.run([sys.executable, "-c", CHILD, args.what,
                               str(args.steps)], cwd=trees[k],
                              capture_output=True, text=True)
         line = next((ln for ln in run.stdout.splitlines()
-                     if ln.startswith("STEP_MS ")), None)
+                     if ln.startswith("MS ")), None)
         if run.returncode != 0 or line is None:
             sys.stderr.write(run.stdout[-4000:] + run.stderr[-4000:])
             raise SystemExit(f"run {k} failed ({run.returncode})")
-        ms = json.loads(line[len("STEP_MS "):])
-        print(json.dumps({"tree": k, "dir": trees[k], "steps": args.steps,
-                          "step_ms": ms}), flush=True)
+        ms = json.loads(line[len("MS "):])
+        print(json.dumps({"tree": k, "dir": trees[k], "what": args.what,
+                          "steps": args.steps, "ms": ms}), flush=True)
     print(card)
 
 

@@ -1,5 +1,5 @@
-"""The render-pass and single-warp NoF CUDA kernels against their plain
-PyTorch versions, on a GPU.
+"""The render-pass, single-warp NoF and per-op MLP CUDA kernels against
+their plain PyTorch versions, on a GPU.
 
 Marked ``cuda``; each test skips where no card is present. The file imports
 neither JAX nor the JAX package, so it runs on the GPU machine too, where
@@ -108,3 +108,47 @@ def test_nof_kernels_match_plain(card, n, s):
     for a, b in zip([kb[0], *kb[1], *kb[2]], [rb[0], *rb[1], *rb[2]]):
         assert a.shape == b.shape and torch.isfinite(a).all()
         assert _rel_max(a, b) <= 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("sigma_only", [False, True],
+                         ids=["full", "sigma-only"])
+def test_fused_mlp_nerf_matches_plain(card, sigma_only, dt):
+    """Kernel #8 (the per-op NeRF) at init_nerf.yaml's widths on a ragged
+    row count (not a multiple of the kernel's row tile)."""
+    from moco_flow_tpu_torch.ops import fused_mlp as fm
+    gen = torch.Generator().manual_seed(3)
+    cfg = NeRFConfig(extra_feat_type="dir", extra_feat_dim=27)
+    ws = fm._nerf_weights_flat(init_nerf(gen, cfg, card), sigma_only)
+    n = 3001
+    x = (torch.rand(n, 63, generator=gen) * 2 - 1).to(card)
+    e = None if sigma_only else (torch.rand(n, 27, generator=gen) * 2
+                                 - 1).to(card)
+    before = fm.nerf_pallas.launches
+    got = fm.nerf_pallas(cfg, dt, x, e, sigma_only, ws)
+    want = fm._nerf_pallas_ref(cfg, dt, x, e, sigma_only, ws)
+    torch.cuda.synchronize()
+    assert fm.nerf_pallas.launches == before + 1
+    atol, rtol = TOL[dt]
+    assert got.shape == (n, 1 if sigma_only else 4)
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("use_quat", [True, False], ids=["quat", "offset"])
+def test_fused_mlp_nof_matches_plain(card, use_quat, dt):
+    """Kernel #9 (the per-op NoF) at c2f.yaml's widths, both heads."""
+    from moco_flow_tpu_torch.ops import fused_mlp as fm
+    gen = torch.Generator().manual_seed(4)
+    cfg = NoFConfig(use_quat=use_quat)
+    ws = fm._nof_weights_flat(init_nof(gen, cfg, card))
+    n = 3001
+    inp = (torch.rand(n, cfg.in_dim, generator=gen) * 2 - 1).to(card)
+    xyz = (0.6 * torch.randn(n, 3, generator=gen)).to(card)
+    got = fm.nof_pallas(cfg, dt, inp, xyz, ws)
+    want = fm._nof_pallas_ref(cfg, dt, inp, xyz, ws)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dt]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
