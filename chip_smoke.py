@@ -27,10 +27,15 @@ happened; any failure raises and the script exits non-zero):
   6. the training step's kernels against their plain versions at full width
      (NeRF 8x256, NoF 4x128): the NeRF forward (render_pass.cu reading xyz)
      and backward (nerf_rays.cu), full and sigma-only, and the warp chain
-     forward and backward (nof_chain.cu) with local + global, local only and
-     global only chains, N = 1000 x S = 128 (ragged) and 256 x 256, fp32 and
-     bf16: outputs, dxyz, every d(partial) and dW, under TRAIN_TOL; then
-     each kernel, its plain version and its bound at one step's shapes;
+     forward (nof_chain.cu) and backward (chain_bwd.cu) with local + global,
+     local only and global only chains, N = 1000 x S = 128 (ragged) and
+     256 x 256, fp32 and bf16: outputs, dxyz, every d(partial) and dW, under
+     TRAIN_TOL, the bf16 backward also within its plain version's own
+     bf16-vs-fp32 gap; the backward kernels bitwise equal across two
+     launches and in chunks (a lowered scratch cap) as in one launch; then
+     each kernel, its plain version and its bound at one step's shapes, and
+     the backward kernels' split (forward pass, walk pass, dW products, dW
+     sums), scratch size and TFLOP/s;
   7. the training step against JAX's numbers: the two steps of
      tests/fixtures/torch_port_train_golden.npz (written by
      scripts/make_torch_port_train_golden.py) replayed on the card with
@@ -41,8 +46,9 @@ happened; any failure raises and the script exits non-zero):
      ``none`` phase), 6 steps in bf16 and in fp32; each training kernel
      must have launched twice per step, the losses must be finite and the
      parameters must move; the step is timed with CUDA events after 3 warm
-     steps, and one bf16 step is profiled
-     (build/chip_smoke_train/train_step_profile.txt);
+     steps with its peak memory, and one bf16 step is profiled (device time
+     by kernel group, idle share;
+     build/chip_smoke_train/train_step_profile.txt);
   9. the single-warp NoF kernels (nof_rays.cu) against their plain versions
      at the full NoF width (4x128, skip 2, 5 + 16 frequencies, quaternion
      head), fp32 and bf16: one ray of 2000 samples (the step's
@@ -60,9 +66,17 @@ happened; any failure raises and the script exits non-zero):
      none and from 9998 across none -> msk, bf16 and fp32, with the launch
      counts of each phase; a msk and a full step timed (3 warm + 5 timed),
      the val step at val_size 108x108 timed, one bf16 msk step profiled
-     (build/chip_smoke_train/msk_step_profile.txt).
+     (build/chip_smoke_train/msk_step_profile.txt);
+  12. the per-op MLP kernels (fused_mlp.cu, #8/#9) against their plain
+     versions at full width;
+  13. JAX's stage-1 fixture replayed on the card (fp32);
+  14. stage 1 through ``train(config, args)`` at init_nerf.yaml's model
+     under mlp_impl: pallas (launches, step, peak memory, val, profile),
+     then a step as the YAML is written ('xla': #1/#2), with its peak
+     memory and the backward's chunks;
+  15. the pallas 256x256 frame against the fused render.
 The last three lines are the card, the kernel JSON (launch counts from the
-main paths of phases 5, 8 and 11) and the result JSON. Needs one CUDA card;
+main paths of phases 5, 8, 11, 14 and 15) and the result JSON. Needs one CUDA card;
 imports neither JAX nor moco_flow_tpu.
 """
 
@@ -116,7 +130,7 @@ TRAIN_KERNELS = (
      "moco_flow_tpu/ops/megakernel.py:558"),
     ("chain_fwd", "moco_flow_tpu_torch/ops/csrc/nof_chain.cu",
      "moco_flow_tpu/ops/megakernel.py:1154"),
-    ("chain_bwd", "moco_flow_tpu_torch/ops/csrc/nof_chain.cu",
+    ("chain_bwd", "moco_flow_tpu_torch/ops/csrc/chain_bwd.cu",
      "moco_flow_tpu/ops/megakernel.py:1214"))
 # the single warp of the msk / full phases and the val step
 NOF_KERNELS = (
@@ -241,6 +255,35 @@ def phase_kernel_vs_plain(dev) -> dict:
                 gap = (plain["bf16"] - plain["fp32"]).abs().max().item()
                 log(f"[3 kernel vs plain] bf16-vs-fp32 gap of the plain "
                     f"version, {tag[:-5]}: {gap:.3e}")
+    # a 256x256 frame's own launches: 4 chunks of 16384 rays, each a coarse
+    # (S=128, sigma only) and a fine (S=256) pass with the bw-NoF warp
+    n = 16384
+    frame = {"fp32": [0.0, 0.0], "bf16": [0.0, 0.0]}
+    for s, sigma_only in ((128, True), (256, False)):
+        o, d, z, ind = _full_width_inputs(n, s, dev, seed=n + s)
+        extra = embed_padded(ind, EmbeddingSpec(2, in_channels=1), 5)
+        ind_emb = embed_padded(ind, EmbeddingSpec(16, in_channels=1), 33)
+        for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+            args = (params, "coarse_NeRF", ncfg, fcfg, 10, 5, True, True,
+                    an_n, an_f, o, d, z, None if sigma_only else extra,
+                    ind_emb, True, sigma_only, dt)
+            k_ms = cuda_ms(lambda: render_pass(*args), reps=3)
+            p_ms = cuda_ms(lambda: render_pass_ref(*args), reps=1)
+            frame[dname][0] += 4 * k_ms
+            frame[dname][1] += 4 * p_ms
+            kind = "coarse" if sigma_only else "fine"
+            log(f"[3 kernel vs plain] frame launch {kind} S={s} N={n} nof "
+                f"{dname}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+    work = (2 * 4 * n * (128 * (NERF_SIGMA_MACS + NOF_MACS)
+                         + 256 * (NERF_MACS + NOF_MACS)),
+            4 * n * (128 * 8 + 256 * 20 + 2 * 6 * 4))
+    for dname, (k_ms, p_ms) in frame.items():
+        b_ms, b_by = bound_ms(*work, dname)
+        times[f"frame {dname}"] = (k_ms, p_ms, b_ms, b_by)
+        log(f"[3 kernel vs plain] a 256x256 frame's 8 launches (4 x coarse "
+            f"+ fine, N=16384) {dname}: kernel {k_ms:.3f} ms, plain "
+            f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{work[0] / 1e12:.3f} TFLOP)")
     torch.cuda.synchronize()
     return {"max_abs_err": max_err, "times": times}
 
@@ -489,11 +532,75 @@ def _chain_case(P, fcfg, an_f, n, s, local, glob, gen, dev):
     return spec, xyz, parts, wsb, wsf, gs
 
 
+def _flat_grads(r) -> list:
+    """(dx, d(partial) | [d(partial)] | None, [dW]) -> one list."""
+    dp = r[1]
+    dps = [] if dp is None else (list(dp) if isinstance(dp, list) else [dp])
+    return [r[0]] + dps + list(r[2])
+
+
+def _bwd_repeat_checks(P, ncfg, fcfg, an_n, an_f, size, gen, dev):
+    """#2 and #6 give the same bits in two launches, and in chunks of whole
+    rays (a lowered scratch cap) as in one launch."""
+    from moco_flow_tpu_torch.ops import _args
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    from moco_flow_tpu_torch.ops import nof_chain as nc
+    n, s = size
+    c = _nerf_case(P["nerf"], ncfg, an_n, n, s, False, gen, dev)
+    cc = _chain_case(P, fcfg, an_f, n, s, True, True, gen, dev)
+    calls = {"nerf_bwd": lambda dt: nr.nerf_bwd(c[0], dt, *c[1:5]),
+             "chain_bwd": lambda dt: nc.chain_bwd(cc[0], dt, 2, *cc[1:])}
+    for name, call in calls.items():
+        for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+            one = _flat_grads(call(dt))
+            full = _args.run_chunks.last["scratch_bytes"]
+            again = _flat_grads(call(dt))
+            cap = _args.SCRATCH_CAP
+            _args.SCRATCH_CAP = full // 3
+            try:
+                chunked = _flat_grads(call(dt))
+                chunks = _args.run_chunks.last["chunks"]
+            finally:
+                _args.SCRATCH_CAP = cap
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(one, again))
+            same_c = all(torch.equal(a, b) for a, b in zip(one, chunked))
+            log(f"[6 train kernels] {name} {dname} N={n} S={s}: two launches "
+                f"bitwise equal {same}; {chunks} chunks under a cap of "
+                f"{full // 3} bytes bitwise equal to one launch {same_c} "
+                f"({len(one)} tensors)")
+            if not (same and same_c and chunks > 1):
+                raise AssertionError(f"{name} {dname}: not deterministic "
+                                     f"(repeat {same}, chunks {same_c} in "
+                                     f"{chunks})")
+
+
+def _device_split(fn, groups: dict) -> dict:
+    """Device ms of one call of fn by kernel-name group (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {g: 0.0 for g in (*groups, "other")}
+    for ev in prof.key_averages():
+        ms = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+        if ms <= 0:
+            continue
+        g = next((g for g, pats in groups.items()
+                  if any(p in ev.key.lower() for p in pats)), "other")
+        out[g] += ms
+    return out
+
+
 def phase_train_kernels(dev, card: str, sizes=((1000, 128), (256, 256)),
                         n: int = 1024) -> dict:
     """Kernels #1/#2 (NeRF forward / backward) and #5/#6 (warp chain) against
     their plain versions at full width on ``sizes`` (rays, samples), then
     timed at the step's shapes (``n`` rays)."""
+    from moco_flow_tpu_torch.ops import _args
     from moco_flow_tpu_torch.ops import nerf_rays as nr
     from moco_flow_tpu_torch.ops import nof_chain as nc
     gen = torch.Generator().manual_seed(1)
@@ -504,6 +611,22 @@ def phase_train_kernels(dev, card: str, sizes=((1000, 128), (256, 256)),
     an_n = anneal_weights(505000, 10, 5000, 1005000).to(dev)
     an_f = anneal_weights(505000, 5, 5000, 1005000).to(dev)
     err = {k: 0.0 for k in ("nerf_fwd", "nerf_bwd", "chain_fwd", "chain_bwd")}
+    # bf16 backward: largest |kernel - plain| over the plain version's own
+    # bf16-vs-fp32 gap, per tensor (must stay <= 1). A tensor that does not
+    # depend on the compute type (the plain bf16 and fp32 versions agree
+    # bit for bit, as d(sigma bias) = sum d(sigma)) has no gap; TRAIN_TOL's
+    # fp32 bound holds it.
+    gap_ratio = {"nerf_bwd": 0.0, "chain_bwd": 0.0}
+    no_gap = {"nerf_bwd": 0, "chain_bwd": 0}
+
+    def track_gap(name, got, want, want32):
+        e = (got.float() - want.float()).abs().max().item()
+        gap = (want.float() - want32.float()).abs().max().item()
+        if gap == 0.0:
+            no_gap[name] += 1
+            return
+        gap_ratio[name] = max(gap_ratio[name], e / gap)
+
     dts = (("fp32", None), ("bf16", torch.bfloat16))
     for n_r, s in sizes:
         for sigma_only in (False, True):
@@ -535,6 +658,8 @@ def phase_train_kernels(dev, card: str, sizes=((1000, 128), (256, 256)),
                                     None if refs32 is None else refs32[i],
                                     grad=True)
                     worst, w_rel = max(worst, w[0]), max(w_rel, w[1])
+                    if refs32 is not None:
+                        track_gap("nerf_bwd", a, b, refs32[i])
                 err["nerf_bwd"] = max(err["nerf_bwd"], worst)
                 log(f"[6 train kernels] {tag}: forward max|d| {e:.3e} "
                     f"({e_rel:.1e} of max|ref|), backward max|d| {worst:.3e} "
@@ -575,6 +700,8 @@ def phase_train_kernels(dev, card: str, sizes=((1000, 128), (256, 256)),
                                     None if refs32 is None else refs32[i],
                                     grad=True)
                     worst, w_rel = max(worst, w[0]), max(w_rel, w[1])
+                    if refs32 is not None:
+                        track_gap("chain_bwd", a, b, refs32[i])
                 err["chain_bwd"] = max(err["chain_bwd"], worst)
                 log(f"[6 train kernels] {tag}: forward max|d| {e:.3e} "
                     f"({e_rel:.1e} of max|ref|) over {len(ko)} outputs, "
@@ -584,6 +711,17 @@ def phase_train_kernels(dev, card: str, sizes=((1000, 128), (256, 256)),
                     "(tolerance: TRAIN_TOL)")
                 if dname == "fp32":
                     plain32 = (ro, rb)
+    for name, r in gap_ratio.items():
+        log(f"[6 train kernels] {name} bf16: largest |kernel - plain| is "
+            f"{r:.3f} of the plain version's own bf16-vs-fp32 gap (max over "
+            f"every output tensor; must stay <= 1; {no_gap[name]} tensors "
+            "that do not depend on the compute type are held to TRAIN_TOL "
+            "alone)")
+        if sizes and not r <= 1.0:
+            raise AssertionError(f"{name} bf16 differs from its plain "
+                                 f"version by {r:.3f} x its bf16-vs-fp32 gap")
+    if sizes:
+        _bwd_repeat_checks(P, ncfg, fcfg, an_n, an_f, sizes[0], gen, dev)
     # times at the step's shapes, bf16 (the slice's compute type; its times
     # go into the kernels line) and fp32: one step launches each NeRF kernel
     # on N=1024 x S=128 (coarse) and S=256 (fine), each chain kernel twice on
@@ -635,9 +773,19 @@ def phase_train_kernels(dev, card: str, sizes=((1000, 128), (256, 256)),
             if dname == "bf16":
                 times[name] = (k_ms, p_ms, b_ms, b_by)
             log(f"[6 train kernels] {name} {dname}, one step's two launches: "
-                f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                f"kernel {k_ms:.3f} ms ({flops[name] / k_ms / 1e9:.1f} "
+                f"TFLOP/s), plain {p_ms:.3f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}: {flops[name] / 1e12:.3f} TFLOP, "
                 f"{nbytes[name] / 1e6:.1f} MB) on {card}")
+            if name in ("nerf_bwd", "chain_bwd"):
+                split = _device_split(lambda: [f() for f in kern], BWD_GROUPS)
+                sc = _args.run_chunks.last
+                log(f"[6 train kernels] {name} {dname} split of the two "
+                    "launches (device ms): " + ", ".join(
+                        f"{k} {v:.3f}" for k, v in split.items())
+                    + f"; scratch {sc['scratch_bytes'] / 2 ** 30:.3f} GiB "
+                    f"in {sc['chunks']} chunk(s) for the last launch (cap "
+                    f"{_args.SCRATCH_CAP / 2 ** 30:g} GiB)")
     torch.cuda.synchronize()
     return {"err": err, "times": times}
 
@@ -699,10 +847,20 @@ def train_config(dtype: str) -> dict:
     return cfg
 
 
-STEP_GROUPS = {"nerf_bwd": "nerf_bwd_kernel", "chain_bwd": "chain_bwd_kernel",
-               "chain_fwd": "chain_fwd_kernel", "nerf_fwd": "render_pass",
-               "nof_bwd": "nof_bwd_kernel", "nof_fwd": "nof_fwd_kernel",
-               "dW sums": "mlp::sum_", "sort": "sort"}   # lower-case keys
+# kernel name patterns (lower case) of each group; #2 and #6 share the
+# long-K dW kernels of wgrad.cu
+STEP_GROUPS = {"nerf_bwd passes": ("nerf_fwd_pass", "nerf_walk_pass"),
+               "chain_bwd passes": ("chain_fwd_pass", "chain_walk_pass"),
+               "dW (#2/#6)": ("matrix_mma", "matrix_ffma", "colsum_kernel",
+                              "segsum_kernel", "reduce_kernel"),
+               "chain_fwd": ("chain_fwd_kernel",), "nerf_fwd": ("render_pass",),
+               "nof_bwd": ("nof_bwd_kernel",), "nof_fwd": ("nof_fwd_kernel",),
+               "dW sums (#3/#4)": ("mlp::sum_",), "sort": ("sort",)}
+# the parts of #2 / #6 (phase 6's split)
+BWD_GROUPS = {"forward pass": ("nerf_fwd_pass", "chain_fwd_pass"),
+              "walk pass": ("nerf_walk_pass", "chain_walk_pass"),
+              "dW products": ("matrix_mma", "matrix_ffma"),
+              "dW sums": ("colsum_kernel", "segsum_kernel", "reduce_kernel")}
 
 
 def _profile_step(tr, card: str, tag: str = "[8 train slice] profiled bf16",
@@ -735,8 +893,9 @@ def _profile_step(tr, card: str, tag: str = "[8 train slice] profiled bf16",
         if on_card:
             ms = dev_ms(ev)                     # a kernel (or a copy)
             busy += ms
-            k = next((g for g, pat in kernels.items()
-                      if pat in ev.key.lower()), "other kernels")
+            k = next((g for g, pats in kernels.items()
+                      if any(p in ev.key.lower() for p in pats)),
+                     "other kernels")
             split[k] += ms
         else:
             for g, pat in ranges.items():       # a range of host code
@@ -754,6 +913,16 @@ def _profile_step(tr, card: str, tag: str = "[8 train slice] profiled bf16",
     with open(os.path.join(out, fname), "w") as f:
         f.write(prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=40))
+
+
+def _check_scratch(tag: str) -> None:
+    """The backward kernels' scratch never passed its cap."""
+    from moco_flow_tpu_torch.ops import _args
+    top = _args.run_chunks.max_scratch
+    log(f"{tag} largest #2/#6 scratch so far {top / 2 ** 30:.3f} GiB (cap "
+        f"{_args.SCRATCH_CAP / 2 ** 30:g} GiB)")
+    if top > _args.SCRATCH_CAP:
+        raise AssertionError(f"scratch {top} bytes above the cap")
 
 
 def phase_train_slice(card: str) -> dict:
@@ -802,6 +971,7 @@ def phase_train_slice(card: str) -> dict:
         if not 0 < moved < 1 or not 0 < moved_nof.item() < 1:
             raise AssertionError(f"train {dtype}: params moved {moved}, "
                                  f"{moved_nof.item()}")
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(3):                                   # warm steps
             tr.train_step()
         steps = 5
@@ -813,13 +983,15 @@ def phase_train_slice(card: str) -> dict:
         e1.record()
         torch.cuda.synchronize()
         ms = e0.elapsed_time(e1) / steps
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         result[dtype] = ms
         log(f"[8 train slice] {dtype}: {TRAIN_STEPS} steps from step "
             f"{TRAIN_START}, last losses {json.dumps(losses)}; params moved "
             f"(NeRF {moved:.2e}, bw NoF {moved_nof.item():.2e}); launches "
             f"nerf fwd/bwd, chain fwd/bwd = {2 * TRAIN_STEPS} each; step "
             f"{ms:.1f} ms = {1024 / ms * 1e3:.0f} rays/s (1024 rays x "
-            f"(128 + 128) samples) on {card}")
+            f"(128 + 128) samples), peak memory {peak:.2f} GiB on {card}")
+        _check_scratch("[8 train slice]")
         if dtype == "bfloat16":
             _profile_step(tr, card)
         torch.cuda.synchronize()
@@ -1348,8 +1520,8 @@ def stage1_config(dtype: str, impl: str = "pallas") -> dict:
     }
 
 
-STAGE1_GROUPS = {"nerf_pallas": "nerf_mma_kernel",
-                 "gemm (the recompute backward)": "gemm"}
+STAGE1_GROUPS = {"nerf_pallas": ("nerf_mma_kernel",),
+                 "gemm (the recompute backward)": ("gemm",)}
 
 
 def phase_stage1_slice(card: str, size: int = 256,
@@ -1359,6 +1531,7 @@ def phase_stage1_slice(card: str, size: int = 256,
     memory, the val step, a profile; then the YAML's own route (mlp_impl
     'xla', which the port runs on the fused kernels #1/#2) for comparison."""
     from moco_flow_tpu_torch.data.dataset import get_dataset
+    from moco_flow_tpu_torch.ops import _args
     from moco_flow_tpu_torch.ops import fused_mlp as fm
     from moco_flow_tpu_torch.ops import nerf_rays as nr
     from moco_flow_tpu_torch.train.__main__ import parse_args as train_args
@@ -1441,11 +1614,16 @@ def phase_stage1_slice(card: str, size: int = 256,
             raise AssertionError(f"stage 1 as written {dtype}: launches "
                                  f"{nr.nerf_fwd.launches}/"
                                  f"{nr.nerf_bwd.launches}, {tr.losses}")
+        torch.cuda.reset_peak_memory_stats()
         ms = _timed_steps(tr, warm=1, steps=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         result[dtype]["fused_step_ms"] = ms
         log(f"[14 stage-1 slice] {dtype}, init_nerf.yaml's mlp_impl 'xla' "
             f"(the fused kernels #1/#2, 2 launches each a step): step "
-            f"{ms:.1f} ms = {STAGE1_RAYS / ms * 1e3:.0f} rays/s on {card}")
+            f"{ms:.1f} ms = {STAGE1_RAYS / ms * 1e3:.0f} rays/s, peak memory "
+            f"{peak:.2f} GiB, #2's fine launch in "
+            f"{_args.run_chunks.last['chunks']} chunk(s) on {card}")
+        _check_scratch("[14 stage-1 slice]")
         del tr
         torch.cuda.empty_cache()
     result["launches"] = launches

@@ -12,6 +12,7 @@ in the order autograd returns them.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -21,6 +22,12 @@ from .folds import _trunk_layers
 
 MAX_DEPTH = 8        # mlp_tile.cuh kMaxDepth
 MAX_WIDTH = 256      # mlp_tile.cuh kMaxWidth
+# The backward kernels #2 / #6 (row_tile.cuh, wgrad.cuh): rows per split of
+# the long-K weight-gradient products (a multiple of the 128-row tile), and
+# the most scratch one launch may take; a call above it runs in chunks of
+# whole rays, each a whole number of splits, so it gives the same bits.
+SPLIT_ROWS = 8192
+SCRATCH_CAP = 4 << 30
 
 
 class Operands:
@@ -52,6 +59,114 @@ class Operands:
     def bands(self, kc: int, logscale: bool) -> int:
         return self.ptr(torch.from_numpy(freq_bands(kc // 3, logscale))
                         .to(self.device))
+
+
+def _pad16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def row_op(ops: Operands, b) -> int:
+    """The B operand (K, N) of a row-tile product (row_tile.cuh), in the
+    storage type: bf16 B^T zero-padded to (pad16(N), pad16(K)), fp32 B
+    zero-padded to (K, pad16(N))."""
+    m = b.to(ops.dtype)
+    k, n = m.shape
+    if ops.dtype == torch.bfloat16:
+        out = torch.zeros((_pad16(n), _pad16(k)), dtype=ops.dtype,
+                          device=ops.device)
+        out[:n, :k] = m.T
+    else:
+        out = torch.zeros((k, _pad16(n)), dtype=ops.dtype, device=ops.device)
+        out[:, :n] = m
+    return ops.ptr(out)
+
+
+def row_mat(ops: Operands, ws, off, iw: int, ib: int) -> list:
+    """A matrix (K, N) as (forward operand, input-gradient operand), its
+    bias, and their gradient offsets: (f, b, bias, g_w, g_b)."""
+    return [row_op(ops, ws[iw]), row_op(ops, ws[iw].T), ops.vec(ws[ib]),
+            off[iw], off[ib]]
+
+
+def row_layers(ops: Operands, ws, off, depth: int, skips: tuple) -> list:
+    """8 trunk layers of (pe_f, pe_b, h_f, h_b, bias, g_pe, g_h, g_b)."""
+    ops.check(1 <= depth <= MAX_DEPTH, f"depth {depth} not in 1..{MAX_DEPTH}")
+    idx, _ = _trunk_layers(list(range(len(ws))), depth, skips)
+    blk = []
+    for layer in range(MAX_DEPTH):
+        if layer >= depth:
+            blk += [0] * 8
+            continue
+        ipe, ih, ib = idx[layer]
+        pe = ([0, 0] if ipe is None else
+              [row_op(ops, ws[ipe]), row_op(ops, ws[ipe].T)])
+        h = ([0, 0] if ih is None else
+             [row_op(ops, ws[ih]), row_op(ops, ws[ih].T)])
+        blk += pe + h + [ops.vec(ws[ib]), 0 if ipe is None else off[ipe],
+                         0 if ih is None else off[ih], off[ib]]
+    return blk
+
+
+def run_chunks(ops: Operands, lib, prefix: str, n: int, s: int, total: int,
+               make_args) -> torch.Tensor:
+    """Run a backward kernel (#2 ``nerf_bwd``, #6 ``chain_bwd``) over n rays
+    of s samples in chunks of whole rays whose scratch fits SCRATCH_CAP, and
+    sum the chunks' weight-gradient splits in order (``wgrad_reduce``).
+
+    ``make_args(r0, r1, part, scratch)`` returns the argument array of rays
+    [r0, r1) and a function to call once that chunk is queued (or None);
+    ``part`` and ``scratch`` are None when only the scratch size is asked.
+    Returns the flat fp32 gradient (total,)."""
+    def scratch_bytes(rays: int) -> int:
+        b = call(getattr(lib, f"{prefix}_scratch_bytes"),
+                 make_args(0, rays, None, None)[0])
+        if b < 0:
+            raise RuntimeError(f"{ops.name}: "
+                               f"{getattr(lib, prefix + '_error')(b).decode()}"
+                               f" ({b})")
+        return b
+
+    q = SPLIT_ROWS // math.gcd(SPLIT_ROWS, s)  # rays in a whole number of splits
+    if scratch_bytes(n) <= SCRATCH_CAP:
+        spans = [(0, n)]
+    else:
+        per = SCRATCH_CAP // scratch_bytes(q) * q
+        if per == 0:
+            raise RuntimeError(f"{ops.name}: {q} rays of {s} samples need "
+                               f"{scratch_bytes(q)} bytes of scratch, above "
+                               f"the cap of {SCRATCH_CAP}")
+        spans = [(r, min(r + per, n)) for r in range(0, n, per)]
+    rows_padded = -(-n * s // 128) * 128      # row tiles of 128
+    n_split = -(-rows_padded // SPLIT_ROWS)
+    part = torch.empty((n_split, total), dtype=torch.float32,
+                       device=ops.device)
+    scratch = torch.empty((scratch_bytes(spans[0][1] - spans[0][0]),),
+                          dtype=torch.uint8, device=ops.device)
+    run_chunks.last = {"scratch_bytes": scratch.numel(), "chunks": len(spans)}
+    run_chunks.max_scratch = max(run_chunks.max_scratch, scratch.numel())
+    stream = torch.cuda.current_stream(ops.device).cuda_stream
+    launch = getattr(lib, f"{prefix}_launch")
+    for r0, r1 in spans:
+        arr, after = make_args(r0, r1, part, scratch)
+        rc = call(launch, arr, stream)
+        if rc != 0:
+            raise RuntimeError(f"{ops.name} kernel failed to launch: "
+                               f"{getattr(lib, prefix + '_error')(rc).decode()}"
+                               f" ({rc})")
+        if after is not None:
+            after()
+    dw = torch.empty((total,), dtype=torch.float32, device=ops.device)
+    rc = lib.wgrad_reduce(part.data_ptr(), n_split, total, dw.data_ptr(),
+                          stream)
+    if rc != 0:
+        raise RuntimeError(f"{ops.name}: wgrad_reduce failed ({rc})")
+    return dw
+
+
+# the last call's scratch and chunk count, and the largest scratch of any
+# call (chip_smoke.py reports them)
+run_chunks.last = None
+run_chunks.max_scratch = 0
 
 
 def offsets(ws, base: int = 0):
@@ -89,11 +204,6 @@ def net_block(ops: Operands, ws, off, depth: int, width: int, kc: int,
     else:
         blk += [0] * 5
     return blk
-
-
-def mat_block(ops: Operands, ws, off, iw: int, ib: int) -> list:
-    """read_mat's block: w, w^T, b, g_w, g_b."""
-    return ops.mat(ws[iw]) + [ops.vec(ws[ib]), off[iw], off[ib]]
 
 
 def as_array(args) -> np.ndarray:

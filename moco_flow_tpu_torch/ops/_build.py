@@ -101,14 +101,18 @@ def load_library() -> ctypes.CDLL:
                  "fused_mlp_nerf_launch", "fused_mlp_nof_launch"):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = ctypes.c_int
-    lib.nerf_bwd_tile_rows.argtypes = args[:2]
-    lib.nerf_bwd_tile_rows.restype = ctypes.c_int
-    for name in ("chain_tile_rows", "nof_rays_tile_rows"):
-        getattr(lib, name).argtypes = [ctypes.c_void_p, ctypes.c_int,
+    for name in ("nerf_bwd_scratch_bytes", "chain_bwd_scratch_bytes"):
+        getattr(lib, name).argtypes = args[:2]
+        getattr(lib, name).restype = ctypes.c_int64
+    lib.wgrad_reduce.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_int64, ctypes.c_void_p,
+                                 ctypes.c_void_p]
+    lib.wgrad_reduce.restype = ctypes.c_int
+    lib.nof_rays_tile_rows.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                        ctypes.c_int]
-        getattr(lib, name).restype = ctypes.c_int
-    for name in ("nerf_bwd_error", "chain_error", "nof_rays_error",
-                 "fused_mlp_error"):
+    lib.nof_rays_tile_rows.restype = ctypes.c_int
+    for name in ("nerf_bwd_error", "chain_error", "chain_bwd_error",
+                 "nof_rays_error", "fused_mlp_error"):
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_char_p
     return lib

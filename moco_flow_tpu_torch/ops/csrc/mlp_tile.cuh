@@ -1,6 +1,6 @@
-// Block-wide building blocks of the training kernels (nerf_rays.cu,
-// nof_chain.cu): a tile of R sample rows is carried through an MLP with
-// every activation in shared memory, forward and backward.
+// Block-wide building blocks of the NoF kernels (nof_chain.cu, nof_rays.cu,
+// through nof_tile.cuh): a tile of R sample rows is carried through an MLP
+// with every activation in shared memory, forward and backward.
 //
 // Storage type T is float (fp32 build) or bf16 (bf16 build). Activations,
 // the packed PE embedding and the ReLU-masked cotangents dz are stored in T;
@@ -54,12 +54,6 @@ __device__ __forceinline__ void stv(float* p, int64_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void stv(bf16* p, int64_t i, float v) {
   p[i] = __float2bfloat16_rn(v);
 }
-// v rounded to the storage type T
-template <typename T> __device__ __forceinline__ float rnd(float v);
-template <> __device__ __forceinline__ float rnd<float>(float v) { return v; }
-template <> __device__ __forceinline__ float rnd<bf16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // element (r, c) of a row-major matrix with row stride ld
 template <typename T> struct Rows {
@@ -77,14 +71,6 @@ template <typename T> struct Cols {
     return ldv(p, static_cast<int64_t>(c) * ld + r);
   }
 };
-// an fp32 row-major matrix read rounded to T (JAX casts the operand)
-template <typename T> struct RowsRnd {
-  const float* p;
-  int ld;
-  __device__ __forceinline__ float operator()(int r, int c) const {
-    return rnd<T>(p[static_cast<int64_t>(r) * ld + c]);
-  }
-};
 struct Zero {
   __device__ __forceinline__ float operator()(int, int) const { return 0.f; }
 };
@@ -95,9 +81,6 @@ struct Zero {
 template <class X> struct IsBf16 { static constexpr bool value = false; };
 template <> struct IsBf16<Rows<bf16>> { static constexpr bool value = true; };
 template <> struct IsBf16<Cols<bf16>> { static constexpr bool value = true; };
-template <> struct IsBf16<RowsRnd<bf16>> {
-  static constexpr bool value = true;
-};
 template <> struct IsBf16<Zero> { static constexpr bool value = true; };
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {

@@ -1,0 +1,298 @@
+// Row-tile passes of the training backward kernels (nerf_rays.cu,
+// chain_bwd.cu): a block of 512 threads carries a tile of 128 consecutive
+// sample rows through one product at a time, out = A1 @ B1 + A2 @ B2, with
+// A in shared memory and B (a layer's weights, or their transpose for an
+// input gradient) streamed from L2, and hands every result pair to an
+// epilogue functor. The forward recompute and the backward walk are built
+// from it; they store what the weight gradients need to a device scratch
+// (wgrad.cuh) instead of keeping it in shared memory.
+//
+// - bf16: tensor cores, as pass_tile.cuh::mma_layer (16 warps = 8 row
+//   groups x 2 column halves, mma.sync m16n8k16, A fragments by ldmatrix
+//   from row-major shared memory, 64-deep slices of B^T staged with
+//   cp.async, double-buffered, shared by the 16 warps). B arrives as B^T
+//   zero-padded to (pad16(n), pad16(k)); A holds finite values (zeros) in
+//   its columns k..pad16(k).
+// - fp32: an FFMA loop; warp w owns rows 8w..8w+7, lane l the column pairs
+//   2l + 64j, reading A by broadcast from row-major shared memory and B
+//   (zero-padded to (k, pad16(n))) as coalesced float2 rows.
+// Every product accumulates in fp32 from the stored operands.
+
+#pragma once
+
+#include "pass_tile.cuh"
+
+namespace {
+
+constexpr int kRT = 128;                 // rows per tile
+constexpr int kRTThreads = 512;          // 16 warps
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+// v rounded to T
+template <typename T> __device__ __forceinline__ float rnd_t(float v) {
+  return to_f(from_f<T>(v));
+}
+
+// two consecutive elements (the first at an even index)
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// One term A @ B of a row-tile product (k = 0: absent).
+template <typename T> struct Term {
+  const T* a;     // (kRT, k) in shared memory, row stride lda
+  int lda;
+  const T* b;     // B in device memory, laid out as above
+  int k;
+};
+
+// epi(r, c, v0, v1) for each row r < kRT and even column c < n with the
+// results of columns c and c + 1 (c + 1 may be a padded column, whose value
+// is exactly 0). Block-wide; starts and ends with every thread in step, so
+// the epilogue may overwrite an A operand.
+template <class Epi>
+__device__ void rt_mm(bf16* Ws, Term<bf16> t1, Term<bf16> t2, int n,
+                      Epi epi) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp_m = (tid >> 5) & 7, warp_n = tid >> 8;
+  const int n_pad = pad16(n), ntw = n_pad / 16, nbase = warp_n * ntw * 8;
+  float acc[16][4];
+#pragma unroll
+  for (int t = 0; t < 16; ++t)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[t][q] = 0.f;
+  const int k1 = t1.k ? pad16(t1.k) : 0, k2 = t2.k ? pad16(t2.k) : 0;
+  const int n1 = (k1 + kKc - 1) / kKc;
+  const int n_slices = n1 + (k2 + kKc - 1) / kKc;
+  auto stage = [&](int ci) {
+    if (ci < n_slices) {
+      const bool first = ci < n1;
+      const bf16* w = first ? t1.b : t2.b;
+      const int K = first ? k1 : k2;
+      const int k0 = (first ? ci : ci - n1) * kKc;
+      const int vpr = min(kKc, K - k0) / 8;   // 16-byte vectors per row
+      bf16* buf = Ws + (ci & 1) * kMaxWidth * kWsLd;
+      for (int v = tid; v < n_pad * vpr; v += kRTThreads) {
+        const int row = v / vpr, q = v % vpr;
+        cp_async16(buf + row * kWsLd + q * 8,
+                   w + static_cast<int64_t>(row) * K + k0 + q * 8);
+      }
+    }
+    cp_async_commit();
+  };
+  stage(0);
+  for (int ci = 0; ci < n_slices; ++ci) {
+    stage(ci + 1);
+    cp_async_wait_all_but_one();         // slice ci has landed ...
+    __syncthreads();                     // ... for every thread
+    const bool first = ci < n1;
+    const int K = first ? k1 : k2;
+    const int k0 = (first ? ci : ci - n1) * kKc;
+    const int kl = min(kKc, K - k0);
+    const bf16* A = (first ? t1.a : t2.a) +
+                    (warp_m * 16 + (lane & 15)) * (first ? t1.lda : t2.lda) +
+                    k0 + (lane >> 4) * 8;
+    const bf16* B = Ws + (ci & 1) * kMaxWidth * kWsLd +
+                    (nbase + (lane & 7)) * kWsLd + ((lane >> 3) & 1) * 8;
+    for (int ks = 0; ks < kl; ks += 16) {
+      unsigned af[4];
+      ldsm_x4(af, A + ks);
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        if (t < ntw) {
+          unsigned bfr[2];
+          ldsm_x2(bfr, B + t * 8 * kWsLd + ks);
+          mma_bf16(acc[t], af, bfr);
+        }
+      }
+    }
+    __syncthreads();   // slice ci consumed; after the last, A read by all
+  }
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    if (t >= ntw) continue;
+    const int col = nbase + t * 8 + tq * 2;
+    if (col >= n) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      epi(warp_m * 16 + g + 8 * hh, col, acc[t][2 * hh], acc[t][2 * hh + 1]);
+  }
+  __syncthreads();
+}
+
+template <int NP, class Epi>
+__device__ void rt_mm_np(Term<float> t1, Term<float> t2, int n, Epi epi) {
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 8;
+  const int ldb = pad16(n);
+  float acc[8][NP][2];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < NP; ++j) acc[i][j][0] = acc[i][j][1] = 0.f;
+  for (int term = 0; term < 2; ++term) {
+    const Term<float>& t = term ? t2 : t1;
+#pragma unroll 2
+    for (int k = 0; k < t.k; ++k) {
+      float a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = t.a[(r0 + i) * t.lda + k];
+      const float* b = t.b + static_cast<int64_t>(k) * ldb;
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const int c = 2 * lane + 64 * j;
+        const float2 w = c < ldb ? __ldg(reinterpret_cast<const float2*>(
+                                       b + c))
+                                 : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[i][j][0] = fmaf(a[i], w.x, acc[i][j][0]);
+          acc[i][j][1] = fmaf(a[i], w.y, acc[i][j][1]);
+        }
+      }
+    }
+  }
+  __syncthreads();   // every warp has read A before an epilogue writes it
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const int c = 2 * lane + 64 * j;
+    if (c >= n) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) epi(r0 + i, c, acc[i][j][0], acc[i][j][1]);
+  }
+  __syncthreads();
+}
+
+template <class Epi>
+__device__ void rt_mm(bf16*, Term<float> t1, Term<float> t2, int n,
+                      Epi epi) {
+  switch ((n + 63) / 64) {
+    case 1: rt_mm_np<1>(t1, t2, n, epi); break;
+    case 2: rt_mm_np<2>(t1, t2, n, epi); break;
+    case 3: rt_mm_np<3>(t1, t2, n, epi); break;
+    default: rt_mm_np<4>(t1, t2, n, epi); break;
+  }
+}
+
+template <typename T> __device__ __forceinline__ Term<T> no_term() {
+  return Term<T>{nullptr, 0, nullptr, 0};
+}
+
+// Shared-memory row stride of a T tile with `cols` columns: padded to 16,
+// plus 16 bytes so ldmatrix rows fall in other banks; a multiple of 16
+// bytes either way.
+template <typename T> __host__ __device__ inline int tile_ld(int cols) {
+  return pad16(cols) + 16 / static_cast<int>(sizeof(T));
+}
+
+// bytes of the staged weight slices rt_mm takes (none in fp32)
+template <typename T> __host__ __device__ constexpr size_t ws_bytes() {
+  return sizeof(T) == 2 ? 2 * kMaxWidth * kWsLd * sizeof(bf16) : 0;
+}
+
+// dst rows [row0, row0 + kRT) (row stride dst_ld) <- the tile (row stride
+// src_ld), `cols` columns (a multiple of 16 / sizeof(T)), 16 bytes a thread.
+template <typename T>
+__device__ void rt_store(T* dst, int dst_ld, int64_t row0, const T* src,
+                         int src_ld, int cols) {
+  constexpr int kV = 16 / sizeof(T);
+  const int vpr = cols / kV;
+  for (int v = threadIdx.x; v < kRT * vpr; v += kRTThreads) {
+    const int r = v / vpr, q = (v % vpr) * kV;
+    *reinterpret_cast<uint4*>(dst + (row0 + r) * dst_ld + q) =
+        *reinterpret_cast<const uint4*>(src + r * src_ld + q);
+  }
+}
+
+// the tile <- dst's rows (the inverse of rt_store); ends with a barrier
+template <typename T>
+__device__ void rt_load(T* dst, int dst_ld, const T* src, int src_ld,
+                        int64_t row0, int cols) {
+  constexpr int kV = 16 / sizeof(T);
+  const int vpr = cols / kV;
+  for (int v = threadIdx.x; v < kRT * vpr; v += kRTThreads) {
+    const int r = v / vpr, q = (v % vpr) * kV;
+    *reinterpret_cast<uint4*>(dst + r * dst_ld + q) =
+        *reinterpret_cast<const uint4*>(src + (row0 + r) * src_ld + q);
+  }
+  __syncthreads();
+}
+
+// Packed PE of the tile into row-major E: [x(3), sin(kc), cos(kc), zeros to
+// pad16(3 + 2kc)], column 3 + f*3 + j = sin(bands[f] * x_j); X is [3][kRT].
+template <typename T>
+__device__ void rt_pe_fill(T* E, int e_ld, const float* X,
+                           const float* bands, int kc) {
+  const int kp = 3 + 2 * kc;
+  for (int i = threadIdx.x; i < kRT * kc; i += kRTThreads) {
+    const int r = i % kRT, f3j = i / kRT;
+    float s, c;
+    sincosf(__fmul_rn(bands[f3j / 3], X[(f3j % 3) * kRT + r]), &s, &c);
+    E[r * e_ld + 3 + f3j] = from_f<T>(s);
+    E[r * e_ld + 3 + kc + f3j] = from_f<T>(c);
+  }
+  const int extra = 3 + pad16(kp) - kp;
+  for (int i = threadIdx.x; i < kRT * extra; i += kRTThreads) {
+    const int r = i % kRT, j = i / kRT;
+    if (j < 3) E[r * e_ld + j] = from_f<T>(X[j * kRT + r]);
+    else E[r * e_ld + kp + j - 3] = from_f<T>(0.f);
+  }
+  __syncthreads();
+}
+
+// dX [3][kRT] += de[:, :3] + B . (de_sin cos - de_cos sin): the PE chain of
+// _nerf_bwd_tile / _nof_bwd_tile (de, row stride de_ld, is the packed
+// embedding's cotangent). Ends with a barrier.
+__device__ void rt_pe_backward(float* dX, const float* de, int de_ld,
+                               const float* X, const float* bands, int kc) {
+  for (int i = threadIdx.x; i < kRT * 3; i += kRTThreads) {
+    const int r = i % kRT, j = i / kRT;
+    const float* d = de + r * de_ld;
+    const float x = X[j * kRT + r];
+    float acc = 0.f;
+    for (int f = 0; f < kc / 3; ++f) {
+      float s, c;
+      sincosf(__fmul_rn(bands[f], x), &s, &c);
+      const int q = 3 + f * 3 + j;
+      const float ds = __fsub_rn(__fmul_rn(d[q], c), __fmul_rn(d[q + kc], s));
+      acc = __fadd_rn(acc, __fmul_rn(bands[f], ds));
+    }
+    dX[i] = __fadd_rn(__fadd_rn(dX[i], d[j]), acc);
+  }
+  __syncthreads();
+}
+
+// Operands of one layer: each matrix as the forward product's B (f) and the
+// input gradient's B (b = the transpose), in the layout rt_mm takes.
+struct RLayer {
+  const void* pe_f;       // packed-PE rows, or null
+  const void* pe_b;
+  const void* h_f;        // hidden rows, or null
+  const void* h_b;
+  const float* bias;
+};
+
+struct RMat {
+  const void* f;
+  const void* b;
+  const float* bias;
+};
+
+}  // namespace

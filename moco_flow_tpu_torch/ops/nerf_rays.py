@@ -11,11 +11,14 @@ custom VJP ``_nerf_op`` (kernels ``_nerf_fwd_call`` and ``_nerf_bwd_call``):
 - ``nerf_fwd`` / ``nerf_bwd`` are the kernels' wrappers: on CUDA tensors
   the forward launches the render-pass kernel reading xyz
   (``csrc/render_pass.cu``) and the backward the recompute backward of
-  ``csrc/nerf_rays.cu`` (or raise); on CPU tensors they run the plain
-  versions ``_nerf_fwd_ref`` / ``_nerf_bwd_ref``, written from
-  ``_nerf_tile`` / ``_nerf_bwd_tile`` so that they round where those round
-  (matrices in the compute dtype, biases and the sigma row fp32, ``dz``
-  rounded before each weight-gradient product, dW returned fp32).
+  ``csrc/nerf_rays.cu`` (row-tile passes over a device scratch and long-K
+  weight-gradient products, ``csrc/wgrad.cu``; a call whose scratch would
+  pass ``_args.SCRATCH_CAP`` runs in chunks of whole rays), or raise; on
+  CPU tensors they run the plain versions ``_nerf_fwd_ref`` /
+  ``_nerf_bwd_ref``, written from ``_nerf_tile`` / ``_nerf_bwd_tile`` so
+  that they round where those round (matrices in the compute dtype, biases
+  and the sigma row fp32, ``dz`` rounded before each weight-gradient
+  product, dW returned fp32).
   ``nerf_fwd.launches`` / ``nerf_bwd.launches`` count kernel launches.
 """
 
@@ -189,49 +192,52 @@ def _bwd_launch(spec: _NerfSpec, dt, xyz_t, p_e, ws, g):
     ops = _args.Operands("nerf_bwd", dev, _storage(dt))
     ops.check(tuple(g.shape) == (1 if spec.sigma_only else 4, n, s),
               f"cotangent {tuple(g.shape)}")
+    ops.check(spec.width % 32 == 0 and 32 <= spec.width <= _args.MAX_WIDTH,
+              f"width {spec.width}: a multiple of 32 up to {_args.MAX_WIDTH}")
     off, total = _args.offsets(ws)
     n_trunk = len(ws) - (2 if spec.sigma_only else 8)
-    net = _args.net_block(ops, ws[:n_trunk], off, spec.depth, spec.width,
-                          spec.kc, spec.skips, spec.logscale, False)
+    layers = _args.row_layers(ops, ws[:n_trunk], off, spec.depth, spec.skips)
     i = n_trunk
     head = [ops.vec(ws[i]), off[i], off[i + 1]]         # sigma row, fp32
     for k in range(3):
         head += ([0] * 5 if spec.sigma_only else
-                 _args.mat_block(ops, ws, off, i + 2 + 2 * k, i + 3 + 2 * k))
+                 _args.row_mat(ops, ws, off, i + 2 + 2 * k, i + 3 + 2 * k))
+    w2 = spec.width // 2
+    p = None
     if spec.has_extra:
-        ops.check(tuple(p_e.shape) == (n, spec.width // 2),
+        ops.check(tuple(p_e.shape) == (n, w2),
                   f"extra partial {tuple(p_e.shape)}")
-    p_ptr = ops.ptr(p_e.float().contiguous()) if spec.has_extra else 0
+        p = p_e.float().contiguous()
     xyz = xyz_t.reshape(3, n * s).float().contiguous()
     gt = g.reshape(g.shape[0], n * s).float().contiguous()
-    dx = torch.empty((3, n, s), dtype=torch.float32, device=dev)
-    dw = torch.empty((total,), dtype=torch.float32, device=dev)
-    w2 = spec.width // 2
+    dx = torch.empty((3, n * s), dtype=torch.float32, device=dev)
+    dp = (torch.empty((n, w2), dtype=torch.float32, device=dev)
+          if spec.has_extra else None)
+    bands = ops.bands(spec.kc, spec.logscale)
 
-    def args(nseg, blocks, part, seg, dp):
+    def make_args(r0, r1, part, scratch):
+        """Arguments of rays [r0, r1) (csrc/nerf_rays.cu)."""
+        a, b = r0 * s, r1 * s
+        whole = (r0, r1) == (0, n)
+        ptrs, after = [0] * 7, None
+        if part is not None:
+            dx_c = dx if whole else torch.empty((3, b - a), device=dev)
+            ptrs = [ops.ptr(xyz[:, a:b].contiguous()),
+                    ops.ptr(gt[:, a:b].contiguous()), ops.ptr(dx_c),
+                    ops.ptr(None if p is None else p[r0:r1]),
+                    ops.ptr(part),
+                    ops.ptr(None if dp is None else dp[r0:r1]),
+                    ops.ptr(scratch)]
+            if not whole:
+                after = lambda: dx[:, a:b].copy_(dx_c)  # noqa: E731
         return _args.as_array(
-            [1 if dt == torch.bfloat16 else 0, n, s, int(spec.sigma_only),
-             int(spec.has_extra), nseg, blocks] + net + head
-            + [p_ptr, ops.ptr(xyz), ops.ptr(gt), ops.ptr(dx), ops.ptr(part),
-               total, ops.ptr(seg), ops.ptr(dw), ops.ptr(dp)])
+            [1 if dt == torch.bfloat16 else 0, r1 - r0, s,
+             int(spec.sigma_only), int(spec.has_extra), spec.depth,
+             spec.width, spec.kc, _args.SPLIT_ROWS, a // _args.SPLIT_ROWS,
+             total, bands] + ptrs + layers + head), after
 
-    rows = _args.call(lib.nerf_bwd_tile_rows, args(0, 0, None, None, None))
-    if rows <= 0:
-        raise RuntimeError(f"nerf_bwd: no row tile fits "
-                           f"({lib.nerf_bwd_error(rows).decode()} ({rows}))")
-    blocks = min(-(-(n * s) // rows), _args.sm_count(dev))
-    nseg = (s - 1) // rows + 2
-    part = torch.zeros((blocks, total), dtype=torch.float32, device=dev)
-    seg = dp = None
-    if spec.has_extra:
-        seg = torch.zeros((n, nseg, w2), dtype=torch.float32, device=dev)
-        dp = torch.empty((n, w2), dtype=torch.float32, device=dev)
-    rc = _args.call(lib.nerf_bwd_launch, args(nseg, blocks, part, seg, dp),
-                    torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"nerf_bwd kernel failed to launch: "
-                           f"{lib.nerf_bwd_error(rc).decode()} ({rc})")
-    return dx, dp, _args.split(dw, ws)
+    dw = _args.run_chunks(ops, lib, "nerf_bwd", n, s, total, make_args)
+    return dx.view(3, n, s), dp, _args.split(dw, ws)
 
 
 def _device(t: torch.Tensor, name: str) -> str:

@@ -12,9 +12,11 @@ fw@chained -> bw@chained -> fw@ind -> chain_recon (global chain).
   and the folded bw and fw operands of ``folds._nof_fold`` (fp32 primals);
   it saves only those.
 - ``chain_fwd`` / ``chain_bwd`` are the kernels' wrappers: CUDA tensors
-  launch ``csrc/nof_chain.cu`` (or raise), CPU tensors run the plain
-  versions ``_chain_fwd_ref`` / ``_chain_bwd_ref``, written from
-  ``_nof_tile``, ``_nof_quat_bwd_t`` and ``_nof_bwd_tile``.
+  launch ``csrc/nof_chain.cu`` / ``csrc/chain_bwd.cu`` (the backward as
+  row-tile passes over a device scratch and long-K weight-gradient
+  products, in chunks of whole rays above ``_args.SCRATCH_CAP``), or
+  raise; CPU tensors run the plain versions ``_chain_fwd_ref`` /
+  ``_chain_bwd_ref``, written from ``_nof_tile``, ``_nof_quat_bwd_t`` and ``_nof_bwd_tile``.
   ``chain_fwd.launches`` / ``chain_bwd.launches`` count kernel launches.
 """
 
@@ -207,75 +209,70 @@ def _chain_bwd_ref(spec: _ChainSpec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw,
 # Kernel launches
 # ---------------------------------------------------------------------------
 
-def _launch_args(spec: _ChainSpec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw,
-                 ops: _args.Operands):
-    """The argument array up to the backward's buffers, and a function
-    that completes it."""
-    nof = spec.nof
-    n, s = xyz_t.shape[1], xyz_t.shape[2]
+def _stage_args(spec: _ChainSpec, n_pe, n, parts, ops: _args.Operands):
+    """stage_net[5], stage_set[5], in_src[5] (zero-padded), after checking
+    the partials."""
     ops.check(1 <= n_pe <= _MAX_PE and len(parts) % n_pe == 0
               and len(parts) // n_pe <= _MAX_SETS,
               f"{len(parts)} partials in sets of {n_pe}")
     for p in parts:
-        ops.check(tuple(p.shape) == (n, nof.width), f"partial {p.shape}")
+        ops.check(tuple(p.shape) == (n, spec.nof.width), f"partial {p.shape}")
     stages = _chain_stages(spec)
     glob0 = 2 if spec.chain_local else 1
     in_src = [-1] + [0] * (len(stages) - 1)
     if spec.chain_global:
         in_src[glob0 + 1], in_src[glob0 + 2] = glob0, glob0 + 1
     pad = [0] * (5 - len(stages))
-    part_ptrs = []
+    return ([1 if net == "fw" else 0 for net, _ in stages] + pad
+            + [ps for _, ps in stages] + pad + in_src + pad)
+
+
+def _part_ptrs(parts, n_pe, ops: _args.Operands, view=lambda t: t):
+    """[4][4] pointers of the partials (set k, PE layer j), 0 where absent."""
+    out = []
     for k in range(_MAX_SETS):
         for j in range(_MAX_PE):
             q = k * n_pe + j
-            part_ptrs.append(ops.ptr(parts[q].float().contiguous())
-                             if j < n_pe and q < len(parts) else 0)
-    off_bw, end_bw = _args.offsets(ws_bw)
-    off_fw, total = _args.offsets(ws_fw, end_bw)
-    nets = []
-    for ws, off in ((ws_bw, off_bw), (ws_fw, off_fw)):
-        nets += _args.net_block(ops, ws, off, nof.depth, nof.width, nof.kc,
-                                nof.skips, nof.logscale, True)
-    xyz = xyz_t.reshape(3, n * s).float().contiguous()
-    head = [1 if dt == torch.bfloat16 else 0, n, s, len(stages),
-            int(nof.use_quat), int(spec.chain_local),
-            int(spec.chain_global), n_pe]
-    body = ([1 if net == "fw" else 0 for net, _ in stages] + pad
-            + [ps for _, ps in stages] + pad + in_src + pad
-            + [ops.ptr(xyz)] + part_ptrs + nets)
+            out.append(ops.ptr(view(parts[q]))
+                       if j < n_pe and q < len(parts) else 0)
+    return out
 
-    # the kernel's output slots: 0 cano, 1 recon, 2 chain_recon
+
+def _by_slot(spec: _ChainSpec, ts, ops: _args.Operands):
+    """Pointers of the outputs (or their cotangents) in the kernels' slots:
+    0 cano, 1 recon, 2 chain_recon."""
     slots = [0] + [1] * spec.chain_local + [2] * spec.chain_global
-
-    def by_slot(ts):
-        out = [0, 0, 0]
-        for k, t in zip(slots, ts):
-            out[k] = ops.ptr(t)
-        return out
-
-    def complete(nseg=0, blocks=0, outs=(), gs=(), dx=None, part=None,
-                 seg=None, dw=None, dparts=None):
-        o, g = by_slot(outs), by_slot(gs)
-        return _args.as_array(
-            head + [nseg, blocks] + body + o + g
-            + [ops.ptr(dx), ops.ptr(part), total, ops.ptr(seg), ops.ptr(dw),
-               ops.ptr(dparts)])
-
-    return complete, total
+    out = [0, 0, 0]
+    for k, t in zip(slots, ts):
+        out[k] = ops.ptr(t)
+    return out
 
 
 def _fwd_launch(spec: _ChainSpec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw):
     from ._build import load_library
     lib = load_library()
+    nof = spec.nof
     n, s = xyz_t.shape[1], xyz_t.shape[2]
     dev = xyz_t.device
     ops = _args.Operands("chain_fwd", dev, _storage(dt))
-    complete, _ = _launch_args(spec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw,
-                               ops)
+    body = _stage_args(spec, n_pe, n, parts, ops)
+    off_bw, end_bw = _args.offsets(ws_bw)
+    off_fw, _ = _args.offsets(ws_fw, end_bw)
+    nets = []
+    for ws, off in ((ws_bw, off_bw), (ws_fw, off_fw)):
+        nets += _args.net_block(ops, ws, off, nof.depth, nof.width, nof.kc,
+                                nof.skips, nof.logscale, True)
+    xyz = xyz_t.reshape(3, n * s).float().contiguous()
     n_out = 1 + int(spec.chain_local) + int(spec.chain_global)
     outs = [torch.empty((3, n, s), dtype=torch.float32, device=dev)
             for _ in range(n_out)]
-    rc = _args.call(lib.chain_fwd_launch, complete(outs=outs),
+    arr = _args.as_array(
+        [1 if dt == torch.bfloat16 else 0, n, s, len(_chain_stages(spec)),
+         int(nof.use_quat), int(spec.chain_local), int(spec.chain_global),
+         n_pe] + body + [ops.ptr(xyz)]
+        + _part_ptrs([p.float().contiguous() for p in parts], n_pe, ops)
+        + nets + _by_slot(spec, outs, ops))
+    rc = _args.call(lib.chain_fwd_launch, arr,
                     torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"chain_fwd kernel failed to launch: "
@@ -286,36 +283,55 @@ def _fwd_launch(spec: _ChainSpec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw):
 def _bwd_launch(spec: _ChainSpec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw, gs):
     from ._build import load_library
     lib = load_library()
+    nof = spec.nof
     n, s = xyz_t.shape[1], xyz_t.shape[2]
     dev = xyz_t.device
-    w = spec.nof.width
+    w = nof.width
     ops = _args.Operands("chain_bwd", dev, _storage(dt))
     for g in gs:
         ops.check(tuple(g.shape) == (3, n, s), f"cotangent {tuple(g.shape)}")
-    complete, total = _launch_args(spec, dt, n_pe, xyz_t, parts, ws_bw,
-                                   ws_fw, ops)
-    rows = _args.call(lib.chain_tile_rows, complete(), 1)
-    if rows <= 0:
-        raise RuntimeError(f"chain_bwd: no row tile fits "
-                           f"({lib.chain_error(rows).decode()} ({rows}))")
-    blocks = min(-(-(n * s) // rows), _args.sm_count(dev))
-    nseg = (s - 1) // rows + 2
+    ops.check(w % 32 == 0 and 32 <= w <= _args.MAX_WIDTH,
+              f"width {w}: a multiple of 32 up to {_args.MAX_WIDTH}")
+    body = _stage_args(spec, n_pe, n, parts, ops)
+    off_bw, end_bw = _args.offsets(ws_bw)
+    off_fw, total = _args.offsets(ws_fw, end_bw)
+    nets = []
+    for ws, off in ((ws_bw, off_bw), (ws_fw, off_fw)):
+        nets += (_args.row_layers(ops, ws[:-2], off, nof.depth, nof.skips)
+                 + _args.row_mat(ops, ws, off, len(ws) - 2, len(ws) - 1))
+    head = [len(_chain_stages(spec)), int(nof.use_quat),
+            int(spec.chain_local), int(spec.chain_global), n_pe, nof.depth,
+            w, nof.kc, ws_bw[-2].shape[-1]]
+    xyz = xyz_t.reshape(3, n * s).float().contiguous()
     gsc = [g.reshape(3, n * s).float().contiguous() for g in gs]
-    dx = torch.empty((3, n, s), dtype=torch.float32, device=dev)
-    part = torch.zeros((blocks, total), dtype=torch.float32, device=dev)
-    seg = torch.zeros((_MAX_SETS * n_pe, n, nseg, w), dtype=torch.float32,
-                      device=dev)
-    dw = torch.empty((total,), dtype=torch.float32, device=dev)
-    dparts = torch.empty((_MAX_SETS * n_pe, n, w), dtype=torch.float32,
-                         device=dev)
-    rc = _args.call(lib.chain_bwd_launch,
-                    complete(nseg, blocks, (), gsc, dx, part, seg, dw,
-                             dparts),
-                    torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"chain_bwd kernel failed to launch: "
-                           f"{lib.chain_error(rc).decode()} ({rc})")
-    return (dx, list(dparts[:len(parts)]),
+    pc = [p.float().contiguous() for p in parts]
+    dx = torch.empty((3, n * s), dtype=torch.float32, device=dev)
+    dparts = torch.empty((len(parts), n, w), dtype=torch.float32, device=dev)
+    bands = ops.bands(nof.kc, nof.logscale)
+
+    def make_args(r0, r1, part, scratch):
+        """Arguments of rays [r0, r1) (csrc/chain_bwd.cu)."""
+        a, b = r0 * s, r1 * s
+        whole = (r0, r1) == (0, n)
+        ptrs, after = [0] * (7 + 2 * _MAX_SETS * _MAX_PE), None
+        if part is not None:
+            dx_c = dx if whole else torch.empty((3, b - a), device=dev)
+            rows = lambda t: t[r0:r1]  # noqa: E731
+            ptrs = ([ops.ptr(xyz[:, a:b].contiguous())]
+                    + _by_slot(spec, [g[:, a:b].contiguous() for g in gsc],
+                               ops)
+                    + [ops.ptr(dx_c), ops.ptr(part), ops.ptr(scratch)]
+                    + _part_ptrs(pc, n_pe, ops, rows)
+                    + _part_ptrs(list(dparts), n_pe, ops, rows))
+            if not whole:
+                after = lambda: dx[:, a:b].copy_(dx_c)  # noqa: E731
+        return _args.as_array(
+            [1 if dt == torch.bfloat16 else 0, r1 - r0, s] + head
+            + [_args.SPLIT_ROWS, a // _args.SPLIT_ROWS, total] + body
+            + [bands] + ptrs + nets), after
+
+    dw = _args.run_chunks(ops, lib, "chain_bwd", n, s, total, make_args)
+    return (dx.view(3, n, s), list(dparts),
             _args.split(dw, list(ws_bw) + list(ws_fw)))
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python
-"""Compare the warp-chain kernels (#5/#6, ``csrc/nof_chain.cu``) of two
-trees of this repository bit for bit on one card.
+"""Compare the warp-chain kernels (#5 ``csrc/nof_chain.cu``, #6
+``csrc/chain_bwd.cu``) of two trees of this repository bit for bit on one
+card.
 
     (cd TREE_A && python /path/to/scripts/torch_port_chain_bitwise.py dump a.pt)
     (cd TREE_B && python /path/to/scripts/torch_port_chain_bitwise.py dump b.pt)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python
-"""Time the port's stage-3 ``none`` training step, or its render-pass
-kernel, in two trees of this repository on one card, interleaved A, B, B, A.
+"""Time the port's stage-3 ``none`` training step, its render-pass kernel or
+all its kernels, in two trees of this repository on one card, interleaved
+A, B, B, A.
 
     python scripts/torch_port_step_ab.py A_DIR B_DIR [--steps 10]
-        [--what step|render]
+        [--what step|render|kernels]
 
 Each directory is a checkout holding ``chip_smoke.py`` and
 ``moco_flow_tpu_torch/`` (for example a parent commit unpacked with ``git
@@ -16,8 +17,11 @@ rays x (128 + 128) samples, both chains, from a seeded checkpoint at step
 and fp32. With ``--what render`` a run is chip_smoke.py's phase 3 instead:
 the render-pass kernel (#1/#7) at N=4096 rays, coarse S=128 sigma-only and
 fine S=256, with and without the NoF, bf16 and fp32, each the mean of 5
-launches after a warm one. Prints one JSON line per run and the card's
-name and power limit.
+launches after a warm one. With ``--what kernels`` a run times the
+training kernels #1, #2, #5 and #6 at one stage-3 step's shapes (two
+launches each, N=1024, bf16 and fp32, mean of 3 after a warm pair), the
+render pass #7 as above and #8 / #9 at chip_smoke.py phase 12's shapes
+(bf16). Prints one JSON line per run and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -42,6 +46,40 @@ if sys.argv[1] == "render":
     times = cs.phase_kernel_vs_plain(torch.device("cuda"))["times"]
     print("MS " + json.dumps({k: v[0] for k, v in times.items()}),
           flush=True)
+    sys.exit(0)
+if sys.argv[1] == "kernels":
+    from moco_flow_tpu_torch.nn.embedding import anneal_weights
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    from moco_flow_tpu_torch.ops import nof_chain as nc
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(1)
+    ncfg = cs.NeRFConfig(extra_feat_type="ind", extra_feat_dim=5)
+    fcfg = cs.NoFConfig()
+    P = {"nerf": cs.init_nerf(gen, ncfg, dev),
+         "bw_NoF": cs.init_nof(gen, fcfg, dev),
+         "fw_NoF": cs.init_nof(gen, fcfg, dev)}
+    an_n = anneal_weights(505000, 10, 5000, 1005000).to(dev)
+    an_f = anneal_weights(505000, 5, 5000, 1005000).to(dev)
+    nerf = [cs._nerf_case(P["nerf"], ncfg, an_n, 1024, s, False, gen, dev)
+            for s in (128, 256)]
+    c = cs._chain_case(P, fcfg, an_f, 1024, 128, True, True, gen, dev)
+    out = {}
+    for dname, dt in (("bf16", torch.bfloat16), ("fp32", None)):
+        calls = {
+            "nerf_fwd": lambda: [nr.nerf_fwd(x[0], dt, *x[1:4]) for x in nerf],
+            "nerf_bwd": lambda: [nr.nerf_bwd(x[0], dt, *x[1:5]) for x in nerf],
+            "chain_fwd": lambda: [nc.chain_fwd(c[0], dt, 2, *c[1:5])
+                                  for _ in range(2)],
+            "chain_bwd": lambda: [nc.chain_bwd(c[0], dt, 2, *c[1:])
+                                  for _ in range(2)]}
+        for name, fn in calls.items():
+            out[f"{name} {dname}"] = cs.cuda_ms(fn, reps=3)
+    out.update({"render_pass " + k: v[0] for k, v in
+                cs.phase_kernel_vs_plain(dev)["times"].items()})
+    out.update({k + " bf16": v[0] for k, v in
+                cs.phase_mlp_kernels(dev, "")["times"].items()})
+    print("MS " + json.dumps(out), flush=True)
     sys.exit(0)
 from moco_flow_tpu_torch.train.__main__ import parse_args, train
 from moco_flow_tpu_torch.train.checkpoint import save_checkpoint
@@ -84,7 +122,8 @@ def main(argv=None):
     p.add_argument("a")
     p.add_argument("b")
     p.add_argument("--steps", type=int, default=10)
-    p.add_argument("--what", choices=("step", "render"), default="step")
+    p.add_argument("--what", choices=("step", "render", "kernels"),
+                   default="step")
     args = p.parse_args(argv)
     trees = {"A": os.path.abspath(args.a), "B": os.path.abspath(args.b)}
     builds = {k: subprocess.Popen([sys.executable, "-c", CHILD, "build"],

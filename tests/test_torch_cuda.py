@@ -152,3 +152,144 @@ def test_fused_mlp_nof_matches_plain(card, use_quat, dt):
     torch.cuda.synchronize()
     atol, rtol = TOL[dt]
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+# The backward kernels #2 (nerf_bwd) and #6 (chain_bwd) at small widths
+# against their plain versions, under chip_smoke.py's TRAIN_TOL: gradients
+# sum 10^3-10^4 signed terms in other orders, and a pre-activation within
+# rounding of zero can take the other side of a ReLU, so the bound is on
+# the largest (0.1) and the mean (0.01) difference relative to the tensor's
+# largest and mean magnitude; in bf16, or else within the plain bf16
+# version's own gap to the plain fp32 one.
+TRAIN_TOL = (0.1, 1e-2)
+
+
+def _flat(r):
+    dp = r[1]
+    dps = [] if dp is None else (list(dp) if isinstance(dp, list) else [dp])
+    return [r[0]] + dps + list(r[2])
+
+
+def _close_train(got, want, plain32, dt):
+    err = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    if (err.max() <= TRAIN_TOL[0] * w.max().clamp_min(1e-30)
+            and err.mean() <= TRAIN_TOL[1] * w.mean().clamp_min(1e-30)):
+        return True
+    if dt is None:
+        return False
+    gap = (want.float() - plain32.float()).abs()
+    return bool(err.max() <= gap.max() and err.mean() <= gap.mean())
+
+
+def _small_nerf(card, n, s, sigma_only):
+    from moco_flow_tpu_torch.ops.folds import _NerfSpec, _nerf_fold
+    gen = torch.Generator().manual_seed(3)
+    ncfg = NeRFConfig(depth=4, width=64, in_channels_xyz=27, skips=(2,),
+                      extra_feat_type="ind", extra_feat_dim=5)
+    params = init_nerf(gen, ncfg, card)
+    xyz = (0.8 * torch.randn(3, n, s, generator=gen)).to(card)
+    emb = torch.randn(n, 5, generator=gen).to(card)
+    ws, p_e = _nerf_fold(params, ncfg, 4, None, None if sigma_only else emb,
+                         sigma_only)
+    spec = _NerfSpec(4, 64, 12, (2,), sigma_only, not sigma_only, True)
+    g = (torch.randn(1 if sigma_only else 4, n, s, generator=gen)
+         / (n * s) ** 0.5).to(card)
+    return spec, xyz, p_e, ws, g
+
+
+def _small_chain(card, n, s, local, glob):
+    from moco_flow_tpu_torch.ops.nof_chain import _ChainSpec
+    gen = torch.Generator().manual_seed(4)
+    fcfg = NoFConfig(width=32, extra_feat_dim=9)
+    bw, fw = init_nof(gen, fcfg, card), init_nof(gen, fcfg, card)
+    xyz = (0.6 * torch.randn(3, n, s, generator=gen)).to(card)
+    emb = torch.randn(n, 9, generator=gen).to(card)
+    emb_c = torch.randn(n, 9, generator=gen).to(card)
+    wsb, pb = _nof_fold(bw, fcfg, 5, None, emb)
+    wsf, pf = _nof_fold(fw, fcfg, 5, None, emb)
+    sets = [pb, pf]
+    if glob:
+        sets += [_nof_fold(fw, fcfg, 5, None, emb_c)[1],
+                 _nof_fold(bw, fcfg, 5, None, emb_c)[1]]
+    parts = [p for st in sets for p in st]
+    spec = _ChainSpec(_NofSpec(4, 32, 15, (2,), True, True), local, glob)
+    gs = [(torch.randn(3, n, s, generator=gen) / (n * s) ** 0.5).to(card)
+          for _ in range(1 + int(local) + int(glob))]
+    return spec, xyz, parts, wsb, wsf, gs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("sigma_only", [True, False], ids=["coarse", "fine"])
+def test_nerf_bwd_matches_plain(card, sigma_only, dt):
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    spec, xyz, p_e, ws, g = _small_nerf(card, 300, 48, sigma_only)
+    before = nr.nerf_bwd.launches
+    got = nr.nerf_bwd(spec, dt, xyz, p_e, ws, g)
+    want = nr._nerf_bwd_ref(spec, dt, xyz, p_e, ws, g)
+    plain32 = nr._nerf_bwd_ref(spec, None, xyz, p_e, ws, g)
+    torch.cuda.synchronize()
+    assert nr.nerf_bwd.launches == before + 1
+    for i, (a, b, p) in enumerate(zip(_flat(got), _flat(want),
+                                      _flat(plain32))):
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        assert _close_train(a, b, p, dt), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("chains", [(True, True), (True, False),
+                                    (False, True)],
+                         ids=["both", "local", "global"])
+def test_chain_bwd_matches_plain(card, chains, dt):
+    from moco_flow_tpu_torch.ops import nof_chain as nc
+    spec, xyz, parts, wsb, wsf, gs = _small_chain(card, 200, 40, *chains)
+    before = nc.chain_bwd.launches
+    got = nc.chain_bwd(spec, dt, 2, xyz, parts, wsb, wsf, gs)
+    want = nc._chain_bwd_ref(spec, dt, 2, xyz, parts, wsb, wsf, gs)
+    plain32 = nc._chain_bwd_ref(spec, None, 2, xyz, parts, wsb, wsf, gs)
+    torch.cuda.synchronize()
+    assert nc.chain_bwd.launches == before + 1
+    for i, (a, b, p) in enumerate(zip(_flat(got), _flat(want),
+                                      _flat(plain32))):
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        assert _close_train(a, b, p, dt), i
+
+
+def _bwd_calls(card, which):
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    from moco_flow_tpu_torch.ops import nof_chain as nc
+    if which == "nerf":
+        spec, xyz, p_e, ws, g = _small_nerf(card, 700, 64, False)
+        return lambda dt: nr.nerf_bwd(spec, dt, xyz, p_e, ws, g)
+    c = _small_chain(card, 700, 64, True, True)
+    return lambda dt: nc.chain_bwd(c[0], dt, 2, *c[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("which", ["nerf", "chain"])
+def test_bwd_deterministic(card, which, dt):
+    """Two launches give the same bits: no float atomics, fixed K splits."""
+    call = _bwd_calls(card, which)
+    a, b = _flat(call(dt)), _flat(call(dt))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("which", ["nerf", "chain"])
+def test_bwd_chunks_match_one_call(card, which, dt, monkeypatch):
+    """A call above the scratch cap runs in chunks of whole rays and gives
+    the bits of the same rows in one chunk."""
+    from moco_flow_tpu_torch.ops import _args
+    call = _bwd_calls(card, which)
+    monkeypatch.setattr(_args, "SPLIT_ROWS", 1024)
+    whole = _flat(call(dt))
+    # 700 rays x 64 samples: chunks of 16 rays' multiples (1024 rows)
+    monkeypatch.setattr(_args, "SCRATCH_CAP", 8 << 20)
+    chunked = _flat(call(dt))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(whole, chunked))
