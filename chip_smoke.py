@@ -25,15 +25,16 @@ happened; any failure raises and the script exits non-zero):
      the outputs must be finite and non-trivial, and the frame is timed with
      CUDA events after a warm frame;
   6. the training step's kernels against their plain versions at full width
-     (NeRF 8x256, NoF 4x128): the NeRF forward (render_pass.cu reading xyz)
-     and backward (nerf_rays.cu), full and sigma-only, and the warp chain
-     forward (nof_chain.cu) and backward (chain_bwd.cu) with local + global,
-     local only and global only chains, N = 1000 x S = 128 (ragged) and
-     256 x 256, fp32 and bf16: outputs, dxyz, every d(partial) and dW, under
-     TRAIN_TOL, the bf16 backward also within its plain version's own
-     bf16-vs-fp32 gap; the backward kernels bitwise equal across two
-     launches and in chunks (a lowered scratch cap) as in one launch; then
-     each kernel, its plain version and its bound at one step's shapes, and
+     (NeRF 8x256, NoF 4x128): the NeRF forward and backward (nerf_rays.cu),
+     full and sigma-only, and the warp chain forward and backward
+     (chain_bwd.cu) with local + global, local only and global only chains,
+     N x S = 1000 x 128, 256 x 256 and 1000 x 127 (rows not a multiple of
+     the 128-row tile), fp32 and bf16: outputs, dxyz, every d(partial) and
+     dW, under TRAIN_TOL, bf16 also within the plain version's own
+     bf16-vs-fp32 gap; the fp32 forwards' error (their split TF32 product);
+     every kernel bitwise equal across two launches, the backward kernels
+     also in chunks (a lowered scratch cap) as in one launch; then each
+     kernel, its plain version and its bounds at one step's shapes, and
      the backward kernels' split (forward pass, walk pass, dW products, dW
      sums), scratch size and TFLOP/s;
   7. the training step against JAX's numbers: the two steps of
@@ -125,10 +126,11 @@ REPLACES = "moco_flow_tpu/ops/megakernel.py:1466"  # _pass_call
 SOURCE = "moco_flow_tpu_torch/ops/csrc/render_pass.cu"
 # (name, source, TPU kernel it replaces) of the training step's kernels
 TRAIN_KERNELS = (
-    ("nerf_fwd", SOURCE, "moco_flow_tpu/ops/megakernel.py:389"),
+    ("nerf_fwd", "moco_flow_tpu_torch/ops/csrc/nerf_rays.cu",
+     "moco_flow_tpu/ops/megakernel.py:389"),
     ("nerf_bwd", "moco_flow_tpu_torch/ops/csrc/nerf_rays.cu",
      "moco_flow_tpu/ops/megakernel.py:558"),
-    ("chain_fwd", "moco_flow_tpu_torch/ops/csrc/nof_chain.cu",
+    ("chain_fwd", "moco_flow_tpu_torch/ops/csrc/chain_bwd.cu",
      "moco_flow_tpu/ops/megakernel.py:1154"),
     ("chain_bwd", "moco_flow_tpu_torch/ops/csrc/chain_bwd.cu",
      "moco_flow_tpu/ops/megakernel.py:1214"))
@@ -487,7 +489,9 @@ TRAIN_TOL = {"fp32_grad": (0.1, 1e-2)}
 NERF_MACS = 589_952        # per sample, full NeRF 8x256 (sigma-only 491,264)
 NERF_SIGMA_MACS = 491_264
 NOF_MACS = 58_752          # per NoF evaluation, 4x128 with the quaternion head
-PEAK = {"bf16": 989e12, "fp32": 67e12}   # dense FLOP/s, H100 SXM data sheet
+# dense FLOP/s, H100 SXM data sheet: bf16 and TF32 on the tensor cores,
+# fp32 outside them
+PEAK = {"bf16": 989e12, "fp32": 67e12, "tf32": 495e12}
 HBM = 3.35e12                            # bytes/s
 
 
@@ -595,7 +599,33 @@ def _device_split(fn, groups: dict) -> dict:
     return out
 
 
-def phase_train_kernels(dev, card: str, sizes=((1000, 128), (256, 256)),
+def _fwd_repeat_checks(P, ncfg, fcfg, an_n, an_f, size, gen, dev):
+    """#1 and #5 give the same bits in two launches."""
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    from moco_flow_tpu_torch.ops import nof_chain as nc
+    n, s = size
+    full = _nerf_case(P["nerf"], ncfg, an_n, n, s, False, gen, dev)
+    coarse = _nerf_case(P["nerf"], ncfg, an_n, n, s, True, gen, dev)
+    cc = _chain_case(P, fcfg, an_f, n, s, True, True, gen, dev)
+    calls = {"nerf_fwd full": lambda dt: [nr.nerf_fwd(full[0], dt,
+                                                      *full[1:4])],
+             "nerf_fwd sigma-only": lambda dt: [nr.nerf_fwd(coarse[0], dt,
+                                                            *coarse[1:4])],
+             "chain_fwd": lambda dt: list(nc.chain_fwd(cc[0], dt, 2,
+                                                       *cc[1:5]))}
+    for name, call in calls.items():
+        for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+            one, again = call(dt), call(dt)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(one, again))
+            log(f"[6 train kernels] {name} {dname} N={n} S={s}: two launches "
+                f"bitwise equal {same} ({len(one)} outputs)")
+            if not same:
+                raise AssertionError(f"{name} {dname}: not deterministic")
+
+
+def phase_train_kernels(dev, card: str,
+                        sizes=((1000, 128), (256, 256), (1000, 127)),
                         n: int = 1024) -> dict:
     """Kernels #1/#2 (NeRF forward / backward) and #5/#6 (warp chain) against
     their plain versions at full width on ``sizes`` (rays, samples), then
@@ -618,6 +648,13 @@ def phase_train_kernels(dev, card: str, sizes=((1000, 128), (256, 256)),
     # fp32 bound holds it.
     gap_ratio = {"nerf_bwd": 0.0, "chain_bwd": 0.0}
     no_gap = {"nerf_bwd": 0, "chain_bwd": 0}
+    # the fp32 forwards multiply on the split TF32 product: their largest
+    # |kernel - plain| and its share of the largest |plain| output
+    split_err = {"nerf_fwd": [0.0, 0.0], "chain_fwd": [0.0, 0.0]}
+
+    def track_split(name, e, e_rel):
+        split_err[name] = [max(split_err[name][0], e),
+                           max(split_err[name][1], e_rel)]
 
     def track_gap(name, got, want, want32):
         e = (got.float() - want.float()).abs().max().item()
@@ -644,6 +681,8 @@ def phase_train_kernels(dev, card: str, sizes=((1000, 128), (256, 256)),
                 pb = plain32 or (None, None)
                 e, e_rel = check_train(f"{tag} out", ko, ro, dname, pb[0])
                 err["nerf_fwd"] = max(err["nerf_fwd"], e)
+                if dname == "fp32":
+                    track_split("nerf_fwd", e, e_rel)
                 names = ["dxyz"] + ([] if sigma_only else ["d(extra partial)"])
                 grads = [(kb[0], rb[0])] + ([] if sigma_only else
                                              [(kb[1], rb[1])])
@@ -687,6 +726,8 @@ def phase_train_kernels(dev, card: str, sizes=((1000, 128), (256, 256)),
                       for i, (a, b) in enumerate(zip(ko, ro))]
                 e, e_rel = max(x[0] for x in fw), max(x[1] for x in fw)
                 err["chain_fwd"] = max(err["chain_fwd"], e)
+                if dname == "fp32":
+                    track_split("chain_fwd", e, e_rel)
                 pairs = ([("dxyz", kb[0], rb[0])]
                          + [(f"dpartial[{i}]", a, b)
                             for i, (a, b) in enumerate(zip(kb[1], rb[1]))]
@@ -720,7 +761,13 @@ def phase_train_kernels(dev, card: str, sizes=((1000, 128), (256, 256)),
         if sizes and not r <= 1.0:
             raise AssertionError(f"{name} bf16 differs from its plain "
                                  f"version by {r:.3f} x its bf16-vs-fp32 gap")
+    for name, (e, e_rel) in split_err.items():
+        log(f"[6 train kernels] {name} fp32 on the split TF32 product: "
+            f"largest |kernel - plain| {e:.3e} ({e_rel:.2e} of the largest "
+            f"|plain| output; tolerance {TOL['fp32'][0]:g} + "
+            f"{TOL['fp32'][1]:g}|ref|)")
     if sizes:
+        _fwd_repeat_checks(P, ncfg, fcfg, an_n, an_f, sizes[-1], gen, dev)
         _bwd_repeat_checks(P, ncfg, fcfg, an_n, an_f, sizes[0], gen, dev)
     # times at the step's shapes, bf16 (the slice's compute type; its times
     # go into the kernels line) and fp32: one step launches each NeRF kernel
@@ -752,7 +799,7 @@ def phase_train_kernels(dev, card: str, sizes=((1000, 128), (256, 256)),
              "nerf_bwd": 3 * 2 * NERF_MACS * samples,
              "chain_fwd": 2 * 5 * NOF_MACS * 2 * n * 128,
              "chain_bwd": 3 * 2 * 5 * NOF_MACS * 2 * n * 128}
-    times = {}
+    times, times32 = {}, {}
     for dname, dt in (("bf16", torch.bfloat16), ("fp32", None)):
         # each input read once, each output written once: positions (12 B),
         # outputs and cotangents fp32, per-ray partials fp32, weights in
@@ -770,13 +817,18 @@ def phase_train_kernels(dev, card: str, sizes=((1000, 128), (256, 256)),
             k_ms = cuda_ms(lambda: [f() for f in kern], reps=3)
             p_ms = cuda_ms(lambda: [f() for f in plain], reps=3)
             b_ms, b_by = bound_ms(flops[name], nbytes[name], dname)
-            if dname == "bf16":
-                times[name] = (k_ms, p_ms, b_ms, b_by)
+            # the fp32 forwards' own product: three TF32 products a term
+            tc = (f", split TF32 bound "
+                  f"{bound_ms(3 * flops[name], nbytes[name], 'tf32')[0]:.4f}"
+                  " ms (held to this one)"
+                  if dname == "fp32" and name in split_err else "")
+            (times if dname == "bf16" else times32)[name] = (k_ms, p_ms, b_ms,
+                                                             b_by)
             log(f"[6 train kernels] {name} {dname}, one step's two launches: "
                 f"kernel {k_ms:.3f} ms ({flops[name] / k_ms / 1e9:.1f} "
                 f"TFLOP/s), plain {p_ms:.3f} ms, bound "
                 f"{b_ms:.4f} ms ({b_by}: {flops[name] / 1e12:.3f} TFLOP, "
-                f"{nbytes[name] / 1e6:.1f} MB) on {card}")
+                f"{nbytes[name] / 1e6:.1f} MB){tc} on {card}")
             if name in ("nerf_bwd", "chain_bwd"):
                 split = _device_split(lambda: [f() for f in kern], BWD_GROUPS)
                 sc = _args.run_chunks.last
@@ -787,7 +839,8 @@ def phase_train_kernels(dev, card: str, sizes=((1000, 128), (256, 256)),
                     f"in {sc['chunks']} chunk(s) for the last launch (cap "
                     f"{_args.SCRATCH_CAP / 2 ** 30:g} GiB)")
     torch.cuda.synchronize()
-    return {"err": err, "times": times}
+    return {"err": err, "times": times, "times32": times32,
+            "split_err": split_err}
 
 
 TRAIN_FIXTURE = os.path.join(HERE, "tests", "fixtures",
@@ -853,7 +906,8 @@ STEP_GROUPS = {"nerf_bwd passes": ("nerf_fwd_pass", "nerf_walk_pass"),
                "chain_bwd passes": ("chain_fwd_pass", "chain_walk_pass"),
                "dW (#2/#6)": ("matrix_mma", "matrix_ffma", "colsum_kernel",
                               "segsum_kernel", "reduce_kernel"),
-               "chain_fwd": ("chain_fwd_kernel",), "nerf_fwd": ("render_pass",),
+               "chain_fwd": ("chain_fwd_kernel",),
+               "nerf_fwd": ("nerf_fwd_kernel",),
                "nof_bwd": ("nof_bwd_kernel",), "nof_fwd": ("nof_fwd_kernel",),
                "dW sums (#3/#4)": ("mlp::sum_",), "sort": ("sort",)}
 # the parts of #2 / #6 (phase 6's split)

@@ -68,28 +68,40 @@ def _pad16(x: int) -> int:
 def row_op(ops: Operands, b) -> int:
     """The B operand (K, N) of a row-tile product (row_tile.cuh), in the
     storage type: bf16 B^T zero-padded to (pad16(N), pad16(K)), fp32 B
-    zero-padded to (K, pad16(N))."""
-    m = b.to(ops.dtype)
-    k, n = m.shape
-    if ops.dtype == torch.bfloat16:
-        out = torch.zeros((_pad16(n), _pad16(k)), dtype=ops.dtype,
-                          device=ops.device)
-        out[:n, :k] = m.T
+    zero-padded to (K, pad16(N)). Each is one copy at most (none for a
+    contiguous fp32 B without padding): the copies are host-side launches
+    of every call."""
+    k, n = b.shape
+    bf16 = ops.dtype == torch.bfloat16
+    src = b.T if bf16 else b
+    shape = (_pad16(n), _pad16(k)) if bf16 else (k, _pad16(n))
+    if tuple(src.shape) != shape:
+        out = torch.zeros(shape, dtype=ops.dtype, device=ops.device)
+        out[:src.shape[0], :src.shape[1]] = src
+    elif src.dtype == ops.dtype and src.is_contiguous():
+        out = src
     else:
-        out = torch.zeros((k, _pad16(n)), dtype=ops.dtype, device=ops.device)
-        out[:, :n] = m
+        out = torch.empty(shape, dtype=ops.dtype, device=ops.device)
+        out.copy_(src)
     return ops.ptr(out)
 
 
-def row_mat(ops: Operands, ws, off, iw: int, ib: int) -> list:
+def _fb(ops: Operands, w, backward: bool) -> list:
+    """(forward operand, input-gradient operand, or 0 without backward)."""
+    return [row_op(ops, w), row_op(ops, w.T) if backward else 0]
+
+
+def row_mat(ops: Operands, ws, off, iw: int, ib: int,
+            backward: bool = True) -> list:
     """A matrix (K, N) as (forward operand, input-gradient operand), its
     bias, and their gradient offsets: (f, b, bias, g_w, g_b)."""
-    return [row_op(ops, ws[iw]), row_op(ops, ws[iw].T), ops.vec(ws[ib]),
-            off[iw], off[ib]]
+    return _fb(ops, ws[iw], backward) + [ops.vec(ws[ib]), off[iw], off[ib]]
 
 
-def row_layers(ops: Operands, ws, off, depth: int, skips: tuple) -> list:
-    """8 trunk layers of (pe_f, pe_b, h_f, h_b, bias, g_pe, g_h, g_b)."""
+def row_layers(ops: Operands, ws, off, depth: int, skips: tuple,
+               backward: bool = True) -> list:
+    """8 trunk layers of (pe_f, pe_b, h_f, h_b, bias, g_pe, g_h, g_b); the
+    input-gradient operands only with ``backward``."""
     ops.check(1 <= depth <= MAX_DEPTH, f"depth {depth} not in 1..{MAX_DEPTH}")
     idx, _ = _trunk_layers(list(range(len(ws))), depth, skips)
     blk = []
@@ -98,10 +110,8 @@ def row_layers(ops: Operands, ws, off, depth: int, skips: tuple) -> list:
             blk += [0] * 8
             continue
         ipe, ih, ib = idx[layer]
-        pe = ([0, 0] if ipe is None else
-              [row_op(ops, ws[ipe]), row_op(ops, ws[ipe].T)])
-        h = ([0, 0] if ih is None else
-             [row_op(ops, ws[ih]), row_op(ops, ws[ih].T)])
+        pe = [0, 0] if ipe is None else _fb(ops, ws[ipe], backward)
+        h = [0, 0] if ih is None else _fb(ops, ws[ih], backward)
         blk += pe + h + [ops.vec(ws[ib]), 0 if ipe is None else off[ipe],
                          0 if ih is None else off[ih], off[ib]]
     return blk

@@ -1,22 +1,32 @@
-// The NoF warp chain's backward of the training step for Hopper (sm_90a).
+// The NoF warp chain of the training step for Hopper (sm_90a): its forward
+// (kernel #5) and its backward (kernel #6).
 //
-// Replaces the TPU kernel moco_flow_tpu/ops/megakernel.py::_chain_bwd_call
-// (via nof_chain_rays_t / _chain_op): up to five NoF evaluations a sample
-// (_chain_stages: bw@ind -> cano; fw@ind -> recon; fw@chained ->
-// bw@chained -> fw@ind -> chain_recon), recomputed, then their VJPs in
-// reverse (global, local, bw) as _chain_bwd_tile does: the quaternion head's
-// VJP, the trunk's, the packed PE's -> dxyz, the per-ray partials'
-// gradients per partial set and the weight gradients summed per net.
+// Replaces the TPU kernels moco_flow_tpu/ops/megakernel.py::_chain_fwd_call
+// and ::_chain_bwd_call (via nof_chain_rays_t / _chain_op): up to five NoF
+// evaluations a sample (_chain_stages: bw@ind -> cano; fw@ind -> recon;
+// fw@chained -> bw@chained -> fw@ind -> chain_recon), each the packed PE
+// [x; sin; cos], a ReLU trunk with per-ray frame partials added at layer 0
+// and at the skip layer, and the log-quaternion (or offset) head. The
+// backward recomputes them, then runs their VJPs in reverse (global, local,
+// bw) as _chain_bwd_tile does: the quaternion head's VJP, the trunk's, the
+// packed PE's -> dxyz, the per-ray partials' gradients per partial set and
+// the weight gradients summed per net.
 //
 // What bounds it on this card: compute. At full width (NoF 4x128, 33 packed
-// PE inputs, 9 head outputs) one evaluation is ~59k multiply-adds, so the
-// backward with its recompute is ~1.8 MFLOP a sample against 12 bytes of
-// xyz and 36 bytes of cotangents in and 12 bytes of dx out.
+// PE inputs, 9 head outputs) one evaluation is ~59k multiply-adds: the
+// five-stage forward is ~0.6 MFLOP a sample against 12 bytes of xyz in and
+// 36 bytes out, the backward with its recompute ~1.8 MFLOP against 12
+// bytes of xyz and 36 bytes of cotangents in and 12 bytes of dx out.
 //
-// What the design does about it: the passes of the NeRF backward
-// (nerf_rays.cu) on row_tile.cuh and wgrad.cuh:
-//   (a) forward recompute, 128-row tiles: every stage's input, packed PE,
-//       trunk activations and head output go to the device scratch;
+// What the design does about it: row-tile passes on row_tile.cuh, 128 rows
+// a block with every activation in shared memory and each layer's weights
+// staged in slices shared by the block's 16 warps.
+//   #5: one pass, every stage; nothing but xyz, the per-ray partials and
+//       the outputs touches device memory. Its fp32 build multiplies on the
+//       tensor cores with split TF32 operands.
+//   #6 (a) the same pass as a forward recompute (one stage loop, a
+//       compile-time flag): every stage's input, packed PE, trunk
+//       activations and head output go to the device scratch;
 //   (b) backward walk, 128-row tiles: the stages in reverse, each the
 //       quaternion-head VJP, dz = relu'(a) dh of each trunk layer (stored),
 //       dh = dz W^T on staged weights, the PE cotangent;
@@ -24,9 +34,9 @@
 //       that uses the net (the stages as pieces, in stage order); bias
 //       gradients as column sums, each partial set's gradients as
 //       segmented row sums over the stages that use the set.
-// Rounding follows _nof_bwd_tile: activations, embeddings, dz and the head
-// cotangent stored in T, fp32 accumulation, explicitly rounded elementwise
-// steps.
+// Rounding follows _nof_tile / _nof_bwd_tile: activations, embeddings, dz
+// and the head cotangent stored in T, fp32 accumulation, explicitly rounded
+// elementwise steps.
 
 #include <initializer_list>
 
@@ -66,6 +76,7 @@ struct CB {
   CNet net[2];                           // bw, fw
   unsigned char* scratch;
   Layout lay;
+  float* out[3];                         // #5: cano, recon, chain_recon
 };
 
 // Per stage, rp rows: x fp32 (4), E (pad16(kp)), each activation (W), the
@@ -97,32 +108,36 @@ template <typename T> __device__ __forceinline__ T* at(const CB& a, int64_t off)
   return reinterpret_cast<T*>(a.scratch + off);
 }
 
-template <typename T>
+template <typename T, bool kForward>
 size_t fwd_smem(const CB& a) {
   return ((kMaxStages + 1) * 3 * kRT + kRT * kHeadLd) * sizeof(float) +
-         ws_bytes<T>() +
+         stage_bytes<T, kForward>() +
          kRT * (tile_ld<T>(3 + 2 * a.kc) + tile_ld<T>(a.width)) * sizeof(T);
 }
 
 template <typename T>
 size_t walk_smem(const CB& a) {
   return (4 * 3 * kRT + kRT * pad16(3 + 2 * a.kc)) * sizeof(float) +
-         ws_bytes<T>() +
+         stage_bytes<T, false>() +
          kRT * (tile_ld<T>(3 + 2 * a.kc) + tile_ld<T>(a.width)) * sizeof(T);
 }
 
-// (a) the forward recompute of one 128-row tile, every stage
-template <typename T>
-__global__ void __launch_bounds__(kRTThreads, 1) chain_fwd_pass(const CB a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// One 128-row tile through every stage of the chain. kForward: kernel #5,
+// which writes cano, recon and chain_recon and nothing else, its fp32 build
+// on the split TF32 product; else pass (a) of #6, which stores every
+// stage's input, packed PE, activations and head output to the scratch,
+// its fp32 build on the FFMA product.
+template <typename T, bool kForward>
+__device__ __forceinline__ void chain_tile(const CB& a, unsigned char* smem) {
+  using S = StageT<T, kForward>;
   const int W = a.width, kp = 3 + 2 * a.kc, kpp = pad16(kp);
   const int e_ld = tile_ld<T>(kp), h_ld = tile_ld<T>(W);
   float* X0 = reinterpret_cast<float*>(smem);     // [3][kRT] positions
   float* Xs = X0 + 3 * kRT;                        // [stage][3][kRT] outputs
   float* O = Xs + kMaxStages * 3 * kRT;            // [kRT][kHeadLd]
-  bf16* Ws = reinterpret_cast<bf16*>(O + kRT * kHeadLd);
+  S* Ws = reinterpret_cast<S*>(O + kRT * kHeadLd);
   T* E = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(Ws) +
-                              ws_bytes<T>());      // [kRT][e_ld]
+                              stage_bytes<T, kForward>());  // [kRT][e_ld]
   T* H = E + kRT * e_ld;                           // [kRT][h_ld]
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRT;
   for (int i = threadIdx.x; i < 3 * kRT; i += blockDim.x) {
@@ -135,11 +150,14 @@ __global__ void __launch_bounds__(kRTThreads, 1) chain_fwd_pass(const CB a) {
     const CNet& n = a.net[a.stage_net[si]];
     const float* const* parts = a.parts[a.stage_set[si]];
     const float* X = si == 0 ? X0 : Xs + a.in_src[si] * 3 * kRT;
-    float* xs = at<float>(a, a.lay.x[si]);
-    for (int i = threadIdx.x; i < 3 * kRT; i += blockDim.x)
-      xs[(row0 + i % kRT) * 4 + i / kRT] = X[i];
+    if constexpr (!kForward) {
+      float* xs = at<float>(a, a.lay.x[si]);
+      for (int i = threadIdx.x; i < 3 * kRT; i += blockDim.x)
+        xs[(row0 + i % kRT) * 4 + i / kRT] = X[i];
+    }
     rt_pe_fill<T>(E, e_ld, X, a.bands, a.kc);
-    rt_store(at<T>(a, a.lay.e[si]), kpp, row0, E, e_ld, kpp);
+    if constexpr (!kForward)
+      rt_store(at<T>(a, a.lay.e[si]), kpp, row0, E, e_ld, kpp);
     int pe = 0;
     for (int l = 0; l < a.depth; ++l) {
       const RLayer& L = n.layer[l];
@@ -158,7 +176,8 @@ __global__ void __launch_bounds__(kRTThreads, 1) chain_fwd_pass(const CB a) {
               st2(H + r * h_ld + c, fmaxf(__fadd_rn(z[0], L.bias[c]), 0.f),
                   fmaxf(__fadd_rn(z[1], L.bias[c + 1]), 0.f));
             });
-      rt_store(at<T>(a, a.lay.act[si][l]), W, row0, H, h_ld, W);
+      if constexpr (!kForward)
+        rt_store(at<T>(a, a.lay.act[si][l]), W, row0, H, h_ld, W);
     }
     rt_mm(Ws, Term<T>{H, h_ld, static_cast<const T*>(n.head.f), W},
           no_term<T>(), a.n_out, [&](int r, int c, float v0, float v1) {
@@ -166,7 +185,8 @@ __global__ void __launch_bounds__(kRTThreads, 1) chain_fwd_pass(const CB a) {
             if (c + 1 < a.n_out)
               O[r * kHeadLd + c + 1] = __fadd_rn(v1, n.head.bias[c + 1]);
           });
-    rt_store(at<float>(a, a.lay.o[si]), kHeadLd, row0, O, kHeadLd, kHeadLd);
+    if constexpr (!kForward)
+      rt_store(at<float>(a, a.lay.o[si]), kHeadLd, row0, O, kHeadLd, kHeadLd);
     float* out = Xs + si * 3 * kRT;
     for (int r = threadIdx.x; r < kRT; r += blockDim.x) {
       float x[3], w[3];
@@ -175,7 +195,33 @@ __global__ void __launch_bounds__(kRTThreads, 1) chain_fwd_pass(const CB a) {
       for (int j = 0; j < 3; ++j) out[j * kRT + r] = w[j];
     }
     __syncthreads();
+    if constexpr (kForward) {   // the output of this stage, if any
+      int slot = -1;
+      if (si == 0) slot = 0;
+      else if (a.chain_local && si == 1) slot = 1;
+      else if (a.chain_global && si == a.n_stages - 1) slot = 2;
+      if (slot >= 0)
+        for (int i = threadIdx.x; i < 3 * kRT; i += blockDim.x) {
+          const int64_t gi = row0 + i % kRT;
+          if (gi < a.rows) a.out[slot][(i / kRT) * a.rows + gi] = out[i];
+        }
+    }
   }
+}
+
+// (a) the forward recompute of one 128-row tile, every stage
+template <typename T>
+__global__ void __launch_bounds__(kRTThreads, 1) chain_fwd_pass(const CB a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  chain_tile<T, false>(a, smem);
+}
+
+// kernel #5: the chain's forward of one 128-row tile
+template <typename T>
+__global__ void __launch_bounds__(kRTThreads, 1)
+chain_fwd_kernel(const CB a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  chain_tile<T, true>(a, smem);
 }
 
 template <typename T>
@@ -198,7 +244,7 @@ __global__ void __launch_bounds__(kRTThreads, 1) chain_walk_pass(const CB a) {
   float* de = Gu + 3 * kRT;                        // [kRT][de_ld]
   bf16* Ws = reinterpret_cast<bf16*>(de + kRT * de_ld);
   T* E = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(Ws) +
-                              ws_bytes<T>());      // [kRT][e_ld] d9
+                              stage_bytes<T, false>());  // [kRT][e_ld] d9
   T* H = E + kRT * e_ld;                           // [kRT][h_ld] dz
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRT;
   auto load_g = [&](float* G, const float* src) {
@@ -296,7 +342,8 @@ __global__ void __launch_bounds__(kRTThreads, 1) chain_walk_pass(const CB a) {
 // Arguments (int64): dtype (0 fp32, 1 bf16), n_rays, S, n_stages, use_quat,
 // chain_local, chain_global, n_pe, depth, width, kc, n_out, split_rows,
 // split0, total; stage_net[5], stage_set[5], in_src[5]; bands, xyz,
-// gin[3] (cano, recon, chain_recon; 0 where absent), dx, part, scratch;
+// gin[3] (the cotangents of cano, recon, chain_recon, or for #5 the
+// outputs; 0 where absent), dx, part, scratch;
 // parts[4][4]; dparts_out[4][4] (each (n_rays, W), or 0); the bw and fw
 // nets as 8 layers of (pe_f, pe_b, h_f, h_b, bias, g_pe, g_h, g_b) and the
 // head (f, b, bias, g_w, g_b) (row_tile.cuh operands, gradient offsets).
@@ -343,7 +390,10 @@ int decode(const int64_t* p, int n, Decoded* d) {
   q += 3 * kMaxStages;
   a.bands = static_cast<const float*>(P(q[0]));
   a.xyz = static_cast<const float*>(P(q[1]));
-  for (int k = 0; k < 3; ++k) a.gin[k] = static_cast<const float*>(P(q[2 + k]));
+  for (int k = 0; k < 3; ++k) {
+    a.gin[k] = static_cast<const float*>(P(q[2 + k]));
+    a.out[k] = reinterpret_cast<float*>(q[2 + k]);
+  }
   a.dx = reinterpret_cast<float*>(q[5]);
   d->part = reinterpret_cast<float*>(q[6]);
   a.scratch = reinterpret_cast<unsigned char*>(q[7]);
@@ -469,7 +519,8 @@ void jobs(const Decoded& d, wg::Call* mat, wg::Call* col, wg::SegCall* seg) {
 template <typename T>
 int run_passes(const CB& a, cudaStream_t s) {
   const unsigned blocks = static_cast<unsigned>(a.rp / kRT);
-  int rc = launch(chain_fwd_pass<T>, fwd_smem<T>(a), blocks, kRTThreads, s, a);
+  int rc = launch(chain_fwd_pass<T>, fwd_smem<T, false>(a), blocks,
+                  kRTThreads, s, a);
   if (rc) return rc;
   return launch(chain_walk_pass<T>, walk_smem<T>(a), blocks, kRTThreads, s,
                 a);
@@ -502,6 +553,24 @@ extern "C" int chain_bwd_launch(const int64_t* p, int n, void* stream) {
   if ((rc = wg::matrix_launch(mat, s))) return rc;
   if ((rc = wg::colsum_launch(col, s))) return rc;
   return wg::segsum_launch(seg, s);
+}
+
+// Kernel #5 on the arguments of chain_bwd_launch: the three cotangent
+// slots hold the outputs (cano, recon, chain_recon; 0 where absent), and
+// the backward's pointers (dx, part, scratch, d(partials), the transposed
+// operands) may be 0.
+extern "C" int chain_fwd_launch(const int64_t* p, int n, void* stream) {
+  Decoded d;
+  const int rc = decode(p, n, &d);
+  if (rc) return rc;
+  const CB& a = d.a;
+  if (a.rows <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>(a.rp / kRT);
+  return a.bf16 ? launch(chain_fwd_kernel<bf16>, fwd_smem<bf16, true>(a),
+                         blocks, kRTThreads, s, a)
+                : launch(chain_fwd_kernel<float>, fwd_smem<float, true>(a),
+                         blocks, kRTThreads, s, a);
 }
 
 extern "C" const char* chain_bwd_error(int code) {

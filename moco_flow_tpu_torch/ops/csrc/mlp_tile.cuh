@@ -1,5 +1,5 @@
-// Block-wide building blocks of the NoF kernels (nof_chain.cu, nof_rays.cu,
-// through nof_tile.cuh): a tile of R sample rows is carried through an MLP
+// Block-wide building blocks of the NoF kernels (nof_rays.cu, through
+// nof_tile.cuh): a tile of R sample rows is carried through an MLP
 // with every activation in shared memory, forward and backward.
 //
 // Storage type T is float (fp32 build) or bf16 (bf16 build). Activations,

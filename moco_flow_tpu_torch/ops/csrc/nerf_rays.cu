@@ -1,38 +1,47 @@
-// The NeRF backward of the training step for Hopper (sm_90a).
+// The NeRF of the training step for Hopper (sm_90a): its forward (kernel
+// #1) and its recompute backward (kernel #2).
 //
-// Replaces the TPU kernel moco_flow_tpu/ops/megakernel.py::_nerf_bwd_call
-// (via nerf_fused_rays_t / _nerf_op_bwd): the recompute backward of the
-// NeRF on transposed xyz (packed PE, the ReLU trunk with the PE re-injected
-// at the skip layer, `final`, the extra layer plus the per-ray partial, the
-// sigmoid rgb head) -> dxyz, d(extra partial) and every weight and bias
-// gradient. The forward of the training step is the render-pass kernel
-// reading xyz (render_pass.cu).
+// Replaces the TPU kernels moco_flow_tpu/ops/megakernel.py::_nerf_fwd_call
+// and ::_nerf_bwd_call (via nerf_fused_rays_t / _nerf_op): the NeRF on
+// transposed xyz (packed PE, the ReLU trunk with the PE re-injected at the
+// skip layer, the sigma row, `final`, the extra layer plus the per-ray
+// partial, the sigmoid rgb head) -> [rgb; sigma], and its backward -> dxyz,
+// d(extra partial) and every weight and bias gradient.
 //
 // What bounds it on this card: compute. At full width (8x256 trunk, 63
 // packed PE inputs, extra 256->128, rgb 128->3) the forward is ~590k
-// multiply-adds a sample and the backward with its recompute about three
-// times that, ~3.5 MFLOP, against 12 bytes of xyz, 16 bytes of cotangent in
-// and 12 bytes of dx out.
+// multiply-adds a sample against 12 bytes of xyz in and 16 bytes out, and
+// the backward with its recompute about three times that, ~3.5 MFLOP,
+// against 12 bytes of xyz, 16 bytes of cotangent in and 12 bytes of dx out.
 //
-// What the design does about it: three passes over the call's rows.
-//   (a) forward recompute, 128-row tiles (row_tile.cuh): the packed PE, the
-//       trunk, `final`, the extra layer and the rgb head with its cotangent
-//       d(rgb) sigmoid'; every layer's output goes to the device scratch;
+// What the design does about it: row-tile passes on row_tile.cuh, 128 rows
+// a block with every activation in shared memory and each layer's weights
+// staged in slices shared by the block's 16 warps.
+//   #1: one pass; nothing but xyz, the per-ray partial and the outputs
+//       touches device memory. The sigma row is an fp32 dot product of the
+//       last activation (four threads a row); its fp32 build multiplies on
+//       the tensor cores with split TF32 operands (at W=256 the 128-row
+//       tile, 16-deep fp32 weight slices and the 260-float activation rows
+//       take ~199 KB of the 227).
+//   #2 (a) the same pass as a forward recompute (one layer sequence, a
+//       compile-time flag): the packed PE, the trunk, `final`, the extra
+//       layer and the rgb head with its cotangent d(rgb) sigmoid'; every
+//       layer's output goes to the device scratch;
 //   (b) backward walk, 128-row tiles: dz = relu'(a) dh of each layer, from
 //       the rgb head down, with a read back from the scratch and dz stored
 //       there; dh = dz W^T on weights staged in shared memory; then the PE
 //       cotangent and dx;
 //   (c) the weight and bias gradients as long-K products and ordered sums
 //       over the scratch (wgrad.cuh): K is every row of the call.
-// Tensor cores (mma.sync) in bf16 wherever both operands are bf16, FFMA in
-// fp32. Rounding follows _nerf_bwd_tile: activations and dz stored in T,
-// fp32 accumulation, explicitly rounded elementwise steps, full-precision
-// sincosf; dW of `final` takes the fp32 d(final output) (JAX's bf16 x fp32
-// dot): in bf16 as its exact split hi + mid + lo into three bf16 parts on
-// the tensor cores (each product exact, the sums fp32), while dh takes it
-// rounded to T (hi). The scratch (~10.9 KB a row in bf16, ~21 KB in fp32 at
-// full width) lives for one call; the wrapper cuts calls above its cap
-// into chunks of whole rays.
+// Tensor cores (mma.sync) in bf16 wherever both operands are bf16; fp32 on
+// the FFMA product in #2. Rounding follows _nerf_tile / _nerf_bwd_tile:
+// activations and dz stored in T, fp32 accumulation, explicitly rounded
+// elementwise steps, full-precision sincosf; dW of `final` takes the fp32
+// d(final output) (JAX's bf16 x fp32 dot): in bf16 as its exact split hi +
+// mid + lo into three bf16 parts on the tensor cores (each product exact,
+// the sums fp32), while dh takes it rounded to T (hi). The scratch (~10.9
+// KB a row in bf16, ~21 KB in fp32 at full width) lives for one call; the
+// wrapper cuts calls above its cap into chunks of whole rays.
 
 #include <initializer_list>
 
@@ -52,7 +61,7 @@ struct NB {
   int sigma_only, has_extra, depth, width, kc, bf16;
   const float* bands;
   const float* xyz;              // (3, rows)
-  const float* g;                // (4 | 1, rows)
+  const float* g;                // (4 | 1, rows) cotangent of the output
   float* dx;                     // (3, rows)
   const float* p_extra;          // (n_rays, W/2) or null
   RLayer layer[kMaxDepth];
@@ -60,6 +69,8 @@ struct NB {
   RMat fin, ext, rgb;
   unsigned char* scratch;
   Layout lay;
+  const float* bsig;             // (1,) fp32
+  float* out;                    // #1: (4 | 1, rows) [rgb; sigma]
 };
 
 // Scratch of rp rows: E (pad16(kp)), each activation (W), hf (W), he (W/2),
@@ -93,30 +104,34 @@ template <typename T> __device__ __forceinline__ T* at(const NB& a, int64_t off)
   return reinterpret_cast<T*>(a.scratch + off);
 }
 
-template <typename T>
+template <typename T, bool kForward>
 size_t fwd_smem(const NB& a) {
-  return 6 * kRT * sizeof(float) + ws_bytes<T>() +
+  return 6 * kRT * sizeof(float) + stage_bytes<T, kForward>() +
          kRT * (tile_ld<T>(3 + 2 * a.kc) + tile_ld<T>(a.width)) * sizeof(T);
 }
 
 template <typename T>
 size_t walk_smem(const NB& a) {
   return (7 * kRT + kRT * pad16(3 + 2 * a.kc)) * sizeof(float) +
-         ws_bytes<T>() +
+         stage_bytes<T, false>() +
          kRT * (tile_ld<T>(3 + 2 * a.kc) + tile_ld<T>(a.width)) * sizeof(T);
 }
 
-// (a) the forward recompute of one 128-row tile
-template <typename T>
-__global__ void __launch_bounds__(kRTThreads, 1) nerf_fwd_pass(const NB a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// One 128-row tile through the NeRF (_nerf_tile). kForward: kernel #1,
+// which writes [rgb; sigma] (or sigma) and nothing else, its fp32 build on
+// the split TF32 product; else pass (a) of #2, the forward recompute, which
+// stores every layer's output and the rgb head's cotangent d(rgb) sigmoid'
+// to the scratch, its fp32 build on the FFMA product.
+template <typename T, bool kForward>
+__device__ __forceinline__ void nerf_tile(const NB& a, unsigned char* smem) {
+  using S = StageT<T, kForward>;
   const int W = a.width, W2 = W / 2, kp = 3 + 2 * a.kc, kpp = pad16(kp);
   const int e_ld = tile_ld<T>(kp), h_ld = tile_ld<T>(W);
   float* X = reinterpret_cast<float*>(smem);      // [3][kRT]
   float* G = X + 3 * kRT;                          // [3][kRT] d(rgb)
-  bf16* Ws = reinterpret_cast<bf16*>(G + 3 * kRT);
+  S* Ws = reinterpret_cast<S*>(G + 3 * kRT);
   T* E = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(Ws) +
-                              ws_bytes<T>());      // [kRT][e_ld]
+                              stage_bytes<T, kForward>());  // [kRT][e_ld]
   T* H = E + kRT * e_ld;                           // [kRT][h_ld]
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRT;
   for (int i = threadIdx.x; i < 3 * kRT; i += blockDim.x) {
@@ -124,11 +139,13 @@ __global__ void __launch_bounds__(kRTThreads, 1) nerf_fwd_pass(const NB a) {
     const int64_t gi = row0 + i % kRT;
     const bool v = gi < a.rows;
     X[i] = v ? a.xyz[j * a.rows + gi] : 0.f;
-    G[i] = v && !a.sigma_only ? a.g[j * a.rows + gi] : 0.f;
+    if constexpr (!kForward)
+      G[i] = v && !a.sigma_only ? a.g[j * a.rows + gi] : 0.f;
   }
   __syncthreads();
   rt_pe_fill<T>(E, e_ld, X, a.bands, a.kc);
-  rt_store(at<T>(a, a.lay.e), kpp, row0, E, e_ld, kpp);
+  if constexpr (!kForward)
+    rt_store(at<T>(a, a.lay.e), kpp, row0, E, e_ld, kpp);
   for (int l = 0; l < a.depth; ++l) {
     const RLayer& L = a.layer[l];
     rt_mm(Ws, Term<T>{E, e_ld, static_cast<const T*>(L.pe_f), L.pe_f ? kp : 0},
@@ -137,7 +154,22 @@ __global__ void __launch_bounds__(kRTThreads, 1) nerf_fwd_pass(const NB a) {
             st2(H + r * h_ld + c, fmaxf(__fadd_rn(v0, L.bias[c]), 0.f),
                 fmaxf(__fadd_rn(v1, L.bias[c + 1]), 0.f));
           });
-    rt_store(at<T>(a, a.lay.act[l]), W, row0, H, h_ld, W);
+    if constexpr (!kForward)
+      rt_store(at<T>(a, a.lay.act[l]), W, row0, H, h_ld, W);
+  }
+  if constexpr (kForward) {
+    // sigma = h . wsig + bsig in fp32, four threads a row (wsig rounded to
+    // T, as the plain version's product rounds it); `final` overwrites H
+    // only after the barriers of its product
+    const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
+    float acc = 0.f;
+    for (int c = q; c < W; c += 4)
+      acc = fmaf(to_f(H[r * h_ld + c]), rnd_t<T>(a.wsig[c]), acc);
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 1));
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 2));
+    const int64_t gi = row0 + r;
+    if (q == 0 && gi < a.rows)
+      a.out[(a.sigma_only ? 0 : 3) * a.rows + gi] = __fadd_rn(acc, a.bsig[0]);
   }
   if (a.sigma_only) return;
   rt_mm(Ws, Term<T>{H, h_ld, static_cast<const T*>(a.fin.f), W}, no_term<T>(),
@@ -145,7 +177,8 @@ __global__ void __launch_bounds__(kRTThreads, 1) nerf_fwd_pass(const NB a) {
           st2(H + r * h_ld + c, __fadd_rn(v0, a.fin.bias[c]),
               __fadd_rn(v1, a.fin.bias[c + 1]));
         });
-  rt_store(at<T>(a, a.lay.hf), W, row0, H, h_ld, W);
+  if constexpr (!kForward)
+    rt_store(at<T>(a, a.lay.hf), W, row0, H, h_ld, W);
   rt_mm(Ws, Term<T>{H, h_ld, static_cast<const T*>(a.ext.f), W}, no_term<T>(),
         W2, [&](int r, int c, float v0, float v1) {
           const int64_t gi = row0 + r;
@@ -157,24 +190,50 @@ __global__ void __launch_bounds__(kRTThreads, 1) nerf_fwd_pass(const NB a) {
               z[e] = __fadd_rn(z[e], a.p_extra[ray * W2 + c + e]);
           st2(H + r * h_ld + c, fmaxf(z[0], 0.f), fmaxf(z[1], 0.f));
         });
-  rt_store(at<T>(a, a.lay.he), W2, row0, H, h_ld, W2);
-  for (int i = threadIdx.x; i < kRT * 16; i += blockDim.x)
-    E[(i / 16) * e_ld + i % 16] = from_f<T>(0.f);   // d3, zero-padded
-  float* drgb = at<float>(a, a.lay.drgb);
-  rt_mm(Ws, Term<T>{H, h_ld, static_cast<const T*>(a.rgb.f), W2},
-        no_term<T>(), 3, [&](int r, int c, float v0, float v1) {
-          const float v[2] = {v0, v1};
-          for (int e = 0; e < 2 && c + e < 3; ++e) {
-            const int cc = c + e;
-            const float rgb = 1.f / (1.f + expf(-__fadd_rn(v[e],
-                                                           a.rgb.bias[cc])));
-            const float d = __fmul_rn(__fmul_rn(G[cc * kRT + r], rgb),
-                                      __fsub_rn(1.f, rgb));
-            drgb[(row0 + r) * 4 + cc] = d;
-            E[r * e_ld + cc] = from_f<T>(d);
-          }
-        });
-  rt_store(at<T>(a, a.lay.d3), 16, row0, E, e_ld, 16);
+  if constexpr (kForward) {
+    rt_mm(Ws, Term<T>{H, h_ld, static_cast<const T*>(a.rgb.f), W2},
+          no_term<T>(), 3, [&](int r, int c, float v0, float v1) {
+            const int64_t gi = row0 + r;
+            const float v[2] = {v0, v1};
+            for (int e = 0; e < 2 && c + e < 3 && gi < a.rows; ++e)
+              a.out[(c + e) * a.rows + gi] =
+                  1.f / (1.f + expf(-__fadd_rn(v[e], a.rgb.bias[c + e])));
+          });
+  } else {
+    rt_store(at<T>(a, a.lay.he), W2, row0, H, h_ld, W2);
+    for (int i = threadIdx.x; i < kRT * 16; i += blockDim.x)
+      E[(i / 16) * e_ld + i % 16] = from_f<T>(0.f);   // d3, zero-padded
+    float* drgb = at<float>(a, a.lay.drgb);
+    rt_mm(Ws, Term<T>{H, h_ld, static_cast<const T*>(a.rgb.f), W2},
+          no_term<T>(), 3, [&](int r, int c, float v0, float v1) {
+            const float v[2] = {v0, v1};
+            for (int e = 0; e < 2 && c + e < 3; ++e) {
+              const int cc = c + e;
+              const float rgb = 1.f / (1.f + expf(-__fadd_rn(v[e],
+                                                             a.rgb.bias[cc])));
+              const float d = __fmul_rn(__fmul_rn(G[cc * kRT + r], rgb),
+                                        __fsub_rn(1.f, rgb));
+              drgb[(row0 + r) * 4 + cc] = d;
+              E[r * e_ld + cc] = from_f<T>(d);
+            }
+          });
+    rt_store(at<T>(a, a.lay.d3), 16, row0, E, e_ld, 16);
+  }
+}
+
+// (a) the forward recompute of one 128-row tile
+template <typename T>
+__global__ void __launch_bounds__(kRTThreads, 1) nerf_fwd_pass(const NB a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  nerf_tile<T, false>(a, smem);
+}
+
+// kernel #1: the NeRF forward of one 128-row tile
+template <typename T>
+__global__ void __launch_bounds__(kRTThreads, 1)
+nerf_fwd_kernel(const NB a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  nerf_tile<T, true>(a, smem);
 }
 
 // dst pair (c, c + 1) = the pair (u0, u1) where the activation pair of `act`
@@ -198,7 +257,7 @@ __global__ void __launch_bounds__(kRTThreads, 1) nerf_walk_pass(const NB a) {
   float* de = dsig + kRT;                          // [kRT][de_ld]
   bf16* Ws = reinterpret_cast<bf16*>(de + kRT * de_ld);
   T* E = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(Ws) +
-                              ws_bytes<T>());      // [kRT][e_ld]
+                              stage_bytes<T, false>());      // [kRT][e_ld]
   T* H = E + kRT * e_ld;                           // [kRT][h_ld]
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRT;
   for (int i = threadIdx.x; i < 3 * kRT; i += blockDim.x) {
@@ -287,12 +346,13 @@ __global__ void __launch_bounds__(kRTThreads, 1) nerf_walk_pass(const NB a) {
 // ---------------------------------------------------------------------------
 
 // Arguments (int64): dtype (0 fp32, 1 bf16), n_rays, S, sigma_only,
-// has_extra, depth, width, kc, split_rows, split0, total; bands, xyz, g, dx,
-// p_extra, part, dp_out, scratch; 8 layers of (pe_f, pe_b, h_f, h_b, bias,
-// g_pe, g_h, g_b); wsig, g_wsig, g_bsig; final, extra, rgb as (f, b, bias,
-// g_w, g_b). Matrices: f the forward product's operand, b the input
-// gradient's (row_tile.cuh); g_* offsets in the flat gradient row.
-constexpr int kArgs = 11 + 8 + 8 * kMaxDepth + 3 + 3 * 5;
+// has_extra, depth, width, kc, split_rows, split0, total; bands, xyz, g (the
+// cotangent, or for #1 the output), dx, p_extra, part, dp_out, scratch; 8
+// layers of (pe_f, pe_b, h_f, h_b, bias, g_pe, g_h, g_b); wsig, bsig,
+// g_wsig, g_bsig; final, extra, rgb as (f, b, bias, g_w, g_b). Matrices: f
+// the forward product's operand, b the input gradient's (row_tile.cuh); g_*
+// offsets in the flat gradient row.
+constexpr int kArgs = 11 + 8 + 8 * kMaxDepth + 4 + 3 * 5;
 
 struct Decoded {
   NB a;
@@ -322,6 +382,7 @@ int decode(const int64_t* p, int n, Decoded* d) {
   a.bands = static_cast<const float*>(P(p[11]));
   a.xyz = static_cast<const float*>(P(p[12]));
   a.g = static_cast<const float*>(P(p[13]));
+  a.out = reinterpret_cast<float*>(p[13]);
   a.dx = reinterpret_cast<float*>(p[14]);
   a.p_extra = static_cast<const float*>(P(p[15]));
   d->part = reinterpret_cast<float*>(p[16]);
@@ -336,9 +397,10 @@ int decode(const int64_t* p, int n, Decoded* d) {
     d->g_b[l] = q[7];
   }
   a.wsig = static_cast<const float*>(P(q[0]));
-  d->g_wsig = q[1];
-  d->g_bsig = q[2];
-  q += 3;
+  a.bsig = static_cast<const float*>(P(q[1]));
+  d->g_wsig = q[2];
+  d->g_bsig = q[3];
+  q += 4;
   RMat* mats[3] = {&a.fin, &a.ext, &a.rgb};
   for (int k = 0; k < 3; ++k, q += 5) {
     *mats[k] = RMat{P(q[0]), P(q[1]), static_cast<const float*>(P(q[2]))};
@@ -441,7 +503,8 @@ void jobs(const Decoded& d, wg::Call* mat, wg::Call* col, wg::SegCall* seg) {
 template <typename T>
 int run_passes(const NB& a, cudaStream_t s) {
   const unsigned blocks = static_cast<unsigned>(a.rp / kRT);
-  int rc = launch(nerf_fwd_pass<T>, fwd_smem<T>(a), blocks, kRTThreads, s, a);
+  int rc = launch(nerf_fwd_pass<T>, fwd_smem<T, false>(a), blocks,
+                  kRTThreads, s, a);
   if (rc) return rc;
   return launch(nerf_walk_pass<T>, walk_smem<T>(a), blocks, kRTThreads, s, a);
 }
@@ -473,6 +536,23 @@ extern "C" int nerf_bwd_launch(const int64_t* p, int n, void* stream) {
   if ((rc = wg::matrix_launch(mat, s))) return rc;
   if ((rc = wg::colsum_launch(col, s))) return rc;
   return wg::segsum_launch(seg, s);
+}
+
+// Kernel #1 on the arguments of nerf_bwd_launch: the cotangent slot holds
+// the output (4 | 1, rows), and the backward's pointers (dx, part, dp_out,
+// scratch, the transposed operands) may be 0.
+extern "C" int nerf_fwd_launch(const int64_t* p, int n, void* stream) {
+  Decoded d;
+  const int rc = decode(p, n, &d);
+  if (rc) return rc;
+  const NB& a = d.a;
+  if (a.rows <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = static_cast<unsigned>(a.rp / kRT);
+  return a.bf16 ? launch(nerf_fwd_kernel<bf16>, fwd_smem<bf16, true>(a),
+                         blocks, kRTThreads, s, a)
+                : launch(nerf_fwd_kernel<float>, fwd_smem<float, true>(a),
+                         blocks, kRTThreads, s, a);
 }
 
 extern "C" const char* nerf_bwd_error(int code) {

@@ -7,8 +7,8 @@
 // partials at layer 0 and at the skip layer, and the quaternion head
 // (_nof_tile, _nof_quat_fwd_t); the backward recomputes it and runs its VJP
 // (_nof_bwd_tile, _nof_quat_bwd_t): dxyz, d(partials) summed per ray, every
-// dW / db. The evaluation and its VJP are nof_tile.cuh's, the body the warp
-// chain (nof_chain.cu) runs five times over; this file only tiles the rows.
+// dW / db. The evaluation and its VJP are nof_tile.cuh's; this file only
+// tiles the rows.
 //
 // Callers: the stage-3 step's NoF supervision and mask loss warp the whole
 // correspondence set (2 x N_sampled points) as ONE "ray" of S = 2000

@@ -1,6 +1,5 @@
-// One NoF warp of a tile of sample rows, forward and backward: the body that
-// the warp chain (nof_chain.cu, kernels #5/#6) and the single warp
-// (nof_rays.cu, kernels #3/#4) share.
+// One NoF warp of a tile of sample rows, forward and backward: the body of
+// the single warp (nof_rays.cu, kernels #3/#4).
 //
 // A NoF evaluation is the packed PE [x; sin; cos], a ReLU trunk with per-ray
 // frame partials added at layer 0 and at the skip layer, and the

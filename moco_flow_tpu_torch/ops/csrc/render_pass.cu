@@ -8,10 +8,9 @@
 // order of _nerf_tile (trunk, sigma head, final, extra + per-ray partial,
 // sigmoid rgb head), and writes sigma (N, S) and rgb (3, N, S), fp32.
 //
-// Without the NoF and with the positions read from an xyz (3, N*S) input,
-// the same kernels are the NeRF forward of the training step: they replace
-// moco_flow_tpu/ops/megakernel.py::_nerf_fwd_call (via nerf_fused_rays_t),
-// whose tile is this NeRF half (see ops/nerf_rays.py).
+// The positions may also come from an xyz (3, N*S) input. No caller passes
+// one: the NeRF forward of the training step (_nerf_fwd_call), which read
+// it, is nerf_rays.cu's kernel #1.
 //
 // What bounds it on this card: compute. At full width (NeRF 8x256, NoF
 // 4x128) a fine sample costs about 0.65M multiply-adds (0.59M in the NeRF,

@@ -15,10 +15,22 @@
 //   its columns k..pad16(k).
 // - fp32: an FFMA loop; warp w owns rows 8w..8w+7, lane l the column pairs
 //   2l + 64j, reading A by broadcast from row-major shared memory and B
-//   (zero-padded to (k, pad16(n))) as coalesced float2 rows.
+//   (zero-padded to (k, pad16(n))) as coalesced float2 rows. The backward
+//   passes of #2 / #6 take it (rt_mm with bf16 staging, unused).
+// - fp32 on the tensor cores (rt_mm with fp32 staging; the forward kernels
+//   #1 / #5): mma.sync m16n8k8 in TF32 with split operands ("3xTF32"):
+//   a = a_hi + a_lo and b = b_hi + b_lo, each part rounded to TF32 by
+//   cvt.rna, and a_lo b_hi + a_hi b_lo + a_hi b_hi accumulated in fp32
+//   (the dropped a_lo b_lo is ~2^-22 of a term). The warp layout is the
+//   bf16 one; B (the FFMA layout, (k, pad16(n))) is staged in 16-deep fp32
+//   slices with cp.async, double-buffered, and split at fragment load; A
+//   fragments are 32-bit loads from row-major fp32 shared memory, whose
+//   row stride (tile_ld: 4 mod 16 floats) keeps them conflict-free.
 // Every product accumulates in fp32 from the stored operands.
 
 #pragma once
+
+#include <type_traits>
 
 #include "pass_tile.cuh"
 
@@ -191,6 +203,134 @@ __device__ void rt_mm(bf16*, Term<float> t1, Term<float> t2, int n,
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32 on the tensor cores: split TF32 products
+// ---------------------------------------------------------------------------
+
+constexpr int kKs = 16;                  // fp32: k per staged slice
+constexpr int kWsLdF = kMaxWidth + 8;    // its row stride: conflict-free B
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+// x = hi + lo, each rounded to TF32 (nearest, ties away from zero)
+__device__ __forceinline__ void tf32_split(float x, unsigned& hi,
+                                           unsigned& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n"
+      : "=r"(lo)
+      : "f"(__fsub_rn(x, __uint_as_float(hi))));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The fp32 product on the tensor cores, the contract of the bf16 rt_mm. A
+// holds finite values (zeros) in its columns k..pad8(k); B's rows past k
+// are staged as zeros.
+template <class Epi>
+__device__ void rt_mm(float* Ws, Term<float> t1, Term<float> t2, int n,
+                      Epi epi) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp_m = (tid >> 5) & 7, warp_n = tid >> 8;
+  const int g = lane >> 2, tq = lane & 3;
+  const int n_pad = pad16(n), ntw = n_pad / 16, nbase = warp_n * ntw * 8;
+  float acc[16][4];
+#pragma unroll
+  for (int t = 0; t < 16; ++t)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[t][q] = 0.f;
+  const int k1 = (t1.k + 7) & ~7, k2 = (t2.k + 7) & ~7;
+  const int n1 = (k1 + kKs - 1) / kKs;
+  const int n_slices = n1 + (k2 + kKs - 1) / kKs;
+  auto stage = [&](int ci) {
+    if (ci < n_slices) {
+      const bool first = ci < n1;
+      const float* w = first ? t1.b : t2.b;
+      const int K = first ? t1.k : t2.k;
+      const int k0 = (first ? ci : ci - n1) * kKs;
+      const int rows = min(kKs, (first ? k1 : k2) - k0);
+      const int vpr = n_pad / 4;              // 16-byte vectors per row
+      float* buf = Ws + (ci & 1) * kKs * kWsLdF;
+      for (int v = tid; v < rows * vpr; v += kRTThreads) {
+        const int kk = v / vpr, q = (v % vpr) * 4;
+        float* dst = buf + kk * kWsLdF + q;
+        if (k0 + kk < K)
+          cp_async16(dst, w + static_cast<int64_t>(k0 + kk) * n_pad + q);
+        else
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    cp_async_commit();
+  };
+  stage(0);
+  for (int ci = 0; ci < n_slices; ++ci) {
+    stage(ci + 1);
+    cp_async_wait_all_but_one();         // slice ci has landed ...
+    __syncthreads();                     // ... for every thread
+    const bool first = ci < n1;
+    const int k0 = (first ? ci : ci - n1) * kKs;
+    const int kl = min(kKs, (first ? k1 : k2) - k0);
+    const int lda = first ? t1.lda : t2.lda;
+    const float* A = (first ? t1.a : t2.a) + (warp_m * 16 + g) * lda + k0 +
+                     tq;
+    const float* B = Ws + (ci & 1) * kKs * kWsLdF + tq * kWsLdF + nbase + g;
+    for (int ks = 0; ks < kl; ks += 8) {
+      unsigned ah[4], al[4];
+      tf32_split(A[ks], ah[0], al[0]);
+      tf32_split(A[ks + 8 * lda], ah[1], al[1]);
+      tf32_split(A[ks + 4], ah[2], al[2]);
+      tf32_split(A[ks + 8 * lda + 4], ah[3], al[3]);
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        if (t < ntw) {
+          unsigned bh[2], bl[2];
+          tf32_split(B[ks * kWsLdF + t * 8], bh[0], bl[0]);
+          tf32_split(B[(ks + 4) * kWsLdF + t * 8], bh[1], bl[1]);
+          mma_tf32(acc[t], al, bh);
+          mma_tf32(acc[t], ah, bl);
+          mma_tf32(acc[t], ah, bh);
+        }
+      }
+    }
+    __syncthreads();   // slice ci consumed; after the last, A read by all
+  }
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    if (t >= ntw) continue;
+    const int col = nbase + t * 8 + tq * 2;
+    if (col >= n) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      epi(warp_m * 16 + g + 8 * hh, col, acc[t][2 * hh], acc[t][2 * hh + 1]);
+  }
+  __syncthreads();
+}
+
+// The staging type of a pass's products: fp32 slices for the forward
+// kernels' fp32 build (the tensor-core product above), else bf16 slices
+// (the bf16 product; the FFMA product stages nothing).
+template <typename T, bool kSplitTf32>
+using StageT = typename std::conditional<kSplitTf32 && sizeof(T) == 4, float,
+                                         bf16>::type;
+
+// bytes of the staged weight slices of a pass with that staging
+template <typename T, bool kSplitTf32>
+__host__ __device__ constexpr size_t stage_bytes() {
+  return sizeof(StageT<T, kSplitTf32>) == 4
+             ? 2 * kKs * kWsLdF * sizeof(float)
+             : (sizeof(T) == 2 ? 2 * kMaxWidth * kWsLd * sizeof(bf16) : 0);
+}
+
 template <typename T> __device__ __forceinline__ Term<T> no_term() {
   return Term<T>{nullptr, 0, nullptr, 0};
 }
@@ -200,11 +340,6 @@ template <typename T> __device__ __forceinline__ Term<T> no_term() {
 // bytes either way.
 template <typename T> __host__ __device__ inline int tile_ld(int cols) {
   return pad16(cols) + 16 / static_cast<int>(sizeof(T));
-}
-
-// bytes of the staged weight slices rt_mm takes (none in fp32)
-template <typename T> __host__ __device__ constexpr size_t ws_bytes() {
-  return sizeof(T) == 2 ? 2 * kMaxWidth * kWsLd * sizeof(bf16) : 0;
 }
 
 // dst rows [row0, row0 + kRT) (row stride dst_ld) <- the tile (row stride

@@ -9,11 +9,11 @@ custom VJP ``_nerf_op`` (kernels ``_nerf_fwd_call`` and ``_nerf_bwd_call``):
   those, and the gradients to the model's parameters and to the frame
   embeddings come from autograd through the fold.
 - ``nerf_fwd`` / ``nerf_bwd`` are the kernels' wrappers: on CUDA tensors
-  the forward launches the render-pass kernel reading xyz
-  (``csrc/render_pass.cu``) and the backward the recompute backward of
-  ``csrc/nerf_rays.cu`` (row-tile passes over a device scratch and long-K
-  weight-gradient products, ``csrc/wgrad.cu``; a call whose scratch would
-  pass ``_args.SCRATCH_CAP`` runs in chunks of whole rays), or raise; on
+  they launch ``csrc/nerf_rays.cu``, the forward as one row-tile pass that
+  writes only its outputs and the backward as the recompute backward
+  (row-tile passes over a device scratch and long-K weight-gradient
+  products, ``csrc/wgrad.cu``; a call whose scratch would pass
+  ``_args.SCRATCH_CAP`` runs in chunks of whole rays), or raise; on
   CPU tensors they run the plain versions ``_nerf_fwd_ref`` /
   ``_nerf_bwd_ref``, written from ``_nerf_tile`` / ``_nerf_bwd_tile`` so
   that they round where those round (matrices in the compute dtype, biases
@@ -32,7 +32,6 @@ from ..nn.nerf import NeRFConfig
 from . import _args
 from .folds import (_cast_matrices, _NerfSpec, _nerf_fold, _pe_embed,
                     _trunk_layers)
-from .render_pass import _launch_pass, _Pass
 
 
 def _storage(dt) -> torch.dtype:
@@ -169,18 +168,54 @@ def _nerf_bwd_ref(spec: _NerfSpec, dt, xyz_t, p_e, ws, g):
 # Kernel launches
 # ---------------------------------------------------------------------------
 
+def _operands(spec: _NerfSpec, n: int, p_e, ws, ops, backward: bool):
+    """The parts of ``csrc/nerf_rays.cu``'s argument array that #1 and #2
+    share: (the weight block, the flat gradient's size, the fp32 extra
+    partial or None)."""
+    ops.check(spec.width % 32 == 0 and 32 <= spec.width <= _args.MAX_WIDTH,
+              f"width {spec.width}: a multiple of 32 up to {_args.MAX_WIDTH}")
+    off, total = _args.offsets(ws)
+    n_trunk = len(ws) - (2 if spec.sigma_only else 8)
+    blk = _args.row_layers(ops, ws[:n_trunk], off, spec.depth, spec.skips,
+                           backward)
+    i = n_trunk
+    blk += [ops.vec(ws[i]), ops.vec(ws[i + 1]), off[i], off[i + 1]]  # sigma
+    for k in range(3):
+        blk += ([0] * 5 if spec.sigma_only else
+                _args.row_mat(ops, ws, off, i + 2 + 2 * k, i + 3 + 2 * k,
+                              backward))
+    p = None
+    if spec.has_extra:
+        ops.check(tuple(p_e.shape) == (n, spec.width // 2),
+                  f"extra partial {tuple(p_e.shape)}")
+        p = p_e.float().contiguous()
+    return blk, total, p
+
+
+def _scalars(spec: _NerfSpec, dt, n: int, s: int) -> list:
+    return [1 if dt == torch.bfloat16 else 0, n, s, int(spec.sigma_only),
+            int(spec.has_extra), spec.depth, spec.width, spec.kc]
+
+
 def _fwd_launch(spec: _NerfSpec, dt, xyz_t, p_e, ws):
+    from ._build import load_library
+    lib = load_library()
     n, s = xyz_t.shape[1], xyz_t.shape[2]
     dev = xyz_t.device
+    ops = _args.Operands("nerf_fwd", dev, _storage(dt))
+    blk, _, p = _operands(spec, n, p_e, ws, ops, backward=False)
+    xyz = xyz_t.reshape(3, n * s).float().contiguous()
     out = torch.empty((1 if spec.sigma_only else 4, n, s),
                       dtype=torch.float32, device=dev)
-    flat = out.view(out.shape[0], n * s)
-    op = _Pass(nerf=spec, nof=None, dtype=_storage(dt), nerf_ws=list(ws),
-               p_extra=p_e if spec.has_extra else None, nof_ws=[],
-               partials=[])
-    xyz = xyz_t.reshape(3, n * s).float().contiguous()
-    sigma, rgb = (flat[0], None) if spec.sigma_only else (flat[3], flat[0:3])
-    _launch_pass(op, n, s, dev, None, None, xyz, sigma, rgb)
+    arr = _args.as_array(
+        _scalars(spec, dt, n, s) + [_args.SPLIT_ROWS, 0, 0]
+        + [ops.bands(spec.kc, spec.logscale), ops.ptr(xyz), ops.ptr(out), 0,
+           ops.ptr(p), 0, 0, 0] + blk)
+    rc = _args.call(lib.nerf_fwd_launch, arr,
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"nerf_fwd kernel failed to launch: "
+                           f"{lib.nerf_bwd_error(rc).decode()} ({rc})")
     return out
 
 
@@ -192,26 +227,11 @@ def _bwd_launch(spec: _NerfSpec, dt, xyz_t, p_e, ws, g):
     ops = _args.Operands("nerf_bwd", dev, _storage(dt))
     ops.check(tuple(g.shape) == (1 if spec.sigma_only else 4, n, s),
               f"cotangent {tuple(g.shape)}")
-    ops.check(spec.width % 32 == 0 and 32 <= spec.width <= _args.MAX_WIDTH,
-              f"width {spec.width}: a multiple of 32 up to {_args.MAX_WIDTH}")
-    off, total = _args.offsets(ws)
-    n_trunk = len(ws) - (2 if spec.sigma_only else 8)
-    layers = _args.row_layers(ops, ws[:n_trunk], off, spec.depth, spec.skips)
-    i = n_trunk
-    head = [ops.vec(ws[i]), off[i], off[i + 1]]         # sigma row, fp32
-    for k in range(3):
-        head += ([0] * 5 if spec.sigma_only else
-                 _args.row_mat(ops, ws, off, i + 2 + 2 * k, i + 3 + 2 * k))
-    w2 = spec.width // 2
-    p = None
-    if spec.has_extra:
-        ops.check(tuple(p_e.shape) == (n, w2),
-                  f"extra partial {tuple(p_e.shape)}")
-        p = p_e.float().contiguous()
+    blk, total, p = _operands(spec, n, p_e, ws, ops, backward=True)
     xyz = xyz_t.reshape(3, n * s).float().contiguous()
     gt = g.reshape(g.shape[0], n * s).float().contiguous()
     dx = torch.empty((3, n * s), dtype=torch.float32, device=dev)
-    dp = (torch.empty((n, w2), dtype=torch.float32, device=dev)
+    dp = (torch.empty((n, spec.width // 2), dtype=torch.float32, device=dev)
           if spec.has_extra else None)
     bands = ops.bands(spec.kc, spec.logscale)
 
@@ -231,10 +251,9 @@ def _bwd_launch(spec: _NerfSpec, dt, xyz_t, p_e, ws, g):
             if not whole:
                 after = lambda: dx[:, a:b].copy_(dx_c)  # noqa: E731
         return _args.as_array(
-            [1 if dt == torch.bfloat16 else 0, r1 - r0, s,
-             int(spec.sigma_only), int(spec.has_extra), spec.depth,
-             spec.width, spec.kc, _args.SPLIT_ROWS, a // _args.SPLIT_ROWS,
-             total, bands] + ptrs + layers + head), after
+            _scalars(spec, dt, r1 - r0, s)
+            + [_args.SPLIT_ROWS, a // _args.SPLIT_ROWS, total, bands] + ptrs
+            + blk), after
 
     dw = _args.run_chunks(ops, lib, "nerf_bwd", n, s, total, make_args)
     return dx.view(3, n, s), dp, _args.split(dw, ws)

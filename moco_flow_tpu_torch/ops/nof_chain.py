@@ -12,11 +12,12 @@ fw@chained -> bw@chained -> fw@ind -> chain_recon (global chain).
   and the folded bw and fw operands of ``folds._nof_fold`` (fp32 primals);
   it saves only those.
 - ``chain_fwd`` / ``chain_bwd`` are the kernels' wrappers: CUDA tensors
-  launch ``csrc/nof_chain.cu`` / ``csrc/chain_bwd.cu`` (the backward as
-  row-tile passes over a device scratch and long-K weight-gradient
-  products, in chunks of whole rays above ``_args.SCRATCH_CAP``), or
-  raise; CPU tensors run the plain versions ``_chain_fwd_ref`` /
-  ``_chain_bwd_ref``, written from ``_nof_tile``, ``_nof_quat_bwd_t`` and ``_nof_bwd_tile``.
+  launch ``csrc/chain_bwd.cu`` (the forward as one row-tile pass that
+  writes only its outputs, the backward as row-tile passes over a device
+  scratch and long-K weight-gradient products, in chunks of whole rays
+  above ``_args.SCRATCH_CAP``), or raise; CPU tensors run the plain
+  versions ``_chain_fwd_ref`` / ``_chain_bwd_ref``, written from
+  ``_nof_tile``, ``_nof_quat_bwd_t`` and ``_nof_bwd_tile``.
   ``chain_fwd.launches`` / ``chain_bwd.launches`` count kernel launches.
 """
 
@@ -34,7 +35,7 @@ from .folds import (_cast_matrices, _cross, _NofSpec, _nof_fold, _pe_embed,
 from .nerf_rays import _device, _mm, _pe_grad, _rows, _storage
 from .render_pass import _quat_warp
 
-_MAX_SETS, _MAX_PE = 4, 4   # csrc/nof_chain.cu kMaxSets, kMaxPe
+_MAX_SETS, _MAX_PE = 4, 4   # csrc/chain_bwd.cu kMaxSets, kMaxPe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,6 +249,30 @@ def _by_slot(spec: _ChainSpec, ts, ops: _args.Operands):
     return out
 
 
+def _operands(spec: _ChainSpec, n_pe, n, parts, ws_bw, ws_fw, ops,
+              backward: bool):
+    """The parts of ``csrc/chain_bwd.cu``'s argument array that #5 and #6
+    share: (the chain's scalars, the stage table, the nets' block, the flat
+    gradient's size)."""
+    nof = spec.nof
+    w = nof.width
+    ops.check(w % 32 == 0 and 32 <= w <= _args.MAX_WIDTH,
+              f"width {w}: a multiple of 32 up to {_args.MAX_WIDTH}")
+    body = _stage_args(spec, n_pe, n, parts, ops)
+    off_bw, end_bw = _args.offsets(ws_bw)
+    off_fw, total = _args.offsets(ws_fw, end_bw)
+    nets = []
+    for ws, off in ((ws_bw, off_bw), (ws_fw, off_fw)):
+        nets += (_args.row_layers(ops, ws[:-2], off, nof.depth, nof.skips,
+                                  backward)
+                 + _args.row_mat(ops, ws, off, len(ws) - 2, len(ws) - 1,
+                                 backward))
+    head = [len(_chain_stages(spec)), int(nof.use_quat),
+            int(spec.chain_local), int(spec.chain_global), n_pe, nof.depth,
+            w, nof.kc, ws_bw[-2].shape[-1]]
+    return head, body, nets, total
+
+
 def _fwd_launch(spec: _ChainSpec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw):
     from ._build import load_library
     lib = load_library()
@@ -255,28 +280,23 @@ def _fwd_launch(spec: _ChainSpec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw):
     n, s = xyz_t.shape[1], xyz_t.shape[2]
     dev = xyz_t.device
     ops = _args.Operands("chain_fwd", dev, _storage(dt))
-    body = _stage_args(spec, n_pe, n, parts, ops)
-    off_bw, end_bw = _args.offsets(ws_bw)
-    off_fw, _ = _args.offsets(ws_fw, end_bw)
-    nets = []
-    for ws, off in ((ws_bw, off_bw), (ws_fw, off_fw)):
-        nets += _args.net_block(ops, ws, off, nof.depth, nof.width, nof.kc,
-                                nof.skips, nof.logscale, True)
+    head, body, nets, _ = _operands(spec, n_pe, n, parts, ws_bw, ws_fw, ops,
+                                    backward=False)
     xyz = xyz_t.reshape(3, n * s).float().contiguous()
     n_out = 1 + int(spec.chain_local) + int(spec.chain_global)
     outs = [torch.empty((3, n, s), dtype=torch.float32, device=dev)
             for _ in range(n_out)]
-    arr = _args.as_array(
-        [1 if dt == torch.bfloat16 else 0, n, s, len(_chain_stages(spec)),
-         int(nof.use_quat), int(spec.chain_local), int(spec.chain_global),
-         n_pe] + body + [ops.ptr(xyz)]
-        + _part_ptrs([p.float().contiguous() for p in parts], n_pe, ops)
-        + nets + _by_slot(spec, outs, ops))
+    ptrs = ([ops.bands(nof.kc, nof.logscale), ops.ptr(xyz)]
+            + _by_slot(spec, outs, ops) + [0, 0, 0]
+            + _part_ptrs([p.float().contiguous() for p in parts], n_pe, ops)
+            + [0] * (_MAX_SETS * _MAX_PE))
+    arr = _args.as_array([1 if dt == torch.bfloat16 else 0, n, s] + head
+                         + [_args.SPLIT_ROWS, 0, 0] + body + ptrs + nets)
     rc = _args.call(lib.chain_fwd_launch, arr,
                     torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"chain_fwd kernel failed to launch: "
-                           f"{lib.chain_error(rc).decode()} ({rc})")
+                           f"{lib.chain_bwd_error(rc).decode()} ({rc})")
     return tuple(outs)
 
 
@@ -286,27 +306,17 @@ def _bwd_launch(spec: _ChainSpec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw, gs):
     nof = spec.nof
     n, s = xyz_t.shape[1], xyz_t.shape[2]
     dev = xyz_t.device
-    w = nof.width
     ops = _args.Operands("chain_bwd", dev, _storage(dt))
     for g in gs:
         ops.check(tuple(g.shape) == (3, n, s), f"cotangent {tuple(g.shape)}")
-    ops.check(w % 32 == 0 and 32 <= w <= _args.MAX_WIDTH,
-              f"width {w}: a multiple of 32 up to {_args.MAX_WIDTH}")
-    body = _stage_args(spec, n_pe, n, parts, ops)
-    off_bw, end_bw = _args.offsets(ws_bw)
-    off_fw, total = _args.offsets(ws_fw, end_bw)
-    nets = []
-    for ws, off in ((ws_bw, off_bw), (ws_fw, off_fw)):
-        nets += (_args.row_layers(ops, ws[:-2], off, nof.depth, nof.skips)
-                 + _args.row_mat(ops, ws, off, len(ws) - 2, len(ws) - 1))
-    head = [len(_chain_stages(spec)), int(nof.use_quat),
-            int(spec.chain_local), int(spec.chain_global), n_pe, nof.depth,
-            w, nof.kc, ws_bw[-2].shape[-1]]
+    head, body, nets, total = _operands(spec, n_pe, n, parts, ws_bw, ws_fw,
+                                        ops, backward=True)
     xyz = xyz_t.reshape(3, n * s).float().contiguous()
     gsc = [g.reshape(3, n * s).float().contiguous() for g in gs]
     pc = [p.float().contiguous() for p in parts]
     dx = torch.empty((3, n * s), dtype=torch.float32, device=dev)
-    dparts = torch.empty((len(parts), n, w), dtype=torch.float32, device=dev)
+    dparts = torch.empty((len(parts), n, nof.width), dtype=torch.float32,
+                         device=dev)
     bands = ops.bands(nof.kc, nof.logscale)
 
     def make_args(r0, r1, part, scratch):

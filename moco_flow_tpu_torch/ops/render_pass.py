@@ -170,16 +170,16 @@ def _launch(op: _Pass, rays_o, rays_d, z_vals):
     sigma = torch.empty((n, s), dtype=torch.float32, device=dev)
     rgb = (None if op.nerf.sigma_only
            else torch.empty((3, n, s), dtype=torch.float32, device=dev))
-    _launch_pass(op, n, s, dev, od, z, None, sigma, rgb)
+    _launch_pass(op, n, s, dev, od, z, sigma, rgb)
     render_pass.launches += 1
     return sigma, rgb
 
 
-def _launch_pass(op: _Pass, n: int, s: int, dev, od, z, xyz, sigma, rgb):
+def _launch_pass(op: _Pass, n: int, s: int, dev, od, z, sigma, rgb):
     """Queue one launch of the pass kernel on the current stream. The
-    sample positions are ``o + d*z`` (``od`` (N, 6), ``z`` (N, S)) or,
-    when ``xyz`` (3, N*S) is given, read from it; sigma goes to ``sigma``
-    (N*S values) and rgb to ``rgb`` (3, N*S) unless sigma-only."""
+    sample positions are ``o + d*z`` (``od`` (N, 6), ``z`` (N, S)); sigma
+    goes to ``sigma`` (N*S values) and rgb to ``rgb`` (3, N*S) unless
+    sigma-only."""
     from ._build import load_library
     dt = op.dtype
     nerf, nof = op.nerf, op.nof
@@ -258,7 +258,7 @@ def _launch_pass(op: _Pass, n: int, s: int, dev, od, z, xyz, sigma, rgb):
     args += _net_block(nerf.depth, nerf.width, nerf.kc,
                        bands_of(nerf.kc, nerf.logscale), layers, [], heads,
                        ptr)
-    args.append(ptr(xyz))
+    args.append(0)  # the kernel's xyz input: no caller reads positions
     arr = np.asarray(args, dtype=np.int64)
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream

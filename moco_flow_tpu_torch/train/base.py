@@ -253,12 +253,21 @@ class BaseTrainer:
         ``model.chunk``). A tail tile is padded (repeating its last ray) up
         to the next power of two, at least 2048 and at most ``chunk``, so
         tile shapes come from a small fixed set; per-ray outputs of the
-        padding are dropped."""
+        padding are dropped. The per-tile consensus scalars of a training
+        ``rcfg`` are averaged weighted by each tile's real ray count. No
+        rays (occupancy can prove a masked frame empty) render one dummy
+        ray for the output keys and return every per-ray output with 0
+        rows, as the JAX trainer does."""
         if chunk is None:
             chunk = int(self.config["model"].get("chunk", 16384))
         n = rays.shape[0]
         if n == 0:
-            raise ValueError("render_rays_chunked: no rays")
+            dummy = torch.zeros((1, rays.shape[1]))
+            dummy[0, 5] = -1.0                   # d = (0, 0, -1)
+            dummy[0, 6], dummy[0, 7] = 1.0, 2.0  # near, far
+            out = self.render_rays_chunked(dummy, torch.ones((1, 3)), rcfg,
+                                           anneal=anneal, chunk=chunk)
+            return {k: v[:0] if v.dim() >= 1 else v for k, v in out.items()}
         rays = rays.to(self.device, torch.float32)
         bg = (torch.ones((n, 3)) if background is None else background).to(
             self.device, torch.float32)
@@ -275,8 +284,18 @@ class BaseTrainer:
             outs.append((rows, render_rays(self.params, self.statics,
                                            anneal or {}, tile, bgt, rcfg)))
             i += rows
-        return {k: torch.cat([o[k][:r] for r, o in outs])
-                for k in outs[0][1]}
+        flat = {}
+        for k, v0 in outs[0][1].items():
+            if v0.dim() >= 1:
+                flat[k] = torch.cat([o[k][:r] for r, o in outs])
+            elif len(outs) > 1:
+                w = torch.tensor([float(r) for r, _ in outs],
+                                 device=v0.device)
+                flat[k] = (torch.stack([o[k] for _, o in outs]) * w).sum() \
+                    / w.sum()
+            else:
+                flat[k] = v0
+        return flat
 
     def evaluate_sequence(self, max_frames: int | None = None,
                           chunk: int = 16384) -> dict:

@@ -1,47 +1,73 @@
 #!/usr/bin/env python
-"""Compare the warp-chain kernels (#5 ``csrc/nof_chain.cu``, #6
-``csrc/chain_bwd.cu``) of two trees of this repository bit for bit on one
-card.
+"""Compare the training step's kernels of two trees of this repository bit
+for bit on one card: the backward kernels #2 ``nerf_bwd`` and #6
+``chain_bwd``, and the forward kernels #1 ``nerf_fwd`` and #5
+``chain_fwd``.
 
     (cd TREE_A && python /path/to/scripts/torch_port_chain_bitwise.py dump a.pt)
     (cd TREE_B && python /path/to/scripts/torch_port_chain_bitwise.py dump b.pt)
     python scripts/torch_port_chain_bitwise.py compare a.pt b.pt
+    python scripts/torch_port_chain_bitwise.py sass LIB_A LIB_B
 
-``dump`` runs from a tree's root and uses that tree's package: it launches
-``chain_fwd`` and ``chain_bwd`` at full NoF width (4x128, skip 2, 5 + 16
-frequencies, quaternion head) with local + global chains on fixed seeded
-inputs, N x S = 1000 x 128 and 256 x 256, fp32 and bf16, and saves every
-output, dxyz, d(partial) and dW. ``compare`` prints how many of the saved
-tensors are bitwise equal and the max |diff| of the others.
+``dump`` runs from a tree's root and uses that tree's package: on fixed
+seeded inputs, N x S = 1000 x 128 and 256 x 256, fp32 and bf16, it
+launches the warp chain at full NoF width (4x128, skip 2, 5 + 16
+frequencies, quaternion head) with local + global chains, and the NeRF at
+full width (8x256, skip 4, 10 frequencies, the 5-dim frame feature) with
+its rgb head and sigma-only, and saves every forward output, and every
+dxyz, d(partial) and dW of the backward. ``compare`` prints, per kernel,
+how many of the saved tensors are bitwise equal and the max |diff| of the
+others. ``sass`` compares two builds of the kernel library
+(``build/torch_kernels/*/libmoco_kernels.so``) instruction by instruction
+(``cuobjdump -sass``, addresses and encodings left out) for the backward
+kernels' row-tile passes, which #1 and #5 share their code with.
 """
 
 from __future__ import annotations
 
+import difflib
 import os
+import re
+import shutil
+import subprocess
 import sys
 
 import torch
+
+KERNELS = ("nerf_fwd", "nerf_bwd", "chain_fwd", "chain_bwd")
 
 
 def dump(path: str):
     sys.path.insert(0, os.getcwd())
     from moco_flow_tpu_torch.nn.embedding import anneal_weights
+    from moco_flow_tpu_torch.nn.nerf import NeRFConfig, init_nerf
     from moco_flow_tpu_torch.nn.nof import NoFConfig, init_nof
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
     from moco_flow_tpu_torch.ops import nof_chain as nc
-    from moco_flow_tpu_torch.ops.folds import _NofSpec, _nof_fold
+    from moco_flow_tpu_torch.ops.folds import (_NerfSpec, _NofSpec,
+                                               _nerf_fold, _nof_fold)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(5)
     fcfg = NoFConfig()
     bw, fw = init_nof(gen, fcfg, dev), init_nof(gen, fcfg, dev)
+    ncfg = NeRFConfig(extra_feat_type="ind", extra_feat_dim=5)
+    nerf = init_nerf(gen, ncfg, dev)
     an = anneal_weights(505000, 5, 5000, 1005000).to(dev)
+    an_n = anneal_weights(505000, 10, 5000, 1005000).to(dev)
     spec = nc._ChainSpec(_NofSpec(4, 128, 15, (2,), True, True), True, True)
     out = {}
+
+    def keep(kernel, tag, tensors):
+        for i, t in enumerate(tensors):
+            out[f"{kernel}/{tag}/{i}"] = t.cpu()
+
     for n, s in ((1000, 128), (256, 256)):
         xyz = (torch.randn(3, n, s, generator=gen) * 0.6).to(dev)
         emb = torch.randn(n, 33, generator=gen).to(dev)
         emb_c = torch.randn(n, 33, generator=gen).to(dev)
+        emb_n = torch.randn(n, 5, generator=gen).to(dev)
         wsb, pb = _nof_fold(bw, fcfg, 5, an, emb)
         wsf, pf = _nof_fold(fw, fcfg, 5, an, emb)
         sets = [pb, pf, _nof_fold(fw, fcfg, 5, an, emb_c)[1],
@@ -50,16 +76,24 @@ def dump(path: str):
         gs = [(torch.randn(3, n, s, generator=gen) / (n * s) ** 0.5).to(dev)
               for _ in range(3)]
         for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
-            fo = nc.chain_fwd(spec, dt, 2, xyz, parts, wsb, wsf)
-            dx, dp, dw = nc.chain_bwd(spec, dt, 2, xyz, parts, wsb, wsf, gs)
             tag = f"{n}x{s}/{dname}"
-            for i, o in enumerate(fo):
-                out[f"{tag}/out{i}"] = o.cpu()
-            out[f"{tag}/dx"] = dx.cpu()
-            for i, o in enumerate(dp):
-                out[f"{tag}/dp{i}"] = o.cpu()
-            for i, o in enumerate(dw):
-                out[f"{tag}/dw{i}"] = o.cpu()
+            keep("chain_fwd", tag,
+                 nc.chain_fwd(spec, dt, 2, xyz, parts, wsb, wsf))
+            dx, dp, dw = nc.chain_bwd(spec, dt, 2, xyz, parts, wsb, wsf, gs)
+            keep("chain_bwd", tag, [dx, *dp, *dw])
+        for sigma_only in (False, True):
+            ws, p_e = _nerf_fold(nerf, ncfg, 10, an_n,
+                                 None if sigma_only else emb_n, sigma_only)
+            nspec = _NerfSpec(8, 256, 30, (4,), sigma_only, not sigma_only,
+                              True)
+            g = (torch.randn(1 if sigma_only else 4, n, s, generator=gen)
+                 / (n * s) ** 0.5).to(dev)
+            for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+                tag = f"{n}x{s}/{dname}/{'sigma' if sigma_only else 'full'}"
+                keep("nerf_fwd", tag, [nr.nerf_fwd(nspec, dt, xyz, p_e, ws)])
+                dx, dp, dw = nr.nerf_bwd(nspec, dt, xyz, p_e, ws, g)
+                keep("nerf_bwd", tag, [dx] + ([] if dp is None else [dp])
+                     + list(dw))
     torch.cuda.synchronize()
     torch.save(out, path)
     print(f"saved {len(out)} tensors to {path}")
@@ -69,10 +103,52 @@ def compare(path_a: str, path_b: str):
     a, b = torch.load(path_a), torch.load(path_b)
     if set(a) != set(b):
         raise SystemExit(f"the dumps hold other tensors: {set(a) ^ set(b)}")
-    same = [k for k in a if torch.equal(a[k], b[k])]
-    diff = {k: (a[k] - b[k]).abs().max().item() for k in a if k not in same}
-    print(f"chain kernels A vs B: {len(same)} of {len(a)} tensors bitwise "
-          f"equal; max |diff| of the others: {diff}")
+    for kernel in KERNELS:
+        keys = [k for k in a if k.startswith(kernel + "/")]
+        same = [k for k in keys if torch.equal(a[k], b[k])]
+        diff = max(((a[k] - b[k]).abs().max().item() for k in keys
+                    if k not in same), default=0.0)
+        print(f"{kernel} A vs B: {len(same)} of {len(keys)} tensors bitwise "
+              f"equal; largest |diff| of the others {diff:.3e}")
+
+
+PASSES = ("nerf_fwd_pass", "nerf_walk_pass", "chain_fwd_pass",
+          "chain_walk_pass")
+
+
+def _sass(lib: str) -> dict:
+    """{kernel (its mangled name without the translation unit's hash):
+    [instructions]} of a built library."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    txt = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, check=True).stdout
+    out, name = {}, None
+    for line in txt.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            key = re.search(r"_cu_[0-9a-f]{8}(\w+)$", m.group(1))
+            name = key.group(1) if key else m.group(1)
+            out[name] = []
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/(.*?)(/\* 0x[0-9a-f]+ \*/)?$",
+                       line)
+        if name and ins:           # an instruction line, address dropped
+            out[name].append(ins.group(1).strip())
+    return out
+
+
+def sass(lib_a: str, lib_b: str):
+    a, b = _sass(lib_a), _sass(lib_b)
+    for name in sorted(k for k in a if any(p in k for p in PASSES)):
+        other = b.get(name, [])
+        print(f"{name}: {len(a[name])} / {len(other)} instructions, the "
+              f"same in both builds {a[name] == other}")
+        if a[name] != other:
+            diff = [ln for ln in difflib.unified_diff(a[name], other,
+                                                      lineterm="", n=0)
+                    if ln[:1] in "+-" and ln[:3] not in ("---", "+++")]
+            print(f"  {len(diff)} lines differ, the first: "
+                  + " | ".join(diff[:12]))
 
 
 if __name__ == "__main__":
@@ -80,5 +156,7 @@ if __name__ == "__main__":
         dump(sys.argv[2])
     elif sys.argv[1:2] == ["compare"] and len(sys.argv) == 4:
         compare(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["sass"] and len(sys.argv) == 4:
+        sass(sys.argv[2], sys.argv[3])
     else:
         raise SystemExit(__doc__)

@@ -4,7 +4,7 @@ all its kernels, in two trees of this repository on one card, interleaved
 A, B, B, A.
 
     python scripts/torch_port_step_ab.py A_DIR B_DIR [--steps 10]
-        [--what step|render|kernels]
+        [--what step|render|kernels] [--pairs 3]
 
 Each directory is a checkout holding ``chip_smoke.py`` and
 ``moco_flow_tpu_torch/`` (for example a parent commit unpacked with ``git
@@ -19,9 +19,13 @@ the render-pass kernel (#1/#7) at N=4096 rays, coarse S=128 sigma-only and
 fine S=256, with and without the NoF, bf16 and fp32, each the mean of 5
 launches after a warm one. With ``--what kernels`` a run times the
 training kernels #1, #2, #5 and #6 at one stage-3 step's shapes (two
-launches each, N=1024, bf16 and fp32, mean of 3 after a warm pair), the
+launches each, N=1024, bf16 and fp32, mean of 3 after a warm pair; the
+forwards' plain versions too), the
 render pass #7 as above and #8 / #9 at chip_smoke.py phase 12's shapes
-(bf16). Prints one JSON line per run and the card's name and power limit.
+(bf16). The runs go A B B A, ``--pairs`` times over (at least 3);
+beside every run the card's SM clock, memory clock
+and temperature as nvidia-smi reads them just before and just after it.
+Prints one JSON line per run and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -73,6 +77,12 @@ if sys.argv[1] == "kernels":
                                   for _ in range(2)],
             "chain_bwd": lambda: [nc.chain_bwd(c[0], dt, 2, *c[1:])
                                   for _ in range(2)]}
+        calls["nerf_fwd plain"] = lambda: [nr._nerf_fwd_ref(x[0], dt,
+                                                            *x[1:4])
+                                           for x in nerf]
+        calls["chain_fwd plain"] = lambda: [nc._chain_fwd_ref(c[0], dt, 2,
+                                                              *c[1:5])
+                                            for _ in range(2)]
         for name, fn in calls.items():
             out[f"{name} {dname}"] = cs.cuda_ms(fn, reps=3)
     out.update({"render_pass " + k: v[0] for k, v in
@@ -117,6 +127,14 @@ print("MS " + json.dumps(out), flush=True)
 """
 
 
+def _clocks() -> str:
+    """The card's SM clock, memory clock and temperature, now."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("a")
@@ -124,7 +142,11 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--what", choices=("step", "render", "kernels"),
                    default="step")
+    p.add_argument("--pairs", type=int, default=3,
+                   help="A B B A rounds, at least 3")
     args = p.parse_args(argv)
+    if args.pairs < 3:
+        raise SystemExit("--pairs: at least 3 A B B A rounds")
     trees = {"A": os.path.abspath(args.a), "B": os.path.abspath(args.b)}
     builds = {k: subprocess.Popen([sys.executable, "-c", CHILD, "build"],
                                   cwd=d) for k, d in trees.items()}
@@ -135,18 +157,22 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    for k in ("A", "B", "B", "A"):
+    for i, k in enumerate(("A", "B", "B", "A") * args.pairs):
+        before = _clocks()
         run = subprocess.run([sys.executable, "-c", CHILD, args.what,
                               str(args.steps)], cwd=trees[k],
                              capture_output=True, text=True)
+        after = _clocks()
         line = next((ln for ln in run.stdout.splitlines()
                      if ln.startswith("MS ")), None)
         if run.returncode != 0 or line is None:
             sys.stderr.write(run.stdout[-4000:] + run.stderr[-4000:])
             raise SystemExit(f"run {k} failed ({run.returncode})")
         ms = json.loads(line[len("MS "):])
-        print(json.dumps({"tree": k, "dir": trees[k], "what": args.what,
-                          "steps": args.steps, "ms": ms}), flush=True)
+        print(json.dumps({"run": i, "tree": k, "dir": trees[k],
+                          "what": args.what, "steps": args.steps,
+                          "clocks_before": before, "clocks_after": after,
+                          "ms": ms}), flush=True)
     print(card)
 
 

@@ -1,5 +1,6 @@
-"""The render-pass, single-warp NoF and per-op MLP CUDA kernels against
-their plain PyTorch versions, on a GPU.
+"""The port's CUDA kernels (the render pass, the training step's NeRF and
+warp-chain forwards and backwards, the single-warp NoF and the per-op MLPs)
+against their plain PyTorch versions, on a GPU.
 
 Marked ``cuda``; each test skips where no card is present. The file imports
 neither JAX nor the JAX package, so it runs on the GPU machine too, where
@@ -293,3 +294,100 @@ def test_bwd_chunks_match_one_call(card, which, dt, monkeypatch):
     chunked = _flat(call(dt))
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(whole, chunked))
+
+
+# The forward kernels #1 (nerf_fwd) and #5 (chain_fwd) at full width (NeRF
+# 8x256 with the 5-dim frame feature, NoF 4x128) on rows that are not a
+# multiple of their 128-row tile: fp32 (the split TF32 product) within 1e-4
+# + 1e-4|ref| of the plain version; bf16 within 1e-3 + 1e-2|ref|, or else
+# within the plain bf16 version's own gap to the plain fp32 one; and the
+# same bits from two launches.
+FWD_ROWS = (37, 127)
+
+
+def _full_nerf(card, sigma_only):
+    from moco_flow_tpu_torch.ops.folds import _NerfSpec, _nerf_fold
+    gen = torch.Generator().manual_seed(5)
+    ncfg = NeRFConfig(extra_feat_type="ind", extra_feat_dim=5)
+    params = init_nerf(gen, ncfg, card)
+    n, s = FWD_ROWS
+    xyz = (0.8 * torch.randn(3, n, s, generator=gen)).to(card)
+    emb = torch.randn(n, 5, generator=gen).to(card)
+    an = anneal_weights(505000, 10, 5000, 1005000).to(card)
+    ws, p_e = _nerf_fold(params, ncfg, 10, an, None if sigma_only else emb,
+                         sigma_only)
+    spec = _NerfSpec(8, 256, 30, (4,), sigma_only, not sigma_only, True)
+    return spec, xyz, p_e, ws
+
+
+def _full_chain(card, local, glob):
+    from moco_flow_tpu_torch.ops.nof_chain import _ChainSpec
+    gen = torch.Generator().manual_seed(6)
+    fcfg = NoFConfig()
+    bw, fw = init_nof(gen, fcfg, card), init_nof(gen, fcfg, card)
+    n, s = FWD_ROWS
+    xyz = (0.6 * torch.randn(3, n, s, generator=gen)).to(card)
+    emb = torch.randn(n, 33, generator=gen).to(card)
+    emb_c = torch.randn(n, 33, generator=gen).to(card)
+    an = anneal_weights(505000, 5, 5000, 1005000).to(card)
+    wsb, pb = _nof_fold(bw, fcfg, 5, an, emb)
+    wsf, pf = _nof_fold(fw, fcfg, 5, an, emb)
+    sets = [pb, pf]
+    if glob:
+        sets += [_nof_fold(fw, fcfg, 5, an, emb_c)[1],
+                 _nof_fold(bw, fcfg, 5, an, emb_c)[1]]
+    parts = [p for st in sets for p in st]
+    spec = _ChainSpec(_NofSpec(4, 128, 15, (2,), True, True), local, glob)
+    return spec, xyz, parts, wsb, wsf
+
+
+def _fwd_calls(card, which):
+    """(kernel call, plain call), each dt -> list of outputs."""
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    from moco_flow_tpu_torch.ops import nof_chain as nc
+    if which.startswith("nerf"):
+        c = _full_nerf(card, which == "nerf-sigma-only")
+        return (lambda dt: [nr.nerf_fwd(c[0], dt, *c[1:])],
+                lambda dt: [nr._nerf_fwd_ref(c[0], dt, *c[1:])])
+    chains = {"chain-both": (True, True), "chain-local": (True, False),
+              "chain-global": (False, True)}[which]
+    c = _full_chain(card, *chains)
+    return (lambda dt: list(nc.chain_fwd(c[0], dt, 2, *c[1:])),
+            lambda dt: list(nc._chain_fwd_ref(c[0], dt, 2, *c[1:])))
+
+
+FWD_CASES = ["nerf-full", "nerf-sigma-only", "chain-both", "chain-local",
+             "chain-global"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("which", FWD_CASES)
+def test_fwd_matches_plain(card, which, dt):
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    from moco_flow_tpu_torch.ops import nof_chain as nc
+    kernel, plain = _fwd_calls(card, which)
+    before = nr.nerf_fwd.launches + nc.chain_fwd.launches
+    got, want, want32 = kernel(dt), plain(dt), plain(None)
+    torch.cuda.synchronize()
+    assert nr.nerf_fwd.launches + nc.chain_fwd.launches == before + 1
+    atol, rtol = TOL[dt]
+    for a, b, p in zip(got, want, want32):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        err = (a - b).abs()
+        if bool((err <= atol + rtol * b.abs()).all()):
+            continue
+        gap = (b - p).abs()
+        assert dt is not None
+        assert err.max() <= gap.max() and err.mean() <= gap.mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("which", ["nerf-full", "nerf-sigma-only",
+                                   "chain-both"])
+def test_fwd_deterministic(card, which, dt):
+    kernel, _ = _fwd_calls(card, which)
+    a, b = kernel(dt), kernel(dt)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -1,0 +1,161 @@
+"""The fp32 tensor-core product of the forward kernels #1 (``nerf_fwd``) and
+#5 (``chain_fwd``), emulated on the CPU.
+
+The kernels' fp32 builds multiply on the tensor cores in TF32 with split
+operands (``csrc/row_tile.cuh``): a = a_hi + a_lo and b = b_hi + b_lo, each
+part rounded to TF32 (10 mantissa bits, round to nearest with ties away
+from zero, ``cvt.rna.tf32.f32``), summing a_hi b_hi + a_hi b_lo + a_lo b_hi
+in fp32 ("3xTF32"). The exact three-piece split (hi + mid + lo, six
+products) is the fallback whose error is at fp32's level. Here every
+product of the plain forwards ``_nerf_fwd_ref`` / ``_chain_fwd_ref`` is
+replaced by the emulated split product (the sigma row, a plain fp32 dot in
+the kernel, excepted) at full width (NeRF 8x256, NoF 4x128) on a few
+hundred seeded rows, and the outputs are held against the fp32 plain
+versions: the two-piece split within chip_smoke.py's ``TOL["fp32"]``
+(1e-4 + 1e-4 |ref|), the three-piece split within 1e-6 of the largest
+magnitude. ``python -m pytest tests/test_torch_tf32_split.py -s`` prints
+the measured errors.
+"""
+
+import pytest
+import torch
+
+from moco_flow_tpu_torch.nn.embedding import anneal_weights
+from moco_flow_tpu_torch.nn.nerf import NeRFConfig, init_nerf
+from moco_flow_tpu_torch.nn.nof import NoFConfig, init_nof
+from moco_flow_tpu_torch.ops import nerf_rays, nof_chain
+from moco_flow_tpu_torch.ops.folds import (_NerfSpec, _NofSpec, _nerf_fold,
+                                           _nof_fold)
+
+TOL_FP32 = (1e-4, 1e-4)      # chip_smoke.py TOL["fp32"]: atol, rtol
+EXACT_REL = 1e-6             # three-piece split, of max |ref|
+N_RAYS, N_SAMPLES = 48, 8    # 384 rows
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits, nearest, ties away from zero),
+    as ``cvt.rna.tf32.f32``: add half of the 13 dropped bits to the
+    magnitude, then clear them."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split(x: torch.Tensor, pieces: int) -> list:
+    """x as ``pieces`` TF32 parts, largest first; each remainder exact."""
+    out, r = [], x.float()
+    for _ in range(pieces):
+        p = tf32(r)
+        out.append(p)
+        r = r - p
+    return out
+
+
+# the products the kernels sum, as (a piece, b piece), small terms first
+TERMS = {1: ((0, 0),),
+         2: ((1, 0), (0, 1), (0, 0)),
+         3: ((1, 1), (2, 0), (0, 2), (1, 0), (0, 1), (0, 0))}
+
+
+def split_matmul(pieces: int):
+    """``nn.mlp.matmul`` with fp32 products replaced by the split product;
+    bf16 products and the (W, 1) sigma row keep the plain product."""
+    plain = nerf_rays.matmul
+
+    def mm(x, w, compute_dtype=None):
+        if compute_dtype == torch.bfloat16 or w.shape[-1] == 1:
+            return plain(x, w, compute_dtype)
+        xs, ws = split(x, pieces), split(w, pieces)
+        out = None
+        for i, j in TERMS[pieces]:
+            t = xs[i] @ ws[j]
+            out = t if out is None else out + t
+        return out
+    return mm
+
+
+def test_tf32_rounding():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
+                      -(1.0 + 2 ** -11), 1.0 + 2 ** -12, 3.0e-3])
+    got = tf32(x)
+    want = torch.tensor([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9,
+                         -(1.0 + 2 ** -10), 1.0, got[5].item()])
+    assert torch.equal(got[:5], want[:5])
+    # 10 explicit mantissa bits, within half an ulp of 2^-10
+    assert abs(got[5].item() - 3.0e-3) <= 3.0e-3 * 2 ** -11
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    hi, lo = split(x, 2)
+    assert ((hi + lo - x).abs() <= x.abs() * 2 ** -21).all()
+
+
+def _nerf(sigma_only: bool):
+    gen = torch.Generator().manual_seed(11)
+    cfg = NeRFConfig(extra_feat_type="ind", extra_feat_dim=5)
+    params = init_nerf(gen, cfg, torch.device("cpu"))
+    xyz = 0.8 * torch.randn(3, N_RAYS, N_SAMPLES, generator=gen)
+    emb = torch.randn(N_RAYS, 5, generator=gen)
+    an = anneal_weights(505000, 10, 5000, 1005000)
+    ws, p_e = _nerf_fold(params, cfg, 10, an, None if sigma_only else emb,
+                         sigma_only)
+    spec = _NerfSpec(8, 256, 30, (4,), sigma_only, not sigma_only, True)
+    return lambda: [nerf_rays._nerf_fwd_ref(spec, None, xyz, p_e, ws)]
+
+
+def _chain():
+    gen = torch.Generator().manual_seed(12)
+    cfg = NoFConfig()
+    cpu = torch.device("cpu")
+    bw, fw = init_nof(gen, cfg, cpu), init_nof(gen, cfg, cpu)
+    xyz = 0.6 * torch.randn(3, N_RAYS, N_SAMPLES, generator=gen)
+    emb = torch.randn(N_RAYS, 33, generator=gen)
+    emb_c = torch.randn(N_RAYS, 33, generator=gen)
+    an = anneal_weights(505000, 5, 5000, 1005000)
+    wsb, pb = _nof_fold(bw, cfg, 5, an, emb)
+    wsf, pf = _nof_fold(fw, cfg, 5, an, emb)
+    sets = [pb, pf, _nof_fold(fw, cfg, 5, an, emb_c)[1],
+            _nof_fold(bw, cfg, 5, an, emb_c)[1]]
+    parts = [p for st in sets for p in st]
+    spec = nof_chain._ChainSpec(_NofSpec(4, 128, 15, (2,), True, True),
+                                True, True)
+    return lambda: list(nof_chain._chain_fwd_ref(spec, None, 2, xyz, parts,
+                                                 wsb, wsf))
+
+
+CASES = {"nerf": lambda: _nerf(False), "nerf-sigma-only": lambda: _nerf(True),
+         "chain": _chain}
+
+
+@pytest.mark.parametrize("pieces", [2, 3], ids=["3xTF32", "three-piece"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_split_product_error(case, pieces, monkeypatch):
+    run = CASES[case]()
+    with torch.no_grad():
+        want = run()
+        monkeypatch.setattr(nerf_rays, "matmul", split_matmul(pieces))
+        monkeypatch.setattr(nof_chain, "matmul", split_matmul(pieces))
+        got = run()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        err = (g - w).abs()
+        rel = err.max().item() / w.abs().max().item()
+        print(f"{case} {pieces}-piece split: max|diff| {err.max().item():.3e}"
+              f" ({rel:.2e} of max|ref| {w.abs().max().item():.3f})")
+        if pieces == 2:
+            atol, rtol = TOL_FP32
+            assert (err <= atol + rtol * w.abs()).all()
+        else:
+            assert rel <= EXACT_REL
+        # the emulation does round: the split is not the fp32 product
+        assert pieces == 3 or err.max().item() > 0.0
+
+
+def test_plain_tf32_is_not_enough(monkeypatch):
+    """One TF32 product a term (no split) leaves the warp chain's fp32
+    tolerance: the split is what keeps #5's fp32 build in it."""
+    run = _chain()
+    with torch.no_grad():
+        want = run()
+        monkeypatch.setattr(nof_chain, "matmul", split_matmul(1))
+        got = run()
+    atol, rtol = TOL_FP32
+    assert any(((g - w).abs() > atol + rtol * w.abs()).any()
+               for g, w in zip(got, want))
