@@ -9,12 +9,17 @@ a frame and trains a few steps through the port's own entry points.
 Phases (each ends in torch.cuda.synchronize(), so a fault shows where it
 happened; any failure raises and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch's device name;
-  2. build the kernels (nvcc, sm_90a) into build/torch_kernels/;
-  3. kernel against plain version: render_pass vs render_pass_ref on the same
+  2. build the kernels (nvcc, sm_90a) into build/torch_kernels/; the
+     forward MLP kernels' registers, stack and spills from -Xptxas -v (a
+     spill fails the phase);
+  3. kernel against plain version: first one product of the wgmma tile
+     (wg_tile.cuh, through wg_probe.cu) against the plain product, then
+     render_pass vs render_pass_ref on the same
      CUDA inputs at the published widths (NeRF 8x256, bw-NoF 4x128), all four
      variants (coarse S=128 sigma-only / fine S=256 full, with and without
      the NoF warp), N = 1000 (ragged) and 4096 rays, fp32 and bf16, with
-     times at N = 4096;
+     times at N = 4096 and a 256x256 frame's own 8 launches (TFLOP/s, share
+     of the bf16 and split-TF32 bounds, weight bytes streamed from L2);
   4. the port against JAX's numbers: tests/fixtures/torch_port_golden.npz
      (written by scripts/make_torch_port_golden.py) rendered through the
      port's render_rays on the card;
@@ -69,7 +74,8 @@ happened; any failure raises and the script exits non-zero):
      the val step at val_size 108x108 timed, one bf16 msk step profiled
      (build/chip_smoke_train/msk_step_profile.txt);
   12. the per-op MLP kernels (fused_mlp.cu, #8/#9) against their plain
-     versions at full width;
+     versions at full width, then timed (#8 also TFLOP/s, share of its
+     bounds and weight bytes streamed from L2 a stage-1 step);
   13. JAX's stage-1 fixture replayed on the card (fp32);
   14. stage 1 through ``train(config, args)`` at init_nerf.yaml's model
      under mlp_impl: pallas (launches, step, peak memory, val, profile),
@@ -188,15 +194,96 @@ def phase_card() -> str:
     return card
 
 
+# the kernels of #7 / #8 (wgmma tile in bf16, split TF32 in fp32) and the
+# wgmma layer probe, by the name ptxas gives them
+FWD_KERNELS = ("render_pass_wg_kernel", "render_pass_tf32_kernel",
+               "nerf_wg_kernel", "nerf_tf32_kernel", "wg_probe_kernel")
+# their dynamic shared memory a block at the main paths' widths (ptxas
+# reports only static shared memory), from the kernels' layouts: wgmma
+# tile 1 KB alignment + 4 x 32 KB weight ring + H (4 x 16 KB) + E (16 KB) +
+# 64 B of mbarriers, #7 also positions and NoF head outputs (9,728 B);
+# split TF32 two 16 x 264 fp32 weight slices + E (128 x 68) + H (128 x 260)
+# fp32, #7 also positions and head outputs (19 x 128 fp32)
+FWD_SMEM = {"render_pass_wg_kernel": 1024 + 4 * 32768 + 5 * 16384 + 9728 + 64,
+            "nerf_wg_kernel": 1024 + 4 * 32768 + 5 * 16384 + 64,
+            "render_pass_tf32_kernel": 4 * (19 * 128 + 2 * 16 * 264
+                                            + 128 * (68 + 260)),
+            "nerf_tf32_kernel": 4 * (2 * 16 * 264 + 128 * (68 + 260))}
+PTXAS = {}   # kernel -> its ptxas lines (registers, stack, spills)
+
+
 def phase_build():
     t0 = time.perf_counter()
     path, out = _build.build()
     _build.load_library()
     dt = time.perf_counter() - t0
     log(f"[2 build] {path} in {dt:.1f} s")
+    name = None
     for line in out.splitlines():
+        if "Function properties for" in line:
+            name = next((k for k in FWD_KERNELS if k in line), None)
         if "registers" in line or "spill" in line:
             log(f"[2 build] {line.strip()}")
+            if name:
+                PTXAS.setdefault(name, []).append(line.strip())
+    if PTXAS:   # a cached build prints nothing
+        spills = []
+        for k in FWD_KERNELS:
+            info = " | ".join(PTXAS.get(k, ["not in the compiler's output"]))
+            log(f"[2 build] {k}: {info}")
+            if " 0 bytes spill stores" not in info:
+                spills.append(k)
+        if spills:
+            raise AssertionError(f"{', '.join(spills)} spill registers")
+
+
+def fwd_weight_bytes(mats, dname: str) -> int:
+    """Bytes of weights one 128-row tile of #7 / #8 streams from L2: bf16
+    the wgmma tile's slice images (ceil(K / 64) x wg_width(N) x 128), fp32
+    the split-TF32 product's staged rows (K x pad16(N) x 4)."""
+    from moco_flow_tpu_torch.ops._args import wg_width
+    if dname == "bf16":
+        return sum(-(-k // 64) * wg_width(n) * 128 for k, n in mats)
+    return sum(k * -(-n // 16) * 16 * 4 for k, n in mats)
+
+
+def fwd_shares(flops: float, k_ms: float, dname: str) -> str:
+    """TFLOP/s and the share of the bound: bf16 against 989 TFLOP/s, fp32
+    against the split TF32 product's (3 TF32 products a term at 495) and
+    the FFMA one (67)."""
+    tf = flops / k_ms / 1e9
+    if dname == "bf16":
+        return (f"{tf:.1f} TFLOP/s, {bound_ms(flops, 0, 'bf16')[0] / k_ms:.1%}"
+                " of the bf16 bound")
+    return (f"{tf:.1f} TFLOP/s, {3 * flops / PEAK['tf32'] * 1e3 / k_ms:.1%} "
+            f"of the split-TF32 bound ({3 * flops / PEAK['tf32'] * 1e3:.3f} "
+            f"ms), {bound_ms(flops, 0, 'fp32')[0] / k_ms:.1%} of the FFMA "
+            "bound")
+
+
+def phase_wg_probe(dev) -> float:
+    """One product of the wgmma tile (csrc/wg_tile.cuh, through the
+    card-only entry point csrc/wg_probe.cu) against the plain product on
+    the same bf16 operands, before the kernels built on it: 128 x 256 x
+    256, N = 8, 16, 128, ragged K = 63 and 90 and rows not a multiple of
+    the tile; fp32 sums in another order, so TOL["fp32"]."""
+    from moco_flow_tpu_torch.ops.wg_probe import wg_layer, wg_layer_ref
+    gen = torch.Generator().manual_seed(11)
+    worst = 0.0
+    for rows, k, n in ((128, 256, 256), (128, 256, 128), (128, 256, 16),
+                       (128, 256, 8), (128, 63, 256), (128, 90, 128),
+                       (1000, 33, 9)):
+        a = torch.randn(rows, k, generator=gen).to(dev)
+        w = (torch.randn(k, n, generator=gen) / k ** 0.5).to(dev)
+        b = torch.randn(n, generator=gen).to(dev)
+        got, want = wg_layer(a, w, b), wg_layer_ref(a, w, b)
+        torch.cuda.synchronize()
+        e = check_close(f"wg probe {rows}x{k}x{n}", got, want, *TOL["fp32"])
+        worst = max(worst, e)
+        log(f"[3 kernel vs plain] wgmma layer probe {rows} x {k} x {n}: "
+            f"max|d| {e:.3e} (tol {TOL['fp32'][0]:g} + {TOL['fp32'][1]:g}"
+            "|ref|)")
+    return worst
 
 
 def _full_width_inputs(n: int, s: int, dev, seed: int):
@@ -279,13 +366,30 @@ def phase_kernel_vs_plain(dev) -> dict:
     work = (2 * 4 * n * (128 * (NERF_SIGMA_MACS + NOF_MACS)
                          + 256 * (NERF_MACS + NOF_MACS)),
             4 * n * (128 * 8 + 256 * 20 + 2 * 6 * 4))
+    # the weight matrices one tile streams: NoF 4x128 (skip 2, 33 PE rows)
+    # and head, NeRF 8x256 (skip 4, 63 PE rows), then final, extra, rgb
+    nof_m = [(33, 128), (128, 128), (33, 128), (128, 128), (128, 128),
+             (128, 9)]
+    nerf_m = ([(63, 256)] + [(256, 256)] * 3 + [(63, 256), (256, 256)]
+              + [(256, 256)] * 3)
+    heads_m = [(256, 256), (256, 128), (128, 3)]
+    tiles = 4 * n // 128           # a launch of S samples has S * n / 128
     for dname, (k_ms, p_ms) in frame.items():
         b_ms, b_by = bound_ms(*work, dname)
         times[f"frame {dname}"] = (k_ms, p_ms, b_ms, b_by)
+        l2 = tiles * (128 * fwd_weight_bytes(nof_m + nerf_m, dname)
+                      + 256 * fwd_weight_bytes(nof_m + nerf_m + heads_m,
+                                               dname))
         log(f"[3 kernel vs plain] a 256x256 frame's 8 launches (4 x coarse "
             f"+ fine, N=16384) {dname}: kernel {k_ms:.3f} ms, plain "
             f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: "
-            f"{work[0] / 1e12:.3f} TFLOP)")
+            f"{work[0] / 1e12:.3f} TFLOP); {fwd_shares(work[0], k_ms, dname)}"
+            f"; weights streamed from L2 {l2 / 1e9:.1f} GB "
+            f"({l2 / k_ms / 1e9:.2f} TB/s)")
+    for k in ("render_pass_wg_kernel", "render_pass_tf32_kernel"):
+        log(f"[3 kernel vs plain] {k}: "
+            f"{' | '.join(PTXAS.get(k, ['(cached build)']))}; dynamic "
+            f"shared memory {FWD_SMEM[k]} bytes a block")
     torch.cuda.synchronize()
     return {"max_abs_err": max_err, "times": times}
 
@@ -1476,15 +1580,29 @@ def phase_mlp_kernels(dev, card: str, scale: int = 1) -> dict:
             k_ms = cuda_ms(lambda: [f() for f in kern], reps=3)
             p_ms = cuda_ms(lambda: [f() for f in plain], reps=3)
             b_ms, b_by = bound_ms(flops, nbytes, dname)
-            if dname == "bf16":
-                times[name] = (k_ms, p_ms, b_ms, b_by)
+            times[name if dname == "bf16" else f"{name} fp32"] = (
+                k_ms, p_ms, b_ms, b_by)
             what = ("one stage-1 step's two launches (5120 x 128 + 5120 x "
                     "256 rows)" if name == "nerf_pallas" else
                     "one launch (16384 x 128 rows)")
+            extra = ""
+            if name == "nerf_pallas":   # 63 inputs, 8x256 skip 4, dir 27
+                mats = ([(63, 256)] + [(256, 256)] * 3
+                        + [(63, 256), (256, 256)] + [(256, 256)] * 4
+                        + [(256, 128), (27, 128), (128, 3)])
+                tiles = sum(-(-c[1].shape[0] // 128) for c in step)
+                l2 = tiles * fwd_weight_bytes(mats, dname)
+                extra = (f"; {fwd_shares(flops, k_ms, dname)}; weights "
+                         f"streamed from L2 {l2 / 1e9:.2f} GB ("
+                         f"{l2 / k_ms / 1e9:.2f} TB/s)")
             log(f"[12 mlp kernels] {name} {dname}, {what}: kernel "
                 f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}: {flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB) "
-                f"on {card}")
+                f"({b_by}: {flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB)"
+                f"{extra} on {card}")
+    for k in ("nerf_wg_kernel", "nerf_tf32_kernel"):
+        log(f"[12 mlp kernels] {k}: "
+            f"{' | '.join(PTXAS.get(k, ['(cached build)']))}; dynamic "
+            f"shared memory {FWD_SMEM[k]} bytes a block")
     torch.cuda.synchronize()
     return {"err": err, "times": times}
 
@@ -1574,7 +1692,7 @@ def stage1_config(dtype: str, impl: str = "pallas") -> dict:
     }
 
 
-STAGE1_GROUPS = {"nerf_pallas": ("nerf_mma_kernel",),
+STAGE1_GROUPS = {"nerf_pallas": ("nerf_wg_kernel",),
                  "gemm (the recompute backward)": ("gemm",)}
 
 
@@ -1768,6 +1886,7 @@ def main():
     dev = torch.device("cuda")
     phase_build()
     torch.cuda.synchronize()
+    phase_wg_probe(dev)
     k = phase_kernel_vs_plain(dev)
     phase_golden(dev)
     launches = phase_slice(card)

@@ -7,6 +7,12 @@ device and contiguity, and lays out the flat fp32 weight-gradient buffer:
 the gradient of the folded operand ``i`` sits at ``offset[i]``, in operand
 order, so splitting the buffer by the operands' sizes gives the gradients
 in the order autograd returns them.
+
+The forward kernels #7 / #8 take their weights in their products' own
+layouts (``fwd_ops``): the row-tile operands of the split-TF32 product in
+fp32 (``row_op``), and in bf16 the shared-memory images of the wgmma tile's
+weight slices (``wg_pack``, ``wg_pack_all``), which one bulk copy each
+brings into shared memory.
 """
 
 from __future__ import annotations
@@ -84,6 +90,89 @@ def row_op(ops: Operands, b) -> int:
         out = torch.empty(shape, dtype=ops.dtype, device=ops.device)
         out.copy_(src)
     return ops.ptr(out)
+
+
+# The bf16 forward kernels #7 / #8 (csrc/wg_tile.cuh): a product's weights
+# arrive as the shared-memory image of their slices, 64 deep (128 bytes of
+# bf16 a row) and as wide as the wgmma, in the 128-byte swizzle.
+WG_K = 64
+
+
+def wg_width(n: int) -> int:
+    """The wgmma width of a product with n outputs: the next of 8, 16, 32,
+    64, 128, 256 (wg_tile.cuh ``width_of``)."""
+    if not 1 <= n <= 256:
+        raise ValueError(f"wgmma width: {n} outputs not in 1..256")
+    return max(8, 1 << (n - 1).bit_length())
+
+
+def _wg_image(t: torch.Tensor) -> torch.Tensor:
+    """(n_pad, 64 s) rows of W^T (or of indices into them) -> the slice
+    images (s, n_pad, 8, 8): slice s holds columns 64 s .. 64 s + 63, and
+    the 16-byte chunk q of row n sits at chunk q ^ (n % 8)."""
+    n_pad, s = t.shape[0], t.shape[1] // WG_K
+    img = t.view(n_pad, s, 8, 8).permute(1, 0, 2, 3)      # (s, n, chunk, 8)
+    rows = torch.arange(n_pad, device=t.device) % 8
+    chunk = torch.arange(8, device=t.device)
+    src = (chunk[None, :] ^ rows[:, None])[None, :, :, None]
+    return torch.gather(img, 2, src.expand(s, n_pad, 8, 8)).contiguous()
+
+
+def wg_pack(w: torch.Tensor) -> torch.Tensor:
+    """A (K, N) weight as the slice images of ``csrc/wg_tile.cuh``: bf16
+    (ceil(K / 64), wg_width(N), 8, 8), slice s holding W^T[:, 64 s : 64 s +
+    64] zero-padded, with the 16-byte chunk q of row n stored at chunk
+    q ^ (n % 8) (the 128-byte swizzle the wgmma descriptor names). The
+    slices are contiguous, each the exact bytes one bulk copy brings."""
+    k, n = w.shape
+    wt = torch.zeros((wg_width(n), -(-k // WG_K) * WG_K),
+                     dtype=torch.bfloat16, device=w.device)
+    wt[:n, :k] = w.T
+    return _wg_image(wt)
+
+
+_WG_GATHER = {}   # (shapes, device) -> (gather index, offsets)
+
+
+def wg_pack_all(ws: list) -> tuple:
+    """The ``wg_pack`` images of every (K, N) weight of a launch in one bf16
+    buffer, and each image's offset in it (elements; each image is a whole
+    number of 1 KB slices). One gather from the weights' values: its index
+    depends only on the shapes and is built once per set of shapes."""
+    dev = ws[0].device
+    key = (tuple(tuple(w.shape) for w in ws), str(dev))
+    if key not in _WG_GATHER:
+        zero = sum(w.numel() for w in ws)     # the index of an appended 0
+        parts, offs, base, at = [], [], 0, 0
+        for w in ws:
+            k, n = w.shape
+            src = torch.full((wg_width(n), -(-k // WG_K) * WG_K), zero,
+                             dtype=torch.int64, device=dev)
+            src[:n, :k] = (base + torch.arange(k, device=dev)[None, :] * n
+                           + torch.arange(n, device=dev)[:, None])
+            parts.append(_wg_image(src).reshape(-1))
+            offs.append(at)
+            at += parts[-1].numel()
+            base += w.numel()
+        _WG_GATHER[key] = (torch.cat(parts), offs)
+    idx, offs = _WG_GATHER[key]
+    vals = torch.cat([w.reshape(-1) for w in ws]
+                     + [torch.zeros(1, dtype=ws[0].dtype, device=dev)])
+    return torch.index_select(vals.to(torch.bfloat16), 0, idx), offs
+
+
+def fwd_ops(ops: Operands, ws: list) -> list:
+    """The (K, N) weights of a launch of the forward kernels #7 / #8 (None
+    entries give 0): in bf16 pointers into one buffer of slice images
+    (``wg_pack_all``), in fp32 the row-tile operands (``row_op``)."""
+    real = [w for w in ws if w is not None]
+    if ops.dtype != torch.bfloat16:
+        it = iter([row_op(ops, w) for w in real])
+    elif real:
+        buf, offs = wg_pack_all(real)
+        base = ops.ptr(buf)
+        it = iter([base + 2 * o for o in offs])
+    return [0 if w is None else next(it) for w in ws]
 
 
 def _fb(ops: Operands, w, backward: bool) -> list:

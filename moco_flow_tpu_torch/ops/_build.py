@@ -99,7 +99,8 @@ def load_library() -> ctypes.CDLL:
     for name in ("nerf_fwd_launch", "nerf_bwd_launch", "chain_fwd_launch",
                  "chain_bwd_launch",
                  "nof_rays_fwd_launch", "nof_rays_bwd_launch",
-                 "fused_mlp_nerf_launch", "fused_mlp_nof_launch"):
+                 "fused_mlp_nerf_launch", "fused_mlp_nof_launch",
+                 "wg_probe_launch"):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = ctypes.c_int
     for name in ("nerf_bwd_scratch_bytes", "chain_bwd_scratch_bytes"):

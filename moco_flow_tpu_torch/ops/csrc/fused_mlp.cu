@@ -25,16 +25,26 @@
 // ~593k multiply-adds against 4 * (63 + 27 + 4) bytes in and out, far above
 // the ~295 FLOP/byte where the card stops being memory-bound.
 //
-// What the design does about it: the row-tile layers of pass_tile.cuh, the
-// render pass's (render_pass.cu), with the embedded rows in place of the
-// in-kernel PE. A block takes a tile of consecutive rows (128 on tensor
-// cores in bf16, 64 on FFMA in fp32); rows past n are computed on zeros and
-// never stored, so nothing is padded. The tile's direct inputs sit in E (x,
-// then the extra feature once the trunk is done) and its activations in H,
-// both in shared memory; the weights (~0.6M NeRF values) stream from L2,
-// in bf16 as 64-deep slices staged with cp.async and shared by the block.
+// What the design does about it: a block takes a tile of consecutive rows
+// (128) and carries them through the whole MLP with the tile's direct
+// inputs in E (x, then the extra feature once the trunk is done) and its
+// activations in H, both in shared memory; the weights (~0.6M NeRF values)
+// stream from L2. Rows past n are computed on zeros and never stored, so
+// nothing is padded.
+//   NeRF (#8), bf16: the warp-specialised wgmma tile of wg_tile.cuh, the
+//     render pass's (render_pass.cu) on pre-embedded rows: a producer
+//     warpgroup bulk-copies the weight slices packed by the wrapper, two
+//     consumer warpgroups of 64 rows run the layers on the tensor cores,
+//     the sigma dot fused into the last trunk layer.
+//   NeRF (#8), fp32: the split-TF32 product of row_tile.cuh (the training
+//     forward #1's) on the 128-row tile, the `dir` extra as a second term
+//     of the extra layer, the sigma row an fp32 dot.
+//   NoF (#9): the row-tile layers of pass_tile.cuh, 128 rows on mma.sync
+//     in bf16 (64-deep weight slices staged with cp.async and shared by the
+//     block), 64 rows on an FFMA loop in fp32.
 
-#include "pass_tile.cuh"
+#include "row_tile.cuh"
+#include "wg_tile.cuh"
 
 namespace {
 
@@ -56,7 +66,7 @@ struct NerfArgs {
   const float* extra;     // (n, ke) per-sample extra feature, or null
   float* out;             // (n, 4) [rgb, sigma] or (n, 1)
   Lin layer[kMaxDepth];
-  Lin sigma, fin, ext, rgb;
+  Lin sigma, fin, ext, rgb;   // sigma.wh: the (W,) fp32 row
 };
 
 struct NofArgs {
@@ -74,7 +84,7 @@ __device__ __forceinline__ const bf16* wbf(const void* p) {
 }
 
 // ===========================================================================
-// bf16: tensor cores
+// NoF (#9), bf16: tensor cores
 // ===========================================================================
 
 // rows [row0, row0 + 128) of an (n, k) fp32 matrix into row-major E, rounded
@@ -123,30 +133,6 @@ __device__ void mma_trunk(const MmaCtx& c, const Lin* layers, int depth,
 }
 
 __global__ void __launch_bounds__(kMmaThreads, 1)
-nerf_mma_kernel(const NerfArgs a, int e_ld, int h_ld) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  MmaCtx c = mma_ctx(smem, e_ld, h_ld, a.n);
-  const int w = a.width;
-  const int od = a.sigma_only ? 1 : 4;
-  c.sigma = a.out + od - 1;
-  c.rgb = a.out;
-  c.out_rs = od;
-  c.rgb_cs = 1;
-  mma_load(c, a.x, a.kx);
-  mma_trunk(c, a.layer, a.depth, a.kx, w);
-  mma_layer(c, nullptr, 0, wbf(a.sigma.wh), w, 1, a.sigma.b, nullptr,
-            kSigma);
-  if (a.sigma_only) return;
-  mma_layer(c, nullptr, 0, wbf(a.fin.wh), w, w, a.fin.b, nullptr,
-            kLinear);
-  if (a.ke) mma_load(c, a.extra, a.ke);  // the trunk is done with x
-  mma_layer(c, wbf(a.ext.wpe), a.ke, wbf(a.ext.wh), w, a.n_ext,
-            a.ext.b, nullptr, kReluPartialFirst);
-  mma_layer(c, nullptr, 0, wbf(a.rgb.wh), a.n_ext, 3, a.rgb.b, nullptr,
-            kRgb);
-}
-
-__global__ void __launch_bounds__(kMmaThreads, 1)
 nof_mma_kernel(const NofArgs a, int e_ld, int h_ld) {
   extern __shared__ __align__(16) unsigned char smem[];
   const MmaCtx c = mma_ctx(smem, e_ld, h_ld, a.n);
@@ -165,7 +151,126 @@ nof_mma_kernel(const NofArgs a, int e_ld, int h_ld) {
 }
 
 // ===========================================================================
-// fp32: FFMA
+// NeRF (#8), bf16: the wgmma tile
+// ===========================================================================
+
+struct NerfWgArgs {
+  int64_t n;
+  int kx, ke, sigma_only, depth;
+  const float* x;
+  const float* extra;
+  float* out;
+  const float* wsig;      // (W,) fp32
+  const float* bsig;
+  int n_layers, stages, h_blocks, e_blocks;
+  wg::Layer layers[kMaxDepth + 3];   // trunk, final, extra, rgb
+};
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+nerf_wg_kernel(const __grid_constant__ NerfWgArgs a) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  wg::Ctx c;
+  wg::setup(c, wg_smem, a.stages, a.h_blocks, a.e_blocks, 0);
+  const int64_t n_tiles = (a.n + wg::kRows - 1) / wg::kRows;
+  if (threadIdx.x < 128) {
+    wg::producer(c, a.layers, a.n_layers, n_tiles);
+  } else {
+    wg::consumer(c, a.h_blocks, a.e_blocks);
+    const int od = a.sigma_only ? 1 : 4;
+    c.total = static_cast<int>(a.n);
+    c.s = 1;
+    c.sigma = a.out + od - 1;
+    c.sig_rs = od;
+    c.rgb = a.out;
+    c.rgb_cs = 1;
+    c.rgb_rs = 4;
+    c.wsig = a.wsig;
+    c.bsig = a.bsig;
+    for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      c.row0 = static_cast<int>(tile * wg::kRows);
+      wg::load_rows(c, c.E, a.x, a.kx);
+      // the trunk, then unless sigma_only final, extra (on the extra rows,
+      // loaded once the trunk is done with x) and rgb
+      for (int l = 0; l < a.n_layers; ++l) {
+        if (l == a.depth + 1 && a.ke) wg::load_rows(c, c.E, a.extra, a.ke);
+        wg::run(c, a.layers[l]);
+      }
+    }
+  }
+}
+
+// ===========================================================================
+// NeRF (#8), fp32: the split-TF32 product
+// ===========================================================================
+
+// the tile's rows [row0, row0 + 128) of an (n, k) matrix into row-major E
+// (row stride e_ld), zeros to column pad16(k) and in the rows past n; ends
+// with a barrier
+__device__ void tf32_load(float* E, int e_ld, const float* src, int k,
+                          int64_t row0, int64_t n) {
+  const int kp = pad16(k);
+  for (int i = threadIdx.x; i < kRT * kp; i += kRTThreads) {
+    const int r = i / kp, j = i % kp;
+    E[r * e_ld + j] = j < k && row0 + r < n ? src[(row0 + r) * k + j] : 0.f;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kRTThreads, 1)
+nerf_tf32_kernel(const NerfArgs a, int e_ld, int h_ld) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Ws = reinterpret_cast<float*>(smem);  // the staged weight slices
+  float* E = Ws + 2 * kKs * kWsLdF;            // [kRT][e_ld]
+  float* H = E + kRT * e_ld;                   // [kRT][h_ld]
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRT;
+  const int w = a.width, od = a.sigma_only ? 1 : 4;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  tf32_load(E, e_ld, a.x, a.kx, row0, a.n);
+  for (int l = 0; l < a.depth; ++l) {
+    const Lin& L = a.layer[l];
+    rt_mm(Ws, Term<float>{E, e_ld, f(L.wpe), L.wpe ? a.kx : 0},
+          Term<float>{H, h_ld, f(L.wh), L.wh ? w : 0}, w,
+          [&](int r, int c, float v0, float v1) {
+            st2(H + r * h_ld + c, fmaxf(__fadd_rn(v0, L.b[c]), 0.f),
+                fmaxf(__fadd_rn(v1, L.b[c + 1]), 0.f));
+          });
+  }
+  {  // sigma = h . wsig + bsig in fp32, four threads a row; `final`
+     // overwrites H only after the barriers of its product
+    const float* wsig = f(a.sigma.wh);
+    const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
+    float acc = 0.f;
+    for (int c = q; c < w; c += 4) acc = fmaf(H[r * h_ld + c], wsig[c], acc);
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 1));
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 2));
+    const int64_t gi = row0 + r;
+    if (q == 0 && gi < a.n)
+      a.out[gi * od + od - 1] = __fadd_rn(acc, a.sigma.b[0]);
+  }
+  if (a.sigma_only) return;
+  rt_mm(Ws, Term<float>{H, h_ld, f(a.fin.wh), w}, no_term<float>(), w,
+        [&](int r, int c, float v0, float v1) {
+          st2(H + r * h_ld + c, __fadd_rn(v0, a.fin.b[c]),
+              __fadd_rn(v1, a.fin.b[c + 1]));
+        });
+  if (a.ke) tf32_load(E, e_ld, a.extra, a.ke, row0, a.n);
+  rt_mm(Ws, Term<float>{H, h_ld, f(a.ext.wh), w},
+        Term<float>{E, e_ld, f(a.ext.wpe), a.ke}, a.n_ext,
+        [&](int r, int c, float v0, float v1) {
+          st2(H + r * h_ld + c, fmaxf(__fadd_rn(v0, a.ext.b[c]), 0.f),
+              fmaxf(__fadd_rn(v1, a.ext.b[c + 1]), 0.f));
+        });
+  rt_mm(Ws, Term<float>{H, h_ld, f(a.rgb.wh), a.n_ext}, no_term<float>(), 3,
+        [&](int r, int c, float v0, float v1) {
+          const int64_t gi = row0 + r;
+          const float v[2] = {v0, v1};
+          for (int e = 0; e < 2 && c + e < 3 && gi < a.n; ++e)
+            a.out[gi * 4 + c + e] = sigmoid(__fadd_rn(v[e], a.rgb.b[c + e]));
+        });
+}
+
+// ===========================================================================
+// NoF (#9), fp32: FFMA
 // ===========================================================================
 
 // the warp's 8 rows [row0, row0 + 8) of an (n, k) matrix into K-major E
@@ -186,45 +291,6 @@ __device__ void ffma_trunk(float* H, const float* E, const Lin* layers,
     const Lin& L = layers[l];
     layer(H, E, k_in, L.wpe, L.wh, width, L.b, nullptr, width, nullptr,
           kPartialFirst, lane);
-  }
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
-nerf_ffma_kernel(const NerfArgs a, int e_rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* E = reinterpret_cast<float*>(smem);   // [e_rows][kLda]
-  float* H = E + e_rows * kLda;                // [width][kLda]
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * kRows;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kTile + r0;
-  if (row0 >= a.n) return;  // no block barrier below: warps are independent
-  const int w = a.width;
-  const int od = a.sigma_only ? 1 : 4;
-  ffma_load(E + r0, a.x, row0, a.n, a.kx, lane);
-  ffma_trunk(H + r0, E + r0, a.layer, a.depth, a.kx, w, lane);
-  float out[kRows];
-  head(out, H + r0, w, a.sigma.wh, 1, lane);
-  if (lane == 0) {
-    const float bias = a.sigma.b[0];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      if (row0 + i < a.n)
-        a.out[(row0 + i) * od + od - 1] = __fadd_rn(out[i], bias);
-  }
-  if (a.sigma_only) return;
-  __syncwarp();  // the sigma head has read H before `final` overwrites it
-  layer(H + r0, E + r0, 0, nullptr, a.fin.wh, w, a.fin.b, nullptr, w,
-        nullptr, kNoRelu, lane);
-  if (a.ke) ffma_load(E + r0, a.extra, row0, a.n, a.ke, lane);
-  layer(H + r0, E + r0, a.ke, a.ext.wpe, a.ext.wh, w, a.ext.b, nullptr,
-        a.n_ext, nullptr, kPartialFirst, lane);
-  head(out, H + r0, a.n_ext, a.rgb.wh, 3, lane);
-  if (lane < 3) {
-    const float bias = a.rgb.b[lane];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      if (row0 + i < a.n)
-        a.out[(row0 + i) * 4 + lane] = sigmoid(__fadd_rn(out[i], bias));
   }
 }
 
@@ -309,9 +375,10 @@ int decode_nerf(const int64_t* p, int n, NerfArgs* a, int* dtype) {
   read_lin(rd, &a->fin);
   read_lin(rd, &a->ext);
   read_lin(rd, &a->rgb);
-  if (!shape_ok(a->depth, a->width) || a->kx < 1 || a->kx > kMaxWidth ||
-      a->ke < 0 || a->ke > kMaxWidth ||
-      (!a->sigma_only && (a->n_ext < 1 || a->n_ext > kMaxWidth)))
+  if (!shape_ok(a->depth, a->width) || a->width % 2 || a->kx < 1 ||
+      a->kx > kMaxWidth || a->ke < 0 || a->ke > kMaxWidth ||
+      (!a->sigma_only &&
+       (a->n_ext < 2 || a->n_ext > kMaxWidth || a->n_ext % 2)))
     return -2;
   return 0;
 }
@@ -354,6 +421,63 @@ int launch_mma(Kernel kernel, const Args& a, int e_cols, int width,
                 e_ld, h_ld);
 }
 
+// #8 in bf16: the layer list of the wgmma tile, the ring's depth, launch
+int launch_nerf_wg(const NerfArgs& a, int e_cols, cudaStream_t s) {
+  if (a.n > wg::kMaxRows) return -2;
+  NerfWgArgs w{};
+  w.n = a.n;
+  w.kx = a.kx;
+  w.ke = a.ke;
+  w.sigma_only = a.sigma_only;
+  w.depth = a.depth;
+  w.x = a.x;
+  w.extra = a.extra;
+  w.out = a.out;
+  w.wsig = static_cast<const float*>(a.sigma.wh);
+  w.bsig = a.sigma.b;
+  int n = 0;
+  auto add = [&](const Lin& L, int k_e, int k_h, int n_out, int ep,
+                 bool h_first) {
+    wg::Layer& d = w.layers[n++];
+    d = wg::Layer{};
+    const bf16* img[2] = {static_cast<const bf16*>(L.wpe),
+                          static_cast<const bf16*>(L.wh)};
+    const int src[2] = {0, 1}, k[2] = {L.wpe ? k_e : 0, L.wh ? k_h : 0};
+    for (int t = 0; t < 2; ++t) {
+      const int u = h_first ? 1 - t : t;
+      d.img[t] = img[u];
+      d.src[t] = src[u];
+      d.k[t] = k[u];
+    }
+    d.n = n_out;
+    d.n_pad = wg::width_of(n_out);
+    d.ep = ep;
+    d.bias = L.b;
+  };
+  for (int l = 0; l < a.depth; ++l)
+    add(a.layer[l], a.kx, a.width, a.width, wg::kRelu, false);
+  w.layers[n - 1].sigma = 1;
+  if (!a.sigma_only) {
+    add(a.fin, 0, a.width, a.width, wg::kLinear, false);
+    add(a.ext, a.ke, a.width, a.n_ext, wg::kRelu, true);
+    add(a.rgb, 0, a.n_ext, 3, wg::kRgb, false);
+  }
+  w.n_layers = n;
+  const int h_max = wg::width_of(a.width) > wg::width_of(a.n_ext)
+                        ? wg::width_of(a.width)
+                        : wg::width_of(a.n_ext);
+  w.h_blocks = (h_max + 63) / 64;
+  w.e_blocks = (e_cols + 63) / 64;
+  const size_t fixed = wg::smem_bytes(0, w.h_blocks, w.e_blocks, 0);
+  w.stages = static_cast<int>((kMaxSmem - fixed) / wg::kStageBytes);
+  if (w.stages > wg::kMaxStages) w.stages = wg::kMaxStages;
+  if (w.stages < 2) return -3;
+  return launch(nerf_wg_kernel,
+                wg::smem_bytes(w.stages, w.h_blocks, w.e_blocks, 0),
+                wg::grid_of((a.n + wg::kRows - 1) / wg::kRows), wg::kThreads,
+                s, w);
+}
+
 template <typename Args, typename Kernel>
 int launch_ffma(Kernel kernel, const Args& a, size_t head_floats, int e_rows,
                 int width, cudaStream_t s) {
@@ -373,9 +497,14 @@ extern "C" int fused_mlp_nerf_launch(const int64_t* p, int n, void* stream) {
   if (a.n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int e_cols = a.kx > a.ke ? a.kx : a.ke;
-  if (dtype == 1)
-    return launch_mma(nerf_mma_kernel, a, e_cols, a.width, s);
-  return launch_ffma(nerf_ffma_kernel, a, 0, e_cols, a.width, s);
+  if (dtype == 1) return launch_nerf_wg(a, e_cols, s);
+  const int e_ld = tile_ld<float>(e_cols), h_ld = tile_ld<float>(a.width);
+  const size_t smem = (2 * kKs * kWsLdF +
+                       static_cast<size_t>(kRT) * (e_ld + h_ld)) *
+                      sizeof(float);
+  const unsigned blocks = static_cast<unsigned>((a.n + kRT - 1) / kRT);
+  return launch(nerf_tf32_kernel, smem, blocks, kRTThreads, s, a, e_ld,
+                h_ld);
 }
 
 extern "C" int fused_mlp_nof_launch(const int64_t* p, int n, void* stream) {
@@ -394,7 +523,8 @@ extern "C" const char* fused_mlp_error(int code) {
   switch (code) {
     case -1: return "wrong argument count";
     case -2: return "unsupported network shape (depth 1..8, width 2..256, "
-                    "inputs 1..256, NoF head 9 or 3 outputs)";
+                    "even for the NeRF, as its extra layer's, inputs "
+                    "1..256, NoF head 9 or 3 outputs)";
     case -3: return "a tile exceeds the 227 KB of shared memory";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

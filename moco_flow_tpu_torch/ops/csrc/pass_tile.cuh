@@ -1,7 +1,9 @@
-// Row-tile building blocks of the forward MLP kernels (render_pass.cu,
-// fused_mlp.cu): a block carries a tile of sample rows through an MLP with
-// every activation in shared memory, updated in place layer by layer, while
-// the weights stream from L2.
+// Row-tile building blocks of the per-op NoF kernel #9 (fused_mlp.cu): a
+// block carries a tile of sample rows through an MLP with every activation
+// in shared memory, updated in place layer by layer, while the weights
+// stream from L2. The helpers (pad16, the quaternion head, sigmoid, the
+// launcher, the mma.sync and cp.async wrappers) also serve row_tile.cuh and
+// wg_tile.cuh.
 //
 // - bf16 (mma_layer): tensor cores. A block of 16 warps takes 128 rows; each
 //   warp owns 16 rows and one half of a layer's output columns and runs

@@ -8,10 +8,6 @@
 // order of _nerf_tile (trunk, sigma head, final, extra + per-ray partial,
 // sigmoid rgb head), and writes sigma (N, S) and rgb (3, N, S), fp32.
 //
-// The positions may also come from an xyz (3, N*S) input. No caller passes
-// one: the NeRF forward of the training step (_nerf_fwd_call), which read
-// it, is nerf_rays.cu's kernel #1.
-//
 // What bounds it on this card: compute. At full width (NeRF 8x256, NoF
 // 4x128) a fine sample costs about 0.65M multiply-adds (0.59M in the NeRF,
 // 0.06M in the NoF), about 1.3 MFLOP, against 4 bytes of depth read and
@@ -19,17 +15,20 @@
 // far above the ~295 FLOP/byte at which the card stops being memory-bound.
 //
 // What the design does about it: no activation ever goes to device memory.
-// A block carries a tile of consecutive (ray, sample) rows through all ~13
-// layers with the activations in shared memory, updated in place layer by
-// layer. The weights (~1.2 MB in bf16) do not fit in shared memory; they stay
-// resident in the 50 MB L2 and stream through. Rays are never padded: rows
-// past N*S are computed on zeros and never stored.
-//
-// Two kernels, one per storage type, on the row-tile layers of
-// pass_tile.cuh: bf16 on tensor cores (mma_layer, 128 rows a block, weight
-// slices staged with cp.async), fp32 as an FFMA loop (layer / head, 64 rows
-// a block, 8 a warp). The wrapper passes every bf16 weight transposed and
-// zero-padded to multiples of 16.
+// A block carries a tile of 128 consecutive (ray, sample) rows through all
+// ~13 layers with the activations in shared memory, updated in place layer
+// by layer; the weights (~1.2 MB in bf16) stay resident in the 50 MB L2 and
+// stream through in slices. Rays are never padded: rows past N*S are
+// computed on zeros and never stored.
+//   bf16: the warp-specialised wgmma tile (wg_tile.cuh): a producer
+//     warpgroup bulk-copies the weight slices, packed by the wrapper into
+//     their shared-memory image, through a ring of stages; two consumer
+//     warpgroups of 64 rows each run every layer on the tensor cores at
+//     full rate, with the sigma dot fused into the last trunk layer.
+//   fp32: the split-TF32 product of row_tile.cuh (rt_mm with fp32 staging,
+//     the training forwards #1 / #5's): 512 threads on the 128-row tile,
+//     three TF32 products a term on the tensor cores, fp32 accumulation;
+//     the NoF stages as #5's, the NeRF as #1's, the sigma row an fp32 dot.
 //
 // Rounding points follow _nerf_tile/_nof_tile: the PE embedding, hidden
 // activations and the output of `final` are stored in the storage type;
@@ -40,7 +39,8 @@
 // grows 512-fold through the top PE band. sinf/cosf are full precision (no
 // --use_fast_math).
 
-#include "pass_tile.cuh"
+#include "row_tile.cuh"
+#include "wg_tile.cuh"
 
 namespace {
 
@@ -65,225 +65,204 @@ struct Args {
   int sigma_only, has_nof, use_quat;
   const float* od;        // (N, 6) origin | direction
   const float* z;         // (N, S)
-  const float* xyz;       // (3, N*S) positions, or null: xyz = o + d*z
   float* sigma;           // (N, S)
   float* rgb;             // (3, N, S) or null
   Net nof, nerf;
 };
 
-__device__ __forceinline__ float sample_x(const Args& a, int64_t g, int j) {
-  if (a.xyz) return a.xyz[j * a.n_rays * a.s + g];
-  const float* od = a.od + (g / a.s) * 6;
-  return __fadd_rn(od[j], __fmul_rn(od[3 + j], a.z[g]));
-}
-
-// Packed PE of the block's rows into row-major E: [x, sin, cos, zeros to 16].
-__device__ void mma_pe_fill(const MmaCtx& c, const float* bands, int kc) {
-  const int kp = 3 + 2 * kc;
-  for (int idx = c.tid; idx < kMmaRows * kc; idx += kMmaThreads) {
-    const int r = idx % kMmaRows, f3j = idx / kMmaRows;
-    const float v = __fmul_rn(bands[f3j / 3], c.X[(f3j % 3) * kMmaRows + r]);
-    float s, co;
-    sincosf(v, &s, &co);
-    c.E[r * c.e_ld + 3 + f3j] = __float2bfloat16_rn(s);
-    c.E[r * c.e_ld + 3 + kc + f3j] = __float2bfloat16_rn(co);
-  }
-  const int extra = 3 + pad16(kp) - kp;  // x columns, then zero padding
-  for (int idx = c.tid; idx < kMmaRows * extra; idx += kMmaThreads) {
-    const int r = idx % kMmaRows, j = idx / kMmaRows;
-    if (j < 3)
-      c.E[r * c.e_ld + j] = __float2bfloat16_rn(c.X[j * kMmaRows + r]);
-    else
-      c.E[r * c.e_ld + kp + j - 3] = __float2bfloat16_rn(0.f);
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kMmaThreads, 1)
-render_pass_mma_kernel(const Args a, int e_ld, int h_ld) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  MmaCtx c;
-  c.X = reinterpret_cast<float*>(smem);
-  c.O = c.X + 3 * kMmaRows;
-  c.Ws = reinterpret_cast<bf16*>(c.O + kMaxHeadOut * kMmaRows);
-  c.E = c.Ws + 2 * kMaxWidth * kWsLd;
-  c.H = c.E + kMmaRows * e_ld;
-  c.e_ld = e_ld;
-  c.h_ld = h_ld;
-  c.tid = threadIdx.x;
-  c.lane = threadIdx.x & 31;
-  c.warp_m = (threadIdx.x >> 5) & 7;
-  c.warp_n = threadIdx.x >> 8;
-  c.total = a.n_rays * a.s;
-  c.row0 = static_cast<int64_t>(blockIdx.x) * kMmaRows;
-  c.sigma = a.sigma;
-  c.rgb = a.rgb;
-  c.out_rs = 1;
-  c.rgb_cs = c.total;
-  for (int hh = 0; hh < 2; ++hh) {
-    int64_t gi = c.row0 + c.warp_m * 16 + (c.lane >> 2) + 8 * hh;
-    c.ray[hh] = (gi < c.total ? gi : c.total - 1) / a.s;
-  }
-
-  if (c.tid < kMmaRows) {   // xyz = o + d * z
-    const int64_t gi = c.row0 + c.tid;
+// X [3][rows] <- xyz = o + d*z of the rows [lo, hi) of the tile from row0
+// (od (N, 6), z (N, S))
+__device__ __forceinline__ void fill_x(const float* od_all, const float* zs,
+                                       int64_t n_rays, int64_t s, float* X,
+                                       int rows, int64_t row0, int lo, int hi,
+                                       int tid, int nt) {
+  const int64_t total = n_rays * s;
+  for (int i = lo + tid; i < hi; i += nt) {
+    const int64_t g = row0 + i;
+    const float* od = od_all + (g < total ? g / s : 0) * 6;
+    const float z = g < total ? zs[g] : 0.f;
     for (int j = 0; j < 3; ++j)
-      c.X[j * kMmaRows + c.tid] = gi < c.total ? sample_x(a, gi, j) : 0.f;
+      X[j * rows + i] =
+          g < total ? __fadd_rn(od[j], __fmul_rn(od[3 + j], z)) : 0.f;
   }
-  __syncthreads();
+}
 
-  if (a.has_nof) {
+// ===========================================================================
+// bf16: the wgmma tile
+// ===========================================================================
+
+struct WgArgs {
+  int64_t n_rays, s;
+  int has_nof, use_quat, nof_kc, nerf_kc;
+  const float* od;
+  const float* z;
+  const float* nof_bands;
+  const float* nerf_bands;
+  const float* wsig;      // (W,) fp32
+  const float* bsig;
+  float* sigma;
+  float* rgb;
+  int n_layers, n_nof, stages, h_blocks, e_blocks;
+  wg::Layer layers[wg::kMaxLayers];
+};
+
+constexpr size_t kWgTail = (3 + wg::kHeadLd) * wg::kRows * sizeof(float);
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+render_pass_wg_kernel(const __grid_constant__ WgArgs w) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  wg::Ctx c;
+  wg::setup(c, wg_smem, w.stages, w.h_blocks, w.e_blocks, kWgTail);
+  const int64_t n_tiles = (w.n_rays * w.s + wg::kRows - 1) / wg::kRows;
+  if (threadIdx.x < 128) {
+    wg::producer(c, w.layers, w.n_layers, n_tiles);
+  } else {
+    wg::consumer(c, w.h_blocks, w.e_blocks);
+    c.total = static_cast<int>(w.n_rays * w.s);
+    c.s = static_cast<int>(w.s);
+    c.sigma = w.sigma;
+    c.sig_rs = 1;
+    c.rgb = w.rgb;
+    c.rgb_cs = c.total;
+    c.rgb_rs = 1;
+    c.wsig = w.wsig;
+    c.bsig = w.bsig;
+    const int r0 = 64 * c.wgi;
+    for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      c.row0 = static_cast<int>(tile * wg::kRows);
+      fill_x(w.od, w.z, w.n_rays, w.s, c.X, wg::kRows, c.row0, r0, r0 + 64,
+             c.tid, 128);
+      wg::wg_sync(c.wgi);
+      if (w.has_nof) wg::pe_fill(c, w.nof_bands, w.nof_kc);
+      else wg::pe_fill(c, w.nerf_bands, w.nerf_kc);
+      for (int l = 0; l < w.n_layers; ++l) {
+        if (w.has_nof && l == w.n_nof) {   // the warp, then the NeRF's PE
+          if (c.tid < 64) {
+            const int r = r0 + c.tid;
+            float x[3];
+            for (int j = 0; j < 3; ++j) x[j] = c.X[j * wg::kRows + r];
+            nof_head_apply(c.O + r * wg::kHeadLd, w.use_quat, x);
+            for (int j = 0; j < 3; ++j) c.X[j * wg::kRows + r] = x[j];
+          }
+          wg::wg_sync(c.wgi);
+          wg::pe_fill(c, w.nerf_bands, w.nerf_kc);
+        }
+        wg::run(c, w.layers[l]);
+      }
+    }
+  }
+}
+
+// ===========================================================================
+// fp32: the split-TF32 product
+// ===========================================================================
+
+__global__ void __launch_bounds__(kRTThreads, 1)
+render_pass_tf32_kernel(const Args a, int e_ld, int h_ld) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* X = reinterpret_cast<float*>(smem);   // [3][kRT] positions
+  float* O = X + 3 * kRT;                      // [kRT][kMaxHeadOut]
+  float* Ws = O + kRT * kMaxHeadOut;           // the staged weight slices
+  float* E = Ws + 2 * kKs * kWsLdF;            // [kRT][e_ld]
+  float* H = E + kRT * e_ld;                   // [kRT][h_ld]
+  const int64_t total = a.n_rays * a.s;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRT;
+  auto ray_of = [&](int r) {
+    const int64_t g = row0 + r;
+    return (g < total ? g : total - 1) / a.s;
+  };
+  fill_x(a.od, a.z, a.n_rays, a.s, X, kRT, row0, 0, kRT, threadIdx.x,
+         kRTThreads);
+  __syncthreads();
+  if (a.has_nof) {   // #5's bw stage
     const Net& n = a.nof;
-    mma_pe_fill(c, n.bands, n.kc);
+    const int W = n.width, kp = 3 + 2 * n.kc;
+    rt_pe_fill<float>(E, e_ld, X, n.bands, n.kc);
     for (int l = 0; l < n.depth; ++l) {
       const Layer& L = n.layer[l];
-      mma_layer(c, static_cast<const bf16*>(L.wpe), 3 + 2 * n.kc,
-                static_cast<const bf16*>(L.wh), n.width, n.width, L.b,
-                L.partial, kReluPartialFirst);
+      rt_mm(Ws,
+            Term<float>{E, e_ld, static_cast<const float*>(L.wpe),
+                        L.wpe ? kp : 0},
+            Term<float>{H, h_ld, static_cast<const float*>(L.wh),
+                        L.wh ? W : 0},
+            W, [&](int r, int c, float v0, float v1) {
+              float z[2] = {v0, v1};
+              if (L.partial)
+                for (int e = 0; e < 2; ++e)
+                  z[e] = __fadd_rn(z[e], L.partial[ray_of(r) * W + c + e]);
+              st2(H + r * h_ld + c, fmaxf(__fadd_rn(z[0], L.b[c]), 0.f),
+                  fmaxf(__fadd_rn(z[1], L.b[c + 1]), 0.f));
+            });
     }
     const int n_out = static_cast<int>(reinterpret_cast<intptr_t>(n.h[2]));
-    mma_layer(c, nullptr, 0, static_cast<const bf16*>(n.h[0]), n.width,
-              n_out, static_cast<const float*>(n.h[1]), nullptr, kHeadO);
-    if (c.tid < kMmaRows) {
-      float o[9], x[3];
-      for (int q = 0; q < n_out; ++q) o[q] = c.O[q * kMmaRows + c.tid];
-      for (int j = 0; j < 3; ++j) x[j] = c.X[j * kMmaRows + c.tid];
-      nof_head_apply(o, a.use_quat, x);
-      for (int j = 0; j < 3; ++j) c.X[j * kMmaRows + c.tid] = x[j];
+    const float* hb = static_cast<const float*>(n.h[1]);
+    rt_mm(Ws, Term<float>{H, h_ld, static_cast<const float*>(n.h[0]), W},
+          no_term<float>(), n_out, [&](int r, int c, float v0, float v1) {
+            O[r * kMaxHeadOut + c] = __fadd_rn(v0, hb[c]);
+            if (c + 1 < n_out)
+              O[r * kMaxHeadOut + c + 1] = __fadd_rn(v1, hb[c + 1]);
+          });
+    for (int r = threadIdx.x; r < kRT; r += kRTThreads) {
+      float x[3];
+      for (int j = 0; j < 3; ++j) x[j] = X[j * kRT + r];
+      nof_head_apply(O + r * kMaxHeadOut, a.use_quat, x);
+      for (int j = 0; j < 3; ++j) X[j * kRT + r] = x[j];
     }
     __syncthreads();
   }
-
+  // #1's NeRF
   const Net& n = a.nerf;
-  const int w = n.width;
-  mma_pe_fill(c, n.bands, n.kc);
+  const int W = n.width, W2 = W / 2, kp = 3 + 2 * n.kc;
+  rt_pe_fill<float>(E, e_ld, X, n.bands, n.kc);
   for (int l = 0; l < n.depth; ++l) {
     const Layer& L = n.layer[l];
-    mma_layer(c, static_cast<const bf16*>(L.wpe), 3 + 2 * n.kc,
-              static_cast<const bf16*>(L.wh), w, w, L.b, nullptr,
-              kReluPartialFirst);
+    rt_mm(Ws,
+          Term<float>{E, e_ld, static_cast<const float*>(L.wpe),
+                      L.wpe ? kp : 0},
+          Term<float>{H, h_ld, static_cast<const float*>(L.wh),
+                      L.wh ? W : 0},
+          W, [&](int r, int c, float v0, float v1) {
+            st2(H + r * h_ld + c, fmaxf(__fadd_rn(v0, L.b[c]), 0.f),
+                fmaxf(__fadd_rn(v1, L.b[c + 1]), 0.f));
+          });
   }
-  mma_layer(c, nullptr, 0, static_cast<const bf16*>(n.h[0]), w, 1,
-            static_cast<const float*>(n.h[1]), nullptr, kSigma);
-  if (a.sigma_only) return;
-  mma_layer(c, nullptr, 0, static_cast<const bf16*>(n.h[2]), w, w,
-            static_cast<const float*>(n.h[3]), nullptr, kLinear);
-  mma_layer(c, nullptr, 0, static_cast<const bf16*>(n.h[4]), w, w / 2,
-            static_cast<const float*>(n.h[5]),
-            static_cast<const float*>(n.h[6]), kReluBiasFirst);
-  mma_layer(c, nullptr, 0, static_cast<const bf16*>(n.h[7]), w / 2, 3,
-            static_cast<const float*>(n.h[8]), nullptr, kRgb);
-}
-
-
-// Packed PE of the warp's rows: E[0:3] = x, E[3:3+kc] = sin, then cos, with
-// column f*3+j = bands[f] * x_j (frequency-major).
-__device__ void pe_fill(float* E, const float* X, int r0, const float* bands,
-                        int kc, int lane) {
-  if (lane < 3 * kRows) {
-    const int j = lane / kRows, i = lane % kRows;
-    E[j * kLda + r0 + i] = X[j * kTile + r0 + i];
-  }
-  for (int idx = lane; idx < kc * kRows; idx += 32) {
-    const int f3j = idx / kRows, i = idx % kRows;
-    const float v = __fmul_rn(bands[f3j / 3], X[(f3j % 3) * kTile + r0 + i]);
-    float s, c;
-    sincosf(v, &s, &c);
-    E[(3 + f3j) * kLda + r0 + i] = s;
-    E[(3 + kc + f3j) * kLda + r0 + i] = c;
-  }
-  __syncwarp();
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
-render_pass_kernel(const Args a, int kp_max) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* X = reinterpret_cast<float*>(smem);   // [3][kTile] positions
-  float* O = X + 3 * kTile;                    // [kMaxHeadOut][kTile]
-  float* E = O + kMaxHeadOut * kTile;          // [kp_max][kLda]
-  float* H = E + kp_max * kLda;                // [w_max][kLda]
-
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * kRows;
-  const int64_t total = a.n_rays * a.s;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kTile + r0;
-  if (row0 >= total) return;  // no block barrier below: warps are independent
-
-  int64_t ray[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int64_t g = row0 + i < total ? row0 + i : total - 1;
-    ray[i] = g / a.s;
-  }
-  if (lane < kRows) {   // xyz = o + d * z
-    const int64_t g = row0 + lane;
-    for (int j = 0; j < 3; ++j)
-      X[j * kTile + r0 + lane] = g < total ? sample_x(a, g, j) : 0.f;
-  }
-  __syncwarp();
-
-  if (a.has_nof) {
-    const Net& n = a.nof;
-    const int kp = 3 + 2 * n.kc;
-    pe_fill(E, X, r0, n.bands, n.kc, lane);
-    for (int l = 0; l < n.depth; ++l) {
-      const Layer& L = n.layer[l];
-      layer(H + r0, E + r0, kp, L.wpe, L.wh, n.width, L.b, L.partial,
-            n.width, ray, kPartialFirst, lane);
-    }
-    const int n_out = static_cast<int>(reinterpret_cast<intptr_t>(n.h[2]));
-    float out[kRows];
-    head(out, H + r0, n.width, n.h[0], n_out, lane);
-    if (lane < n_out) {
-      const float bias = static_cast<const float*>(n.h[1])[lane];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        O[lane * kTile + r0 + i] = __fadd_rn(out[i], bias);
-    }
-    __syncwarp();
-    if (lane < kRows) {
-      const int r = r0 + lane;
-      float x[3], o[9];
-      for (int j = 0; j < 3; ++j) x[j] = X[j * kTile + r];
-      for (int q = 0; q < n_out; ++q) o[q] = O[q * kTile + r];
-      nof_head_apply(o, a.use_quat, x);
-      for (int j = 0; j < 3; ++j) X[j * kTile + r] = x[j];
-    }
-    __syncwarp();
-  }
-
-  const Net& n = a.nerf;
-  const int kp = 3 + 2 * n.kc;
-  const int w = n.width;
-  pe_fill(E, X, r0, n.bands, n.kc, lane);
-  for (int l = 0; l < n.depth; ++l) {
-    const Layer& L = n.layer[l];
-    layer(H + r0, E + r0, kp, L.wpe, L.wh, w, L.b, nullptr, w, ray,
-          kPartialFirst, lane);
-  }
-  float out[kRows];
-  head(out, H + r0, w, n.h[0], 1, lane);          // sigma
-  if (lane == 0) {
-    const float bias = static_cast<const float*>(n.h[1])[0];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      if (row0 + i < total) a.sigma[row0 + i] = __fadd_rn(out[i], bias);
+  {  // sigma = h . wsig + bsig in fp32, four threads a row; `final`
+     // overwrites H only after the barriers of its product
+    const float* wsig = static_cast<const float*>(n.h[0]);
+    const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
+    float acc = 0.f;
+    for (int c = q; c < W; c += 4) acc = fmaf(H[r * h_ld + c], wsig[c], acc);
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 1));
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 2));
+    const int64_t gi = row0 + r;
+    if (q == 0 && gi < total)
+      a.sigma[gi] = __fadd_rn(acc, static_cast<const float*>(n.h[1])[0]);
   }
   if (a.sigma_only) return;
-  __syncwarp();  // the sigma head has read H before `final` overwrites it
-  layer(H + r0, E + r0, 0, nullptr, n.h[2], w,
-        static_cast<const float*>(n.h[3]), nullptr, w, ray, kNoRelu, lane);
-  layer(H + r0, E + r0, 0, nullptr, n.h[4], w,
-        static_cast<const float*>(n.h[5]), static_cast<const float*>(n.h[6]),
-        w / 2, ray, kBiasFirst, lane);
-  head(out, H + r0, w / 2, n.h[7], 3, lane);      // rgb
-  if (lane < 3) {
-    const float bias = static_cast<const float*>(n.h[8])[lane];
-    float* dst = a.rgb + static_cast<int64_t>(lane) * total;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      if (row0 + i < total) dst[row0 + i] = sigmoid(__fadd_rn(out[i], bias));
-  }
+  const float* bf = static_cast<const float*>(n.h[3]);
+  rt_mm(Ws, Term<float>{H, h_ld, static_cast<const float*>(n.h[2]), W},
+        no_term<float>(), W, [&](int r, int c, float v0, float v1) {
+          st2(H + r * h_ld + c, __fadd_rn(v0, bf[c]),
+              __fadd_rn(v1, bf[c + 1]));
+        });
+  const float* be = static_cast<const float*>(n.h[5]);
+  const float* pe = static_cast<const float*>(n.h[6]);
+  rt_mm(Ws, Term<float>{H, h_ld, static_cast<const float*>(n.h[4]), W},
+        no_term<float>(), W2, [&](int r, int c, float v0, float v1) {
+          float z[2] = {__fadd_rn(v0, be[c]), __fadd_rn(v1, be[c + 1])};
+          if (pe)
+            for (int e = 0; e < 2; ++e)
+              z[e] = __fadd_rn(z[e], pe[ray_of(r) * W2 + c + e]);
+          st2(H + r * h_ld + c, fmaxf(z[0], 0.f), fmaxf(z[1], 0.f));
+        });
+  const float* br = static_cast<const float*>(n.h[8]);
+  rt_mm(Ws, Term<float>{H, h_ld, static_cast<const float*>(n.h[7]), W2},
+        no_term<float>(), 3, [&](int r, int c, float v0, float v1) {
+          const int64_t gi = row0 + r;
+          const float v[2] = {v0, v1};
+          for (int e = 0; e < 2 && c + e < 3 && gi < total; ++e)
+            a.rgb[(c + e) * total + gi] = sigmoid(__fadd_rn(v[e], br[c + e]));
+        });
 }
 
 // ===========================================================================
@@ -307,23 +286,108 @@ void decode_net(const int64_t* p, Net* n) {
   for (int i = 0; i < 12; ++i) n->h[i] = P(p[4 + 4 * kMaxLayers + i]);
 }
 
+const bf16* B(const void* p) { return static_cast<const bf16*>(p); }
+
+// a wg::Layer of one or two terms (img, src: 0 E / 1 H, k)
+wg::Layer wg_layer(const bf16* i0, int s0, int k0, const bf16* i1, int s1,
+                   int k1, int n, int ep, const float* bias,
+                   const float* partial) {
+  wg::Layer L{};
+  L.img[0] = i0;
+  L.src[0] = s0;
+  L.k[0] = i0 ? k0 : 0;
+  L.img[1] = i1;
+  L.src[1] = s1;
+  L.k[1] = i1 ? k1 : 0;
+  L.n = n;
+  L.n_pad = wg::width_of(n);
+  L.ep = ep;
+  L.bias = bias;
+  L.partial = partial;
+  return L;
+}
+
+int launch_wg(const Args& a, cudaStream_t s) {
+  if (a.n_rays * a.s > wg::kMaxRows) return -2;
+  WgArgs w{};
+  w.n_rays = a.n_rays;
+  w.s = a.s;
+  w.has_nof = a.has_nof;
+  w.use_quat = a.use_quat;
+  w.nof_kc = a.nof.kc;
+  w.nerf_kc = a.nerf.kc;
+  w.od = a.od;
+  w.z = a.z;
+  w.nof_bands = a.nof.bands;
+  w.nerf_bands = a.nerf.bands;
+  w.wsig = static_cast<const float*>(a.nerf.h[0]);
+  w.bsig = static_cast<const float*>(a.nerf.h[1]);
+  w.sigma = a.sigma;
+  w.rgb = a.rgb;
+  int n = 0, h_max = 0, k_e = 0;
+  auto add = [&](const wg::Layer& L) {
+    w.layers[n++] = L;
+    if (L.ep == wg::kRelu || L.ep == wg::kReluBiasFirst || L.ep == wg::kLinear)
+      h_max = L.n_pad > h_max ? L.n_pad : h_max;
+  };
+  auto trunk = [&](const Net& m, bool partials) {
+    const int kp = 3 + 2 * m.kc;
+    k_e = kp > k_e ? kp : k_e;
+    for (int l = 0; l < m.depth; ++l) {
+      const Layer& L = m.layer[l];
+      add(wg_layer(B(L.wpe), 0, kp, B(L.wh), 1, m.width, m.width, wg::kRelu,
+                   L.b, partials ? L.partial : nullptr));
+    }
+  };
+  if (a.has_nof) {
+    const Net& m = a.nof;
+    trunk(m, true);
+    const int n_out = static_cast<int>(reinterpret_cast<intptr_t>(m.h[2]));
+    add(wg_layer(B(m.h[0]), 1, m.width, nullptr, 0, 0, n_out, wg::kHeadO,
+                 static_cast<const float*>(m.h[1]), nullptr));
+    w.n_nof = n;   // the NoF's trunk and head come first
+  }
+  const Net& m = a.nerf;
+  const int W = m.width;
+  trunk(m, false);
+  w.layers[n - 1].sigma = 1;
+  if (!a.sigma_only) {
+    add(wg_layer(B(m.h[2]), 1, W, nullptr, 0, 0, W, wg::kLinear,
+                 static_cast<const float*>(m.h[3]), nullptr));
+    add(wg_layer(B(m.h[4]), 1, W, nullptr, 0, 0, W / 2, wg::kReluBiasFirst,
+                 static_cast<const float*>(m.h[5]),
+                 static_cast<const float*>(m.h[6])));
+    add(wg_layer(B(m.h[7]), 1, W / 2, nullptr, 0, 0, 3, wg::kRgb,
+                 static_cast<const float*>(m.h[8]), nullptr));
+  }
+  w.n_layers = n;
+  w.h_blocks = (h_max + 63) / 64;
+  w.e_blocks = (k_e + 63) / 64;
+  const size_t fixed = wg::smem_bytes(0, w.h_blocks, w.e_blocks, kWgTail);
+  w.stages = static_cast<int>((kMaxSmem - fixed) / wg::kStageBytes);
+  if (w.stages > wg::kMaxStages) w.stages = wg::kMaxStages;
+  if (w.stages < 2) return -3;
+  const int64_t total = a.n_rays * a.s;
+  return launch(render_pass_wg_kernel,
+                wg::smem_bytes(w.stages, w.h_blocks, w.e_blocks, kWgTail),
+                wg::grid_of((total + wg::kRows - 1) / wg::kRows),
+                wg::kThreads, s, w);
+}
 
 }  // namespace
 
-// args (171 int64): dtype (0 float, 1 bf16), n_rays, S, sigma_only, has_nof,
-// use_quat, od, z, sigma, rgb; then the NoF and the NeRF net blocks; then
-// xyz (3, N*S) or 0. With xyz the pass reads the sample positions from it
-// instead of o + d*z (od and z unused): the NeRF forward of the training
-// step (ops/nerf_rays.py, moco_flow_tpu/ops/megakernel.py::_nerf_fwd_call).
-// NoF head slots: w_head (W, 9|3), b_head, head_out.
-// NeRF head slots: w_sigma (W, 1), b_sigma, w_final, b_final, w_extra
+// args (170 int64): dtype (0 float, 1 bf16), n_rays, S, sigma_only,
+// has_nof, use_quat, od, z, sigma, rgb; then the NoF and the NeRF net
+// blocks. NoF head slots: w_head (W, 9|3), b_head, head_out.
+// NeRF head slots: w_sigma (W,) fp32, b_sigma, w_final, b_final, w_extra
 // (W, W/2), b_extra, p_extra (N, W/2) or 0, w_rgb (W/2, 3), b_rgb.
-// Matrices are (K, N) row-major in fp32; in bf16 they are transposed and
-// zero-padded: (pad16(N), pad16(K)). Biases and partials are fp32 and
-// unpadded. Returns 0, a cudaError_t, or -1 bad arg count, -2 bad shape,
-// -3 too much shared memory.
+// Matrices (K, N): in fp32 the row-tile layout of row_tile.cuh, (K,
+// pad16(N)) zero-padded; in bf16 wg_tile.cuh's slice images (ops/_args.py
+// wg_pack). Biases, partials and the sigma row are fp32 and unpadded.
+// Returns 0, a cudaError_t, or -1 bad arg count, -2 bad shape, -3 too
+// much shared memory.
 extern "C" int render_pass_launch(const int64_t* p, int n, void* stream) {
-  if (n != 11 + 2 * (4 + 4 * kMaxLayers + 12)) return -1;
+  if (n != 10 + 2 * (4 + 4 * kMaxLayers + 12)) return -1;
   Args a;
   const int dtype = static_cast<int>(p[0]);
   a.n_rays = p[1];
@@ -337,14 +401,14 @@ extern "C" int render_pass_launch(const int64_t* p, int n, void* stream) {
   a.rgb = reinterpret_cast<float*>(p[9]);
   decode_net(p + 10, &a.nof);
   decode_net(p + 10 + 4 + 4 * kMaxLayers + 12, &a.nerf);
-  a.xyz = static_cast<const float*>(P(p[10 + 2 * (4 + 4 * kMaxLayers + 12)]));
   if (a.n_rays <= 0 || a.s <= 0) return 0;
   const Net* nets[2] = {&a.nof, &a.nerf};
   int kp_max = 3 + 2 * a.nerf.kc, w_max = a.nerf.width;
   for (int i = a.has_nof ? 0 : 1; i < 2; ++i) {
     const Net& m = *nets[i];
     if (m.depth < 1 || m.depth > kMaxLayers || m.width < 2 ||
-        m.width > kMaxWidth || m.kc < 3 || m.kc % 3)
+        m.width > kMaxWidth || m.width % (i ? 4 : 2) || m.kc < 3 ||
+        m.kc % 3)
       return -2;
     if (3 + 2 * m.kc > kp_max) kp_max = 3 + 2 * m.kc;
     if (m.width > w_max) w_max = m.width;
@@ -352,32 +416,24 @@ extern "C" int render_pass_launch(const int64_t* p, int n, void* stream) {
   if (a.has_nof && (reinterpret_cast<intptr_t>(a.nof.h[2]) < 1 ||
                     reinterpret_cast<intptr_t>(a.nof.h[2]) > 9))
     return -2;
-  const int64_t total = a.n_rays * a.s;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    const int e_ld = pad16(kp_max) + 8, h_ld = pad16(w_max) + 8;
-    const size_t smem = (3 + kMaxHeadOut) * kMmaRows * sizeof(float) +
-                        (2 * static_cast<size_t>(kMaxWidth) * kWsLd +
-                         static_cast<size_t>(kMmaRows) * (e_ld + h_ld)) *
-                            sizeof(bf16);
-    const unsigned blocks =
-        static_cast<unsigned>((total + kMmaRows - 1) / kMmaRows);
-    return launch(render_pass_mma_kernel, smem, blocks, kMmaThreads, s, a,
-                  e_ld, h_ld);
-  }
-  kp_max += kp_max & 1;
-  const size_t smem = (3 + kMaxHeadOut) * kTile * sizeof(float) +
-                      static_cast<size_t>(kp_max + w_max) * kLda *
-                          sizeof(float);
-  const unsigned blocks = static_cast<unsigned>((total + kTile - 1) / kTile);
-  return launch(render_pass_kernel, smem, blocks, kWarps * 32, s, a, kp_max);
+  if (dtype == 1) return launch_wg(a, s);
+  const int e_ld = tile_ld<float>(kp_max), h_ld = tile_ld<float>(w_max);
+  const size_t smem = ((3 + kMaxHeadOut) * kRT + 2 * kKs * kWsLdF +
+                       static_cast<size_t>(kRT) * (e_ld + h_ld)) *
+                      sizeof(float);
+  const int64_t total = a.n_rays * a.s;
+  const unsigned blocks = static_cast<unsigned>((total + kRT - 1) / kRT);
+  return launch(render_pass_tf32_kernel, smem, blocks, kRTThreads, s, a,
+                e_ld, h_ld);
 }
 
 extern "C" const char* render_pass_error(int code) {
   switch (code) {
     case -1: return "wrong argument count";
-    case -2: return "unsupported network shape (depth 1..16, width 2..256, "
-                    "NoF head 1..9 outputs)";
+    case -2: return "unsupported network shape (depth 1..16, width up to "
+                    "256, even for the NoF and a multiple of 4 for the "
+                    "NeRF, NoF head 1..9 outputs)";
     case -3: return "activations exceed the 227 KB of shared memory";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

@@ -18,7 +18,8 @@
 //   (zero-padded to (k, pad16(n))) as coalesced float2 rows. The backward
 //   passes of #2 / #6 take it (rt_mm with bf16 staging, unused).
 // - fp32 on the tensor cores (rt_mm with fp32 staging; the forward kernels
-//   #1 / #5): mma.sync m16n8k8 in TF32 with split operands ("3xTF32"):
+//   #1 / #5, and the fp32 builds of #7 / #8 in render_pass.cu and
+//   fused_mlp.cu): mma.sync m16n8k8 in TF32 with split operands ("3xTF32"):
 //   a = a_hi + a_lo and b = b_hi + b_lo, each part rounded to TF32 by
 //   cvt.rna, and a_lo b_hi + a_hi b_lo + a_hi b_hi accumulated in fp32
 //   (the dropped a_lo b_lo is ~2^-22 of a term). The warp layout is the

@@ -5,7 +5,9 @@ Port of ``moco_flow_tpu/ops/fused_mlp.py``: the kernels ``_nerf_pallas`` and
 ``_nof_fused_vjp``.
 
 - ``nerf_pallas`` / ``nof_pallas`` are the kernels' wrappers: CUDA tensors
-  launch ``csrc/fused_mlp.cu`` (or raise), CPU tensors run the plain
+  launch ``csrc/fused_mlp.cu`` (or raise; #8 on the wgmma tile of
+  ``csrc/wg_tile.cuh`` in bf16 and the split-TF32 product of
+  ``csrc/row_tile.cuh`` in fp32), CPU tensors run the plain
   versions ``_nerf_pallas_ref`` / ``_nof_pallas_ref``, written from
   ``_nerf_tile_forward`` / ``_nof_tile_forward`` so that they round where
   those round: every product on operands cast to the compute dtype with fp32
@@ -140,11 +142,10 @@ def _nof_pallas_ref(cfg: NoFConfig, dt, inputs, xyz, ws):
 # ---------------------------------------------------------------------------
 
 def _lin(ops: _args.Operands, wpe, wh, b) -> list:
-    """One layer's (wpe, wh, b): ``wpe`` multiplies the layer's direct
-    inputs (x, the extra feature), ``wh`` the previous activation; either
-    may be None. fp32 weights go as (K, N) row-major; bf16 ones transposed
-    and zero-padded to (pad16(N), pad16(K)), the tensor-core layout of
-    ``pass_tile.cuh``."""
+    """One NoF layer's (wpe, wh, b): ``wpe`` multiplies the layer's direct
+    inputs, ``wh`` the previous activation; either may be None. fp32
+    weights go as (K, N) row-major; bf16 ones transposed and zero-padded to
+    (pad16(N), pad16(K)), the tensor-core layout of ``pass_tile.cuh``."""
     def mat(w):
         if w is None:
             return 0
@@ -158,9 +159,10 @@ def _lin(ops: _args.Operands, wpe, wh, b) -> list:
     return [mat(wpe), mat(wh), ops.vec(b)]
 
 
-def _trunk_lins(ops, ws, depth: int, width: int, skips: tuple,
-                k_in: int) -> list:
-    """The trunk's layers as ``_lin`` triples, padded to MAX_DEPTH."""
+def _trunk_triples(ops, ws, depth: int, width: int, skips: tuple,
+                   k_in: int) -> list:
+    """The trunk's layers as (wpe, wh, b): the skip as the split product
+    ``x @ W[:k_in] + h @ W[k_in:]``; shapes checked."""
     ops.check(1 <= depth <= _args.MAX_DEPTH,
               f"depth {depth} not in 1..{_args.MAX_DEPTH}")
     ops.check(2 <= width <= _args.MAX_WIDTH,
@@ -175,11 +177,20 @@ def _trunk_lins(ops, ws, depth: int, width: int, skips: tuple,
                   f"layer {i} weight {tuple(w.shape)}, expected "
                   f"({rows}, {width})")
         if i == 0:
-            out += _lin(ops, w, None, b)
+            out.append((w, None, b))
         elif i in skips:
-            out += _lin(ops, w[:k_in], w[k_in:], b)
+            out.append((w[:k_in], w[k_in:], b))
         else:
-            out += _lin(ops, None, w, b)
+            out.append((None, w, b))
+    return out
+
+
+def _trunk_lins(ops, ws, depth: int, width: int, skips: tuple,
+                k_in: int) -> list:
+    """The trunk's layers as ``_lin`` triples, padded to MAX_DEPTH."""
+    out = []
+    for wpe, wh, b in _trunk_triples(ops, ws, depth, width, skips, k_in):
+        out += _lin(ops, wpe, wh, b)
     return out + [0, 0, 0] * (_args.MAX_DEPTH - depth)
 
 
@@ -190,11 +201,12 @@ def _nerf_launch(cfg: NeRFConfig, dt, x, extra, sigma_only: bool, ws):
     ops = _args.Operands("nerf_pallas", dev, _storage(dt))
     ops.check(x.dim() == 2 and x.shape[1] == cfg.in_channels_xyz,
               f"x {tuple(x.shape)}, expected (n, {cfg.in_channels_xyz})")
-    trunk = _trunk_lins(ops, ws, cfg.depth, wd, cfg.skips,
-                        cfg.in_channels_xyz)
+    # the weights as (wpe, wh, b) layers; the matrices of the launch packed
+    # together (bf16: one buffer of slice images) and handed out in order
+    lins = _trunk_triples(ops, ws, cfg.depth, wd, cfg.skips,
+                          cfg.in_channels_xyz)
     k = 2 * cfg.depth
     ops.check(tuple(ws[k].shape) == (wd, 1), f"sigma {tuple(ws[k].shape)}")
-    heads = _lin(ops, None, ws[k], ws[k + 1])
     ke = n_ext = 0
     if not sigma_only:
         n_ext = ws[k + 4].shape[1]
@@ -208,11 +220,18 @@ def _nerf_launch(cfg: NeRFConfig, dt, x, extra, sigma_only: bool, ws):
                   and tuple(we.shape) == (wd + ke, n_ext)
                   and tuple(ws[k + 6].shape) == (n_ext, 3),
                   "final / extra / rgb weights of another shape")
-        heads += (_lin(ops, None, ws[k + 2], ws[k + 3])
-                  + _lin(ops, we[wd:] if ke else None, we[:wd], ws[k + 5])
-                  + _lin(ops, None, ws[k + 6], ws[k + 7]))
+        heads = [(None, ws[k + 2], ws[k + 3]),
+                 (we[wd:] if ke else None, we[:wd], ws[k + 5]),
+                 (None, ws[k + 6], ws[k + 7])]
     else:
-        heads += [0, 0, 0] * 3
+        heads = []
+    ptr = iter(_args.fwd_ops(ops, [w for wpe, wh, _ in lins + heads
+                                   for w in (wpe, wh)]))
+    trunk = [x for _, _, b in lins for x in (next(ptr), next(ptr),
+                                             ops.vec(b))]
+    trunk += [0, 0, 0] * (_args.MAX_DEPTH - cfg.depth)
+    hp = [x for _, _, b in heads for x in (next(ptr), next(ptr), ops.vec(b))]
+    heads = [0, ops.vec(ws[k]), ops.vec(ws[k + 1])] + (hp or [0, 0, 0] * 3)
     out = torch.empty((n, 1 if sigma_only else 4), dtype=torch.float32,
                       device=dev)
     arr = _args.as_array(

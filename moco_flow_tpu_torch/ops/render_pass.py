@@ -8,8 +8,10 @@ Port of ``moco_flow_tpu/ops/megakernel.py``'s test-time pass
 - ``render_pass_ref`` is the plain PyTorch version, written from
   ``_nof_tile`` / ``_nerf_tile``: it rounds where they round.
 - ``render_pass`` is the wrapper: on a CUDA tensor it launches the kernel of
-  ``csrc/render_pass.cu`` (or raises); on a CPU tensor it computes
-  ``render_pass_ref``. ``render_pass.launches`` counts kernel launches.
+  ``csrc/render_pass.cu`` (or raises): in bf16 the warp-specialised wgmma
+  tile of ``csrc/wg_tile.cuh``, in fp32 the split-TF32 product of
+  ``csrc/row_tile.cuh``; on a CPU tensor it computes ``render_pass_ref``.
+  ``render_pass.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -17,12 +19,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 
-import numpy as np
 import torch
 
-from ..nn.embedding import freq_bands
 from ..nn.mlp import matmul
 from ..nn.nerf import NeRFConfig
+from . import _args
 from .folds import (_MAX_LAYERS, _MAX_WIDTH, _NerfSpec, _NofSpec, _cross,
                     _nerf_fold, _nof_fold, _pe_embed, _trunk_layers)
 
@@ -148,21 +149,27 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"render_pass: {msg}")
 
 
-def _net_block(depth, width, kc, bands, layers, partials, heads, ptr):
-    """One net's 80-int64 block of the kernel's argument array."""
-    blk = [depth, width, kc, ptr(bands)]
+def _net_block(depth, width, kc, bands, layers, partials, heads):
+    """One net's 80-int64 block of the kernel's argument array; every
+    tensor already a pointer (0 for none)."""
+    blk = [depth, width, kc, bands]
     pit = iter(partials)
     for l in range(_MAX_LAYERS):
         if l < len(layers):
             wpe, wh, b = layers[l]
-            part = next(pit) if (wpe is not None and partials) else None
-            blk += [ptr(wpe), ptr(wh), ptr(b), ptr(part)]
+            part = next(pit) if (wpe and partials) else 0
+            blk += [wpe, wh, b, part]
         else:
             blk += [0, 0, 0, 0]
     return blk + list(heads) + [0] * (12 - len(heads))
 
 
 def _launch(op: _Pass, rays_o, rays_d, z_vals):
+    """One launch of the pass kernel on the current stream: positions
+    ``o + d*z``, sigma (N, S) and unless sigma-only rgb (3, N, S). The
+    weights go in the kernel's layout: bf16 slice images
+    (``_args.wg_pack_all``, packed once a launch), fp32 row-tile
+    operands."""
     n, s = z_vals.shape
     dev = z_vals.device
     od = torch.cat([rays_o, rays_d], dim=-1).float().contiguous()
@@ -170,16 +177,6 @@ def _launch(op: _Pass, rays_o, rays_d, z_vals):
     sigma = torch.empty((n, s), dtype=torch.float32, device=dev)
     rgb = (None if op.nerf.sigma_only
            else torch.empty((3, n, s), dtype=torch.float32, device=dev))
-    _launch_pass(op, n, s, dev, od, z, sigma, rgb)
-    render_pass.launches += 1
-    return sigma, rgb
-
-
-def _launch_pass(op: _Pass, n: int, s: int, dev, od, z, sigma, rgb):
-    """Queue one launch of the pass kernel on the current stream. The
-    sample positions are ``o + d*z`` (``od`` (N, 6), ``z`` (N, S)); sigma
-    goes to ``sigma`` (N*S values) and rgb to ``rgb`` (3, N*S) unless
-    sigma-only."""
     from ._build import load_library
     dt = op.dtype
     nerf, nof = op.nerf, op.nof
@@ -199,75 +196,54 @@ def _launch_pass(op: _Pass, n: int, s: int, dev, od, z, sigma, rgb):
         _check(tuple(op.p_extra.shape) == (n, nerf.width // 2),
                f"extra partial {tuple(op.p_extra.shape)}")
 
-    keep = []  # every tensor whose pointer goes into the argument array
-
-    def ptr(t):
-        if t is None:
-            return 0
-        _check(t.device == dev, f"operand on {t.device}, rays on {dev}")
-        _check(t.is_contiguous(), "operand not contiguous")
-        keep.append(t)
-        return t.data_ptr()
-
-    if dt == torch.bfloat16:
-        def mat(w):
-            """(K, N) -> W^T zero-padded to (pad16(N), pad16(K)): the
-            layout of the tensor-core kernel's B operand."""
-            k, n = w.shape
-            out = torch.zeros((-(-n // 16) * 16, -(-k // 16) * 16),
-                              dtype=dt, device=dev)
-            out[:n, :k] = w.T
-            return out
-    else:
-        def mat(w):
-            return w.float().contiguous()
+    ops = _args.Operands("render_pass", dev, dt)
 
     def vec(b):
-        return b.float().contiguous()
+        return ops.ptr(b.float().reshape(-1).contiguous())
 
-    def layers_of(ws, depth, skips):
-        layers, rest = _trunk_layers(ws, depth, skips)
-        return [(None if wpe is None else mat(wpe),
-                 None if wh is None else mat(wh), vec(b))
-                for wpe, wh, b in layers], rest
-
-    def bands_of(kc, logscale):
-        return torch.from_numpy(freq_bands(kc // 3, logscale)).to(dev)
-
+    # every weight matrix of the launch, packed together (bf16: one buffer
+    # of slice images), then handed out in the same order
+    nof_layers, nof_rest = (_trunk_layers(op.nof_ws, nof.depth, nof.skips)
+                            if nof is not None else ([], []))
+    nerf_layers, rest = _trunk_layers(op.nerf_ws, nerf.depth, nerf.skips)
+    heads_w = [] if nerf.sigma_only else [rest[2], rest[4], rest[6]]
+    mats = ([w for wpe, wh, _ in nof_layers for w in (wpe, wh)]
+            + nof_rest[:1]
+            + [w for wpe, wh, _ in nerf_layers for w in (wpe, wh)] + heads_w)
+    ptr = iter(_args.fwd_ops(ops, mats))
     args = [1 if dt == torch.bfloat16 else 0, n, s, int(nerf.sigma_only),
             int(nof is not None), int(nof is not None and nof.use_quat),
-            ptr(od), ptr(z), ptr(sigma), ptr(rgb)]
+            ops.ptr(od), ops.ptr(z), ops.ptr(sigma), ops.ptr(rgb)]
     if nof is not None:
-        layers, (whead, bhead) = layers_of(op.nof_ws, nof.depth, nof.skips)
+        layers = [(next(ptr), next(ptr), vec(b)) for _, _, b in nof_layers]
+        whead, bhead = nof_rest
         _check(whead.shape[-1] == (9 if nof.use_quat else 3),
                f"NoF head {tuple(whead.shape)}")
-        parts = [p.float().contiguous() for p in op.partials]
+        parts = [ops.ptr(p.float().contiguous()) for p in op.partials]
         args += _net_block(nof.depth, nof.width, nof.kc,
-                           bands_of(nof.kc, nof.logscale), layers, parts,
-                           [ptr(mat(whead)), ptr(vec(bhead)),
-                            whead.shape[-1]], ptr)
+                           ops.bands(nof.kc, nof.logscale), layers, parts,
+                           [next(ptr), vec(bhead), whead.shape[-1]])
     else:
         args += [0] * (4 + 4 * _MAX_LAYERS + 12)
-    layers, rest = layers_of(op.nerf_ws, nerf.depth, nerf.skips)
-    heads = [ptr(mat(rest[0].T)), ptr(vec(rest[1]))]  # sigma (W, 1)
+    layers = [(next(ptr), next(ptr), vec(b)) for _, _, b in nerf_layers]
+    heads = [vec(rest[0]), vec(rest[1])]  # the (1, W) sigma row, fp32
     if not nerf.sigma_only:
-        wf, bf, we, be, wr, br = rest[2:]
-        p_extra = op.p_extra.float().contiguous() if nerf.has_extra else None
-        heads += [ptr(mat(wf)), ptr(vec(bf)), ptr(mat(we)), ptr(vec(be)),
-                  ptr(p_extra), ptr(mat(wr)), ptr(vec(br))]
+        p_extra = (ops.ptr(op.p_extra.float().contiguous())
+                   if nerf.has_extra else 0)
+        heads += [next(ptr), vec(rest[3]), next(ptr), vec(rest[5]), p_extra,
+                  next(ptr), vec(rest[7])]
     args += _net_block(nerf.depth, nerf.width, nerf.kc,
-                       bands_of(nerf.kc, nerf.logscale), layers, [], heads,
-                       ptr)
-    args.append(0)  # the kernel's xyz input: no caller reads positions
-    arr = np.asarray(args, dtype=np.int64)
+                       ops.bands(nerf.kc, nerf.logscale), layers, [], heads)
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.render_pass_launch(arr.ctypes.data_as(ctypes.c_void_p),
-                                len(arr), ctypes.c_void_p(stream))
+    rc = _args.call(lib.render_pass_launch, _args.as_array(args),
+                    ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"render_pass kernel failed to launch: "
                            f"{lib.render_pass_error(rc).decode()} ({rc})")
-    del keep  # the launch is queued on the stream the operands live on
+    render_pass.launches += 1
+    return sigma, rgb
+    del ops  # the launch is queued on the stream the operands live on
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""Compare the training step's kernels of two trees of this repository bit
-for bit on one card: the backward kernels #2 ``nerf_bwd`` and #6
-``chain_bwd``, and the forward kernels #1 ``nerf_fwd`` and #5
-``chain_fwd``.
+"""Compare kernels of two trees of this repository bit for bit on one card:
+the training step's backward kernels #2 ``nerf_bwd`` and #6 ``chain_bwd``,
+its forward kernels #1 ``nerf_fwd`` and #5 ``chain_fwd``, and the per-op
+NoF #9 ``nof_pallas``.
 
     (cd TREE_A && python /path/to/scripts/torch_port_chain_bitwise.py dump a.pt)
     (cd TREE_B && python /path/to/scripts/torch_port_chain_bitwise.py dump b.pt)
@@ -15,7 +15,8 @@ launches the warp chain at full NoF width (4x128, skip 2, 5 + 16
 frequencies, quaternion head) with local + global chains, and the NeRF at
 full width (8x256, skip 4, 10 frequencies, the 5-dim frame feature) with
 its rgb head and sigma-only, and saves every forward output, and every
-dxyz, d(partial) and dW of the backward. ``compare`` prints, per kernel,
+dxyz, d(partial) and dW of the backward; and #9 at c2f.yaml's NoF (4x128,
+skip 2, quaternion head) on 16384 x 128 and 100003 seeded rows. ``compare`` prints, per kernel,
 how many of the saved tensors are bitwise equal and the max |diff| of the
 others. ``sass`` compares two builds of the kernel library
 (``build/torch_kernels/*/libmoco_kernels.so``) instruction by instruction
@@ -34,7 +35,7 @@ import sys
 
 import torch
 
-KERNELS = ("nerf_fwd", "nerf_bwd", "chain_fwd", "chain_bwd")
+KERNELS = ("nerf_fwd", "nerf_bwd", "chain_fwd", "chain_bwd", "nof_pallas")
 
 
 def dump(path: str):
@@ -94,6 +95,14 @@ def dump(path: str):
                 dx, dp, dw = nr.nerf_bwd(nspec, dt, xyz, p_e, ws, g)
                 keep("nerf_bwd", tag, [dx] + ([] if dp is None else [dp])
                      + list(dw))
+    from moco_flow_tpu_torch.ops import fused_mlp as fm
+    nws = fm._nof_weights_flat(bw)
+    for rows in (16384 * 128, 100003):
+        inp = (torch.rand(rows, fcfg.in_dim, generator=gen) * 2 - 1).to(dev)
+        xyz = (0.6 * torch.randn(rows, 3, generator=gen)).to(dev)
+        for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+            keep("nof_pallas", f"{rows}/{dname}",
+                 [fm.nof_pallas(fcfg, dt, inp, xyz, nws)])
     torch.cuda.synchronize()
     torch.save(out, path)
     print(f"saved {len(out)} tensors to {path}")

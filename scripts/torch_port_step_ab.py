@@ -21,8 +21,9 @@ launches after a warm one. With ``--what kernels`` a run times the
 training kernels #1, #2, #5 and #6 at one stage-3 step's shapes (two
 launches each, N=1024, bf16 and fp32, mean of 3 after a warm pair; the
 forwards' plain versions too), the
-render pass #7 as above and #8 / #9 at chip_smoke.py phase 12's shapes
-(bf16). The runs go A B B A, ``--pairs`` times over (at least 3);
+render pass #7 as above (with a 256x256 frame's own 8 launches) and #8 /
+#9 at chip_smoke.py phase 12's shapes, each with its plain version (fp32
+where the tree's chip_smoke.py times it). The runs go A B B A, ``--pairs`` times over (at least 3);
 beside every run the card's SM clock, memory clock
 and temperature as nvidia-smi reads them just before and just after it.
 Prints one JSON line per run and the card's name and power limit.
@@ -85,10 +86,13 @@ if sys.argv[1] == "kernels":
                                             for _ in range(2)]
         for name, fn in calls.items():
             out[f"{name} {dname}"] = cs.cuda_ms(fn, reps=3)
-    out.update({"render_pass " + k: v[0] for k, v in
-                cs.phase_kernel_vs_plain(dev)["times"].items()})
-    out.update({k + " bf16": v[0] for k, v in
-                cs.phase_mlp_kernels(dev, "")["times"].items()})
+    for k, v in cs.phase_kernel_vs_plain(dev)["times"].items():
+        out["render_pass " + k] = v[0]
+        out["render_pass plain " + k] = v[1]
+    for k, v in cs.phase_mlp_kernels(dev, "")["times"].items():
+        name = k if " " in k else k + " bf16"
+        out[name] = v[0]
+        out[name.replace("_pallas", "_pallas plain")] = v[1]
     print("MS " + json.dumps(out), flush=True)
     sys.exit(0)
 from moco_flow_tpu_torch.train.__main__ import parse_args, train

@@ -391,3 +391,106 @@ def test_fwd_deterministic(card, which, dt):
     a, b = kernel(dt), kernel(dt)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# The bf16 forward kernels #7 / #8 on the wgmma tile (csrc/wg_tile.cuh),
+# their fp32 builds on the split-TF32 product (csrc/row_tile.cuh).
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,n", [(128, 256, 256), (128, 256, 128),
+                                      (128, 256, 16), (128, 256, 8),
+                                      (128, 63, 256), (128, 90, 128),
+                                      (300, 33, 9)])
+def test_wg_layer_probe(card, rows, k, n):
+    """One product of the wgmma tile against the plain one: the same bf16
+    operands, fp32 sums in another order (fp32 tolerance)."""
+    from moco_flow_tpu_torch.ops.wg_probe import wg_layer, wg_layer_ref
+    gen = torch.Generator().manual_seed(rows + k + n)
+    a = torch.randn(rows, k, generator=gen).to(card)
+    w = (torch.randn(k, n, generator=gen) / k ** 0.5).to(card)
+    b = torch.randn(n, generator=gen).to(card)
+    got, want = wg_layer(a, w, b), wg_layer_ref(a, w, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _pass_case(card, n, s, use_nof, sigma_only):
+    """Arguments of render_pass at c2f.yaml's widths (dt appended later)."""
+    gen = torch.Generator().manual_seed(n * s)
+    ncfg = NeRFConfig(extra_feat_type="ind", extra_feat_dim=5)
+    fcfg = NoFConfig()
+    params = {"coarse_NeRF": init_nerf(gen, ncfg, card),
+              "bw_NoF": init_nof(gen, fcfg, card)}
+    o = torch.tensor([0.0, 0.0, 4.0]) + 0.05 * torch.randn(n, 3, generator=gen)
+    d = torch.randn(n, 3, generator=gen)
+    d[:, 2] = -d[:, 2].abs() - 1
+    d = d / d.norm(dim=-1, keepdim=True)
+    z = torch.sort(2.5 + 3 * torch.rand(n, s, generator=gen), -1).values
+    ind = torch.rand(n, 1, generator=gen) * 2 - 1
+    o, d, z, ind = (t.to(card) for t in (o, d, z, ind))
+    extra = embed_padded(ind, EmbeddingSpec(2, in_channels=1), 5)
+    ind_emb = embed_padded(ind, EmbeddingSpec(16, in_channels=1), 33)
+    return (params, "coarse_NeRF", ncfg, fcfg, 10, 5, True, True,
+            anneal_weights(505000, 10, 5000, 1005000).to(card),
+            anneal_weights(505000, 5, 5000, 1005000).to(card), o, d, z,
+            None if sigma_only else extra, ind_emb, use_nof, sigma_only)
+
+
+def _mlp_case(card, rows, sigma_only):
+    from moco_flow_tpu_torch.ops import fused_mlp as fm
+    gen = torch.Generator().manual_seed(rows)
+    cfg = NeRFConfig(extra_feat_type="dir", extra_feat_dim=27)
+    ws = fm._nerf_weights_flat(init_nerf(gen, cfg, card), sigma_only)
+    x = (torch.rand(rows, 63, generator=gen) * 2 - 1).to(card)
+    e = None if sigma_only else (torch.rand(rows, 27, generator=gen) * 2
+                                 - 1).to(card)
+    return cfg, x, e, sigma_only, ws
+
+
+def _fwd_mlp_calls(card, which):
+    """(kernel, plain) of #7 / #8 at 1000 x 127 rows (not a multiple of
+    the 128-row tile), each dt -> list of outputs."""
+    from moco_flow_tpu_torch.ops import fused_mlp as fm
+    if which.startswith("pass"):
+        args = _pass_case(card, 1000, 127, which != "pass-cano",
+                          which == "pass-coarse")
+        return (lambda dt: [t for t in render_pass(*args, dt)
+                            if t is not None],
+                lambda dt: [t for t in render_pass_ref(*args, dt)
+                            if t is not None])
+    cfg, x, e, so, ws = _mlp_case(card, 1000 * 127, which == "mlp-sigma-only")
+    return (lambda dt: [fm.nerf_pallas(cfg, dt, x, e, so, ws)],
+            lambda dt: [fm._nerf_pallas_ref(cfg, dt, x, e, so, ws)])
+
+
+FWD_MLP_CASES = ["pass-fine", "pass-coarse", "pass-cano", "mlp-full",
+                 "mlp-sigma-only"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("which", FWD_MLP_CASES)
+def test_fwd_mlp_ragged(card, which, dt):
+    """#7 / #8 at a ragged row count within TOL; in bf16 also within the
+    plain version's own bf16-vs-fp32 gap (max and mean)."""
+    kernel, plain = _fwd_mlp_calls(card, which)
+    got, want, want32 = kernel(dt), plain(dt), plain(None)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dt]
+    for a, b, p in zip(got, want, want32):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        err = (a - b).abs()
+        assert bool((err <= atol + rtol * b.abs()).all())
+        if dt is not None:
+            gap = (b - p).abs()
+            assert err.max() <= gap.max() and err.mean() <= gap.mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("which", ["pass-fine", "mlp-full"])
+def test_fwd_mlp_deterministic(card, which, dt):
+    kernel, _ = _fwd_mlp_calls(card, which)
+    a, b = kernel(dt), kernel(dt)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -1,5 +1,6 @@
-"""The fp32 tensor-core product of the forward kernels #1 (``nerf_fwd``) and
-#5 (``chain_fwd``), emulated on the CPU.
+"""The fp32 tensor-core product of the forward kernels #1 (``nerf_fwd``), #5
+(``chain_fwd``), #7 (``render_pass``) and #8 (``nerf_pallas``), emulated on
+the CPU.
 
 The kernels' fp32 builds multiply on the tensor cores in TF32 with split
 operands (``csrc/row_tile.cuh``): a = a_hi + a_lo and b = b_hi + b_lo, each
@@ -7,14 +8,16 @@ part rounded to TF32 (10 mantissa bits, round to nearest with ties away
 from zero, ``cvt.rna.tf32.f32``), summing a_hi b_hi + a_hi b_lo + a_lo b_hi
 in fp32 ("3xTF32"). The exact three-piece split (hi + mid + lo, six
 products) is the fallback whose error is at fp32's level. Here every
-product of the plain forwards ``_nerf_fwd_ref`` / ``_chain_fwd_ref`` is
-replaced by the emulated split product (the sigma row, a plain fp32 dot in
-the kernel, excepted) at full width (NeRF 8x256, NoF 4x128) on a few
-hundred seeded rows, and the outputs are held against the fp32 plain
-versions: the two-piece split within chip_smoke.py's ``TOL["fp32"]``
-(1e-4 + 1e-4 |ref|), the three-piece split within 1e-6 of the largest
-magnitude. ``python -m pytest tests/test_torch_tf32_split.py -s`` prints
-the measured errors.
+product of the plain forwards ``_nerf_fwd_ref`` / ``_chain_fwd_ref`` /
+``render_pass_ref`` (with the bw-NoF warp) / ``_nerf_pallas_ref`` (with
+the ``dir`` extra) is replaced by the emulated split product (the sigma
+row, a plain fp32 dot in the kernels, excepted) at full width (NeRF 8x256,
+NoF 4x128; #8 at init_nerf.yaml's model) on a few hundred seeded rows, and
+the outputs are held against the fp32 plain versions: the two-piece split
+within chip_smoke.py's ``TOL["fp32"]`` (1e-4 + 1e-4 |ref|), the three-piece
+split within 1e-6 of the largest magnitude.
+``python -m pytest tests/test_torch_tf32_split.py -s`` prints the measured
+errors.
 """
 
 import pytest
@@ -23,9 +26,11 @@ import torch
 from moco_flow_tpu_torch.nn.embedding import anneal_weights
 from moco_flow_tpu_torch.nn.nerf import NeRFConfig, init_nerf
 from moco_flow_tpu_torch.nn.nof import NoFConfig, init_nof
-from moco_flow_tpu_torch.ops import nerf_rays, nof_chain
+from moco_flow_tpu_torch.ops import (fused_mlp, nerf_rays, nof_chain,
+                                     render_pass)
 from moco_flow_tpu_torch.ops.folds import (_NerfSpec, _NofSpec, _nerf_fold,
                                            _nof_fold)
+from moco_flow_tpu_torch.render.volume import EmbeddingSpec, embed_padded
 
 TOL_FP32 = (1e-4, 1e-4)      # chip_smoke.py TOL["fp32"]: atol, rtol
 EXACT_REL = 1e-6             # three-piece split, of max |ref|
@@ -120,8 +125,52 @@ def _chain():
                                                  wsb, wsf))
 
 
+def _render_pass(sigma_only: bool):
+    """#7 at c2f.yaml's widths with the bw-NoF warp."""
+    gen = torch.Generator().manual_seed(13)
+    ncfg = NeRFConfig(extra_feat_type="ind", extra_feat_dim=5)
+    fcfg = NoFConfig()
+    cpu = torch.device("cpu")
+    params = {"coarse_NeRF": init_nerf(gen, ncfg, cpu),
+              "bw_NoF": init_nof(gen, fcfg, cpu)}
+    o = torch.tensor([0.0, 0.0, 4.0]) + 0.05 * torch.randn(N_RAYS, 3,
+                                                           generator=gen)
+    d = torch.randn(N_RAYS, 3, generator=gen)
+    d[:, 2] = -d[:, 2].abs() - 1
+    d = d / d.norm(dim=-1, keepdim=True)
+    z = torch.sort(2.5 + 3 * torch.rand(N_RAYS, N_SAMPLES, generator=gen),
+                   -1).values
+    ind = torch.rand(N_RAYS, 1, generator=gen) * 2 - 1
+    extra = embed_padded(ind, EmbeddingSpec(2, in_channels=1), 5)
+    ind_emb = embed_padded(ind, EmbeddingSpec(16, in_channels=1), 33)
+    args = (params, "coarse_NeRF", ncfg, fcfg, 10, 5, True, True,
+            anneal_weights(505000, 10, 5000, 1005000),
+            anneal_weights(505000, 5, 5000, 1005000), o, d, z,
+            None if sigma_only else extra, ind_emb, True, sigma_only, None)
+    return lambda: [t for t in render_pass.render_pass_ref(*args)
+                    if t is not None]
+
+
+def _nerf_pallas():
+    """#8 at init_nerf.yaml's model: 63 inputs, the 27-wide ``dir``
+    extra."""
+    gen = torch.Generator().manual_seed(14)
+    cfg = NeRFConfig(depth=8, width=256, in_channels_xyz=63, skips=(4,),
+                     extra_feat_type="dir", extra_feat_dim=27)
+    ws = fused_mlp._nerf_weights_flat(
+        init_nerf(gen, cfg, torch.device("cpu")), False)
+    x = torch.rand(N_RAYS * N_SAMPLES, 63, generator=gen) * 2 - 1
+    e = torch.rand(N_RAYS * N_SAMPLES, 27, generator=gen) * 2 - 1
+    return lambda: [fused_mlp._nerf_pallas_ref(cfg, None, x, e, False, ws)]
+
+
 CASES = {"nerf": lambda: _nerf(False), "nerf-sigma-only": lambda: _nerf(True),
-         "chain": _chain}
+         "chain": _chain,
+         "render-pass": lambda: _render_pass(False),
+         "render-pass-sigma-only": lambda: _render_pass(True),
+         "nerf-pallas": _nerf_pallas}
+# the modules whose products the kernels' fp32 builds take in split TF32
+SPLIT_MODULES = (nerf_rays, nof_chain, render_pass, fused_mlp)
 
 
 @pytest.mark.parametrize("pieces", [2, 3], ids=["3xTF32", "three-piece"])
@@ -130,8 +179,8 @@ def test_split_product_error(case, pieces, monkeypatch):
     run = CASES[case]()
     with torch.no_grad():
         want = run()
-        monkeypatch.setattr(nerf_rays, "matmul", split_matmul(pieces))
-        monkeypatch.setattr(nof_chain, "matmul", split_matmul(pieces))
+        for mod in SPLIT_MODULES:
+            monkeypatch.setattr(mod, "matmul", split_matmul(pieces))
         got = run()
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.isfinite(g).all()

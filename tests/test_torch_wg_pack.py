@@ -1,0 +1,88 @@
+"""The weight images of the bf16 forward kernels #7 and #8
+(``csrc/wg_tile.cuh``), built on the CPU by ``ops/_args.py::wg_pack``.
+
+Each (K, N) weight becomes ceil(K / 64) slices of wg_width(N) rows of 64
+bf16 (128 bytes), in the 128-byte swizzle that the wgmma descriptor names:
+element (n, k) of W^T sits in slice k // 64, row n, 16-byte chunk
+((k % 64) // 8) ^ (n % 8), position k % 8. Read back through that formula,
+every image must give W^T zero-padded to (wg_width(N), 64 * slices), and
+the padding must be exactly zero. Shapes: every product that #7 and #8 pack
+at c2f.yaml's and init_nerf.yaml's widths, and ragged K.
+"""
+
+import pytest
+import torch
+
+from moco_flow_tpu_torch.ops._args import WG_K, wg_pack, wg_pack_all, wg_width
+
+SHAPES = {
+    "nerf-pe-63x256": (63, 256),          # NeRF layer 0, the skip's PE rows
+    "nerf-skip-63+256": (63 + 256, 256),  # the skip layer as one matrix
+    "nerf-256x256": (256, 256),
+    "extra-256+27x128": (256 + 27, 128),  # #8's extra layer as one matrix
+    "extra-dir-27x128": (27, 128),
+    "rgb-128x3": (128, 3),                # N padded to 8
+    "nof-pe-33x128": (33, 128),
+    "nof-128x128": (128, 128),
+    "nof-head-128x9": (128, 9),           # N padded to 16
+    "ragged-90x48": (90, 48),             # the golden fixture's width
+    "ragged-1x1": (1, 1),
+    "ragged-65x17": (65, 17),
+}
+
+
+def read_back(img: torch.Tensor) -> torch.Tensor:
+    """W^T (padded) from the slice images, through the swizzle formula."""
+    s, n_pad = img.shape[0], img.shape[1]
+    flat = img.reshape(s, n_pad, WG_K)
+    out = torch.empty((n_pad, s * WG_K), dtype=img.dtype)
+    for n in range(n_pad):
+        for k in range(s * WG_K):
+            chunk = ((k % WG_K) // 8) ^ (n % 8)
+            out[n, k] = flat[k // WG_K, n, chunk * 8 + k % 8]
+    return out
+
+
+@pytest.mark.parametrize("shape", list(SHAPES.values()), ids=list(SHAPES))
+def test_wg_pack_reads_back(shape):
+    k, n = shape
+    gen = torch.Generator().manual_seed(k * 1000 + n)
+    w = torch.randn(k, n, generator=gen)
+    img = wg_pack(w)
+    n_pad, slices = wg_width(n), -(-k // WG_K)
+    assert img.dtype == torch.bfloat16 and img.is_contiguous()
+    assert img.numel() * 2 == slices * n_pad * 128   # one bulk copy a slice
+    want = torch.zeros((n_pad, slices * WG_K), dtype=torch.bfloat16)
+    want[:n, :k] = w.T.to(torch.bfloat16)
+    got = read_back(img)
+    assert torch.equal(got, want)
+    assert not got[n:].any() and not got[:, k:].any()
+
+
+def test_wg_width():
+    assert [wg_width(n) for n in (1, 3, 8, 9, 16, 17, 48, 100, 128, 129,
+                                  256)] == [8, 8, 8, 16, 16, 32, 64, 128,
+                                            128, 256, 256]
+    for bad in (0, 257):
+        with pytest.raises(ValueError):
+            wg_width(bad)
+
+
+def test_wg_pack_all_matches_each():
+    """One launch's weights packed together: each image, at its offset, is
+    that weight's own ``wg_pack`` image (also for sliced, non-contiguous
+    weights), and the gather index is reused for the same shapes."""
+    gen = torch.Generator().manual_seed(7)
+    ws = [torch.randn(63, 256, generator=gen),
+          torch.randn(256, 256, generator=gen),
+          torch.randn(283, 128, generator=gen)[:256],
+          torch.randn(283, 128, generator=gen)[256:],
+          torch.randn(128, 3, generator=gen)]
+    for _ in range(2):
+        buf, offs = wg_pack_all(ws)
+        assert buf.dtype == torch.bfloat16 and len(offs) == len(ws)
+        for w, o in zip(ws, offs):
+            img = wg_pack(w).reshape(-1)
+            assert o % 512 == 0                     # whole 1 KB slices
+            assert torch.equal(buf[o:o + img.numel()], img)
+        ws = [w * 2 for w in ws]                    # new values, same shapes
