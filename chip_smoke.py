@@ -55,12 +55,16 @@ happened; any failure raises and the script exits non-zero):
      steps with its peak memory, and one bf16 step is profiled (device time
      by kernel group, idle share;
      build/chip_smoke_train/train_step_profile.txt);
-  9. the single-warp NoF kernels (nof_rays.cu) against their plain versions
-     at the full NoF width (4x128, skip 2, 5 + 16 frequencies, quaternion
-     head), fp32 and bf16: one ray of 2000 samples (the step's
-     correspondence set) and of 10000 (longer than JAX's 4096-sample
-     chunks), forward and backward, and the val tile 16384 x 128, forward;
-     then each kernel, its plain version and its bound;
+  9. the single-warp NoF kernels (the one-stage entry points of
+     chain_bwd.cu) against their plain versions at the full NoF width
+     (4x128, skip 2, 5 + 16 frequencies, quaternion head), fp32 and bf16:
+     one ray of 2000 samples (the step's correspondence set) and of 10000
+     (one ray over many tiles), stage 2's 200,000-point set as
+     nof_fused_rays launches it (re-chunked into 49 rays of 4096 samples),
+     forward and backward, and the val tile 16384 x 128, forward; the
+     backward's scratch (reckoned and the kernel's) and chunks at stage 2's
+     shape; then each kernel, its plain version and its bound at the step
+     ray, the val tile and stage 2's shape;
   10. the msk / full phases against JAX's numbers: the steps of
      tests/fixtures/torch_port_phases_golden.npz (written by
      scripts/make_torch_port_phases_golden.py) replayed on the card in fp32
@@ -142,9 +146,9 @@ TRAIN_KERNELS = (
      "moco_flow_tpu/ops/megakernel.py:1214"))
 # the single warp of the msk / full phases and the val step
 NOF_KERNELS = (
-    ("nof_fwd", "moco_flow_tpu_torch/ops/csrc/nof_rays.cu",
+    ("nof_fwd", "moco_flow_tpu_torch/ops/csrc/chain_bwd.cu",
      "moco_flow_tpu/ops/megakernel.py:876"),
-    ("nof_bwd", "moco_flow_tpu_torch/ops/csrc/nof_rays.cu",
+    ("nof_bwd", "moco_flow_tpu_torch/ops/csrc/chain_bwd.cu",
      "moco_flow_tpu/ops/megakernel.py:1012"))
 
 
@@ -1004,19 +1008,22 @@ def train_config(dtype: str) -> dict:
     return cfg
 
 
-# kernel name patterns (lower case) of each group; #2 and #6 share the
+# kernel name patterns (lower case) of each group; #2, #4 and #6 share the
 # long-K dW kernels of wgrad.cu
 STEP_GROUPS = {"nerf_bwd passes": ("nerf_fwd_pass", "nerf_walk_pass"),
                "chain_bwd passes": ("chain_fwd_pass", "chain_walk_pass"),
-               "dW (#2/#6)": ("matrix_mma", "matrix_ffma", "colsum_kernel",
-                              "segsum_kernel", "reduce_kernel"),
+               "nof_bwd passes": ("nof_fwd_pass", "nof_walk_pass"),
+               "dW (#2/#4/#6)": ("matrix_mma", "matrix_ffma",
+                                 "colsum_kernel", "segsum_kernel",
+                                 "reduce_kernel"),
                "chain_fwd": ("chain_fwd_kernel",),
                "nerf_fwd": ("nerf_fwd_kernel",),
-               "nof_bwd": ("nof_bwd_kernel",), "nof_fwd": ("nof_fwd_kernel",),
-               "dW sums (#3/#4)": ("mlp::sum_",), "sort": ("sort",)}
-# the parts of #2 / #6 (phase 6's split)
-BWD_GROUPS = {"forward pass": ("nerf_fwd_pass", "chain_fwd_pass"),
-              "walk pass": ("nerf_walk_pass", "chain_walk_pass"),
+               "nof_fwd": ("nof_fwd_kernel",), "sort": ("sort",)}
+# the parts of #2 / #4 / #6 (phases 6 and 9's split)
+BWD_GROUPS = {"forward pass": ("nerf_fwd_pass", "chain_fwd_pass",
+                               "nof_fwd_pass"),
+              "walk pass": ("nerf_walk_pass", "chain_walk_pass",
+                            "nof_walk_pass"),
               "dW products": ("matrix_mma", "matrix_ffma"),
               "dW sums": ("colsum_kernel", "segsum_kernel", "reduce_kernel")}
 
@@ -1161,22 +1168,40 @@ def phase_train_slice(card: str) -> dict:
 # The msk / full phases and the val step (phases 9-11)
 # ---------------------------------------------------------------------------
 
-def _nof_case(P, fcfg, an_f, n, s, gen, dev):
+STAGE2_POINTS = 200_000   # init_nof.yaml's N_sampled 100,000: 2 x 100,000 a NoF
+
+
+def _nof_case(P, fcfg, an_f, n, s, gen, dev, rechunk: bool = False):
+    """#3/#4's inputs for n rays of s samples; with ``rechunk`` one ray of s
+    samples as nof_fused_rays launches the kernels with it (rays of 4096
+    samples, zero-padded, the frame embedding broadcast; the cotangent of
+    the padding 0, as the slice of the output makes it)."""
+    from moco_flow_tpu_torch.ops import nof_rays as nr
     from moco_flow_tpu_torch.ops.folds import _NofSpec, _nof_fold
     xyz = (0.6 * torch.randn(3, n, s, generator=gen)).to(dev)
     emb = torch.randn(n, 33, generator=gen).to(dev)
-    ws, parts = _nof_fold(P, fcfg, 5, an_f, emb)
     g = (torch.randn(3, n, s, generator=gen) / (n * s) ** 0.5).to(dev)
+    if rechunk:
+        xyz_c, emb = nr._rechunk(xyz.permute(1, 2, 0), emb)
+        xyz = xyz_c.permute(2, 0, 1).contiguous()
+        g = nr._rechunk(g.permute(1, 2, 0), emb)[0].permute(2, 0, 1)
+        g = g.contiguous()
+    ws, parts = _nof_fold(P, fcfg, 5, an_f, emb)
     return _NofSpec(4, 128, 15, (2,), True, True), xyz, parts, ws, g
 
 
 def phase_nof_kernels(dev, card: str,
                       sizes=((1, 2000, True), (1, 10000, True),
+                             (1, STAGE2_POINTS, True),
                              (16384, 128, False))) -> dict:
     """Kernels #3/#4 (the single NoF warp) against their plain versions at
-    full width on ``sizes`` (rays, samples, with the backward), then each
-    timed with its plain version and bound on the first (the step's
-    correspondence ray) and the last forward (the val tile)."""
+    full width on ``sizes`` (rays, samples, with the backward; one ray of
+    STAGE2_POINTS samples goes in re-chunked, as stage 2 launches it), then
+    each timed with its plain version and bound on the first (the step's
+    correspondence ray), the stage-2 set and the last forward (the val
+    tile)."""
+    from moco_flow_tpu_torch.ops import _args
+    from moco_flow_tpu_torch.ops import nof_chain as nc
     from moco_flow_tpu_torch.ops import nof_rays as nr
     gen = torch.Generator().manual_seed(2)
     fcfg = NoFConfig()
@@ -1185,11 +1210,13 @@ def phase_nof_kernels(dev, card: str,
     err = {"nof_fwd": 0.0, "nof_bwd": 0.0}
     cases = {}
     for n_r, s, with_bwd in sizes:
-        spec, xyz, parts, ws, g = _nof_case(P, fcfg, an_f, n_r, s, gen, dev)
-        cases[(n_r, s)] = (spec, xyz, parts, ws, g)
+        case = _nof_case(P, fcfg, an_f, n_r, s, gen, dev,
+                         rechunk=s == STAGE2_POINTS)
+        spec, xyz, parts, ws, g = cases[(n_r, s)] = case
+        shape = f"N={xyz.shape[1]} S={xyz.shape[2]}"
         plain32 = None
         for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
-            tag = f"nof N={n_r} S={s} {dname}"
+            tag = f"nof {shape} {dname}"
             ko = nr.nof_fwd(spec, dt, xyz, parts, ws)
             ro = nr._nof_fwd_ref(spec, dt, xyz, parts, ws)
             torch.cuda.synchronize()
@@ -1218,6 +1245,16 @@ def phase_nof_kernels(dev, card: str,
                          f"{w_rel:.1e} of a tensor's max|ref|) over dxyz, "
                          f"{len(kb[1])} d(partial) and {len(kb[2])} dW "
                          "(tolerance: TRAIN_TOL)")
+                rows = xyz.shape[1] * xyz.shape[2]
+                want_b = nc.scratch_bytes(nc._ChainSpec(spec, False, False),
+                                          dt, rows)
+                got_b = _args.run_chunks.last["scratch_bytes"]
+                line += (f"; scratch {got_b} bytes ({got_b / rows:.0f} a "
+                         f"row, reckoned {want_b}) in "
+                         f"{_args.run_chunks.last['chunks']} chunk(s)")
+                if got_b != want_b:
+                    raise AssertionError(f"{tag}: scratch {got_b} bytes, "
+                                         f"reckoned {want_b}")
             log(line)
             if dname == "fp32":
                 plain32 = (ro, rb)
@@ -1225,15 +1262,18 @@ def phase_nof_kernels(dev, card: str,
     # per-ray partials, the weights in the compute type), each output
     # written once (warped or dxyz 12 B a row, dW fp32)
     step_shape, val_shape = sizes[0][:2], sizes[-1][:2]
+    stage2 = next(sz[:2] for sz in sizes if sz[1] == STAGE2_POINTS)
     n_w = sum(w.numel() for w in cases[step_shape][3])
     n_p = len(cases[step_shape][2])
     times = {}
     shapes = [("nof_fwd", step_shape), ("nof_bwd", step_shape),
+              ("nof_fwd", stage2), ("nof_bwd", stage2),
               ("nof_fwd", val_shape)]
     for dname, dt in (("bf16", torch.bfloat16), ("fp32", None)):
         wb = 2 if dt is not None else 4
-        for name, (n_r, s) in shapes:
-            spec, xyz, parts, ws, g = cases[(n_r, s)]
+        for name, key in shapes:
+            spec, xyz, parts, ws, g = cases[key]
+            n_r, s = xyz.shape[1], xyz.shape[2]
             rows, part_b = n_r * s, n_r * 128 * 4 * n_p
             if name == "nof_fwd":
                 kern = lambda: nr.nof_fwd(spec, dt, xyz, parts, ws)  # noqa: E731
@@ -1248,12 +1288,18 @@ def phase_nof_kernels(dev, card: str,
             k_ms = cuda_ms(kern, reps=5)
             p_ms = cuda_ms(plain, reps=5)
             b_ms, b_by = bound_ms(flops, nbytes, dname)
-            if dname == "bf16" and (n_r, s) == step_shape:
+            if dname == "bf16" and key == step_shape:
                 times[name] = (k_ms, p_ms, b_ms, b_by)
             log(f"[9 nof kernels] {name} {dname} N={n_r} S={s}, one launch: "
                 f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
                 f"{b_ms:.5f} ms ({b_by}: {flops / 1e9:.3f} GFLOP, "
                 f"{nbytes / 1e6:.2f} MB) on {card}")
+        spec, xyz, parts, ws, g = cases[stage2]
+        split = _device_split(lambda: nr.nof_bwd(spec, dt, xyz, parts, ws, g),
+                              BWD_GROUPS)
+        log(f"[9 nof kernels] nof_bwd {dname} at stage 2's shape, device ms "
+            "by part: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f" on {card}")
     torch.cuda.synchronize()
     return {"err": err, "times": times}
 

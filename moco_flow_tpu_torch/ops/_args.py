@@ -1,4 +1,5 @@
-"""Argument arrays of the training kernels (``csrc/mlp_tile.cuh``).
+"""Argument arrays of the training kernels (``csrc/nerf_rays.cu``,
+``csrc/chain_bwd.cu``) and of the forward MLP kernels.
 
 The kernels take one int64 array over a plain C interface: integers as
 they are, pointers as ``tensor.data_ptr()``. ``Operands`` keeps every tensor
@@ -8,11 +9,14 @@ the gradient of the folded operand ``i`` sits at ``offset[i]``, in operand
 order, so splitting the buffer by the operands' sizes gives the gradients
 in the order autograd returns them.
 
-The forward kernels #7 / #8 take their weights in their products' own
-layouts (``fwd_ops``): the row-tile operands of the split-TF32 product in
-fp32 (``row_op``), and in bf16 the shared-memory images of the wgmma tile's
-weight slices (``wg_pack``, ``wg_pack_all``), which one bulk copy each
-brings into shared memory.
+The training kernels (#1-#6) take each weight, and in a backward its
+transpose, as the B operand of a row-tile product (``row_ops``), all of a
+launch built by one gather (``Operands.row``). The forward kernels #7 / #8
+take their weights in their products' own layouts (``fwd_ops``): the
+row-tile operands of the split-TF32 product in fp32 (``row_ops``), and in
+bf16 the shared-memory images of the wgmma tile's weight slices
+(``wg_pack``, ``wg_pack_all``), which one bulk copy each brings into
+shared memory.
 """
 
 from __future__ import annotations
@@ -26,20 +30,31 @@ import torch
 from ..nn.embedding import freq_bands
 from .folds import _trunk_layers
 
-MAX_DEPTH = 8        # mlp_tile.cuh kMaxDepth
-MAX_WIDTH = 256      # mlp_tile.cuh kMaxWidth
-# The backward kernels #2 / #6 (row_tile.cuh, wgrad.cuh): rows per split of
-# the long-K weight-gradient products (a multiple of the 128-row tile), and
-# the most scratch one launch may take; a call above it runs in chunks of
-# whole rays, each a whole number of splits, so it gives the same bits.
+MAX_DEPTH = 8        # chain_bwd.cu / nerf_rays.cu kMaxDepth
+MAX_WIDTH = 256      # pass_tile.cuh kMaxWidth
+# The backward kernels #2 / #4 / #6 (row_tile.cuh, wgrad.cuh): rows per
+# split of the long-K weight-gradient products (a multiple of the 128-row
+# tile), and the most scratch one launch may take; a call above it runs in
+# chunks of whole rays, each a whole number of splits, so it gives the same
+# bits.
 SPLIT_ROWS = 8192
 SCRATCH_CAP = 4 << 30
+
+
+class _Row:
+    """A row-tile operand asked for with ``Operands.row``, built with the
+    launch's others when its argument array is made (``Operands.array``)."""
+    __slots__ = ("i",)
+
+    def __init__(self, i: int):
+        self.i = i
 
 
 class Operands:
     def __init__(self, name: str, device: torch.device, dtype: torch.dtype):
         self.name, self.device, self.dtype = name, device, dtype
         self.keep = []
+        self.rows, self.row_ptrs = [], []
 
     def check(self, cond: bool, msg: str):
         if not cond:
@@ -54,42 +69,96 @@ class Operands:
         self.keep.append(t)
         return t.data_ptr()
 
-    def mat(self, w) -> list:
-        """A (K, N) matrix in the storage type, and its transpose."""
-        m = w.to(self.dtype)
-        return [self.ptr(m.contiguous()), self.ptr(m.T.contiguous())]
-
     def vec(self, b) -> int:
         return self.ptr(b.float().reshape(-1).contiguous())
 
+    def row(self, w, transposed: bool = False) -> _Row:
+        """The row-tile operand of a (K, N) matrix w or of its transpose
+        (``row_ops``), built later with the launch's others."""
+        self.rows.append((w, transposed))
+        return _Row(len(self.rows) - 1)
+
+    def array(self, args) -> np.ndarray:
+        """``as_array`` of ``args``, their ``row`` operands built first, all
+        that are not built yet in one gather."""
+        new = self.rows[len(self.row_ptrs):]
+        if new:
+            buf, offs = row_ops(new, self.dtype)
+            base = self.ptr(buf)
+            self.row_ptrs += [base + buf.element_size() * o for o in offs]
+        return as_array([self.row_ptrs[a.i] if isinstance(a, _Row) else a
+                         for a in args])
+
     def bands(self, kc: int, logscale: bool) -> int:
-        return self.ptr(torch.from_numpy(freq_bands(kc // 3, logscale))
-                        .to(self.device))
+        """The PE's frequency bands on the device, copied there once."""
+        key = (kc, logscale, str(self.device))
+        if key not in _BANDS:
+            _BANDS[key] = torch.from_numpy(
+                freq_bands(kc // 3, logscale)).to(self.device)
+        return self.ptr(_BANDS[key])
+
+
+_BANDS = {}   # (kc, logscale, device) -> the bands (Operands.bands)
 
 
 def _pad16(x: int) -> int:
     return -(-x // 16) * 16
 
 
-def row_op(ops: Operands, b) -> int:
-    """The B operand (K, N) of a row-tile product (row_tile.cuh), in the
-    storage type: bf16 B^T zero-padded to (pad16(N), pad16(K)), fp32 B
-    zero-padded to (K, pad16(N)). Each is one copy at most (none for a
-    contiguous fp32 B without padding): the copies are host-side launches
-    of every call."""
-    k, n = b.shape
-    bf16 = ops.dtype == torch.bfloat16
-    src = b.T if bf16 else b
-    shape = (_pad16(n), _pad16(k)) if bf16 else (k, _pad16(n))
-    if tuple(src.shape) != shape:
-        out = torch.zeros(shape, dtype=ops.dtype, device=ops.device)
-        out[:src.shape[0], :src.shape[1]] = src
-    elif src.dtype == ops.dtype and src.is_contiguous():
-        out = src
-    else:
-        out = torch.empty(shape, dtype=ops.dtype, device=ops.device)
-        out.copy_(src)
-    return ops.ptr(out)
+_ROW_GATHER = {}   # (shapes, requests, dtype, device) -> (index, offsets)
+_ZERO = {}         # (dtype, device) -> a one-element zero
+
+
+def row_ops(mats: list, dtype: torch.dtype) -> tuple:
+    """The B operands (K, N) of a launch's row-tile products (row_tile.cuh)
+    in one buffer of the storage type, and each one's offset in it
+    (elements; each a multiple of 16 bytes): bf16 B^T zero-padded to
+    (pad16(N), pad16(K)), fp32 B zero-padded to (K, pad16(N)). ``mats``
+    holds (w, transposed): B is w, or w^T (a backward's input-gradient
+    operand, read from the same values). One gather from the matrices'
+    values: its index depends only on their shapes and is built once per
+    set of shapes."""
+    dev = mats[0][0].device
+    srcs, seen, req = [], {}, []
+    for w, t in mats:
+        src = w.contiguous()
+        key = (src.data_ptr(), tuple(src.shape), src.dtype)
+        if key not in seen:
+            seen[key] = len(srcs)
+            srcs.append(src)
+        req.append((seen[key], t))
+    bf16 = dtype == torch.bfloat16
+    key = (tuple(tuple(q.shape) for q in srcs), tuple(req), bf16, str(dev))
+    if key not in _ROW_GATHER:
+        bases, at = [], 0
+        for q in srcs:
+            bases.append(at)
+            at += q.numel()
+        zero, parts, offs, at = at, [], [], 0
+        for si, t in req:
+            rr, cc = srcs[si].shape
+            k_, n_ = (cc, rr) if t else (rr, cc)
+            k = torch.arange(k_, device=dev)[:, None]
+            n = torch.arange(n_, device=dev)[None, :]
+            flat = bases[si] + (n * cc + k if t else k * cc + n)  # B[k, n]
+            if bf16:
+                out = torch.full((_pad16(n_), _pad16(k_)), zero,
+                                 dtype=torch.int64, device=dev)
+                out[:n_, :k_] = flat.T
+            else:
+                out = torch.full((k_, _pad16(n_)), zero, dtype=torch.int64,
+                                 device=dev)
+                out[:, :n_] = flat
+            parts.append(out.reshape(-1))
+            offs.append(at)
+            at += out.numel()
+        _ROW_GATHER[key] = (torch.cat(parts), offs)
+    idx, offs = _ROW_GATHER[key]
+    zkey = (srcs[0].dtype, str(dev))
+    if zkey not in _ZERO:
+        _ZERO[zkey] = torch.zeros(1, dtype=srcs[0].dtype, device=dev)
+    vals = torch.cat([q.reshape(-1) for q in srcs] + [_ZERO[zkey]])
+    return torch.index_select(vals.to(dtype), 0, idx), offs
 
 
 # The bf16 forward kernels #7 / #8 (csrc/wg_tile.cuh): a product's weights
@@ -164,10 +233,13 @@ def wg_pack_all(ws: list) -> tuple:
 def fwd_ops(ops: Operands, ws: list) -> list:
     """The (K, N) weights of a launch of the forward kernels #7 / #8 (None
     entries give 0): in bf16 pointers into one buffer of slice images
-    (``wg_pack_all``), in fp32 the row-tile operands (``row_op``)."""
+    (``wg_pack_all``), in fp32 into one of row-tile operands
+    (``row_ops``)."""
     real = [w for w in ws if w is not None]
-    if ops.dtype != torch.bfloat16:
-        it = iter([row_op(ops, w) for w in real])
+    if ops.dtype != torch.bfloat16 and real:
+        buf, offs = row_ops([(w, False) for w in real], ops.dtype)
+        base = ops.ptr(buf)
+        it = iter([base + 4 * o for o in offs])
     elif real:
         buf, offs = wg_pack_all(real)
         base = ops.ptr(buf)
@@ -176,8 +248,9 @@ def fwd_ops(ops: Operands, ws: list) -> list:
 
 
 def _fb(ops: Operands, w, backward: bool) -> list:
-    """(forward operand, input-gradient operand, or 0 without backward)."""
-    return [row_op(ops, w), row_op(ops, w.T) if backward else 0]
+    """(forward operand, input-gradient operand, or 0 without backward), as
+    ``Operands.row`` operands."""
+    return [ops.row(w), ops.row(w, transposed=True) if backward else 0]
 
 
 def row_mat(ops: Operands, ws, off, iw: int, ib: int,
@@ -207,26 +280,30 @@ def row_layers(ops: Operands, ws, off, depth: int, skips: tuple,
 
 
 def run_chunks(ops: Operands, lib, prefix: str, n: int, s: int, total: int,
-               make_args) -> torch.Tensor:
-    """Run a backward kernel (#2 ``nerf_bwd``, #6 ``chain_bwd``) over n rays
-    of s samples in chunks of whole rays whose scratch fits SCRATCH_CAP, and
-    sum the chunks' weight-gradient splits in order (``wgrad_reduce``).
+               make_args, error: str | None = None) -> torch.Tensor:
+    """Run a backward kernel (#2 ``nerf_bwd``, #4 ``nof_bwd``, #6
+    ``chain_bwd``) over n rays of s samples in chunks of whole rays whose
+    scratch fits SCRATCH_CAP, and sum the chunks' weight-gradient splits in
+    order (``wgrad_reduce``). The library's ``<prefix>_scratch_bytes`` and
+    ``<prefix>_launch`` run it, ``error`` (default ``<prefix>_error``) names
+    its codes.
 
     ``make_args(r0, r1, part, scratch)`` returns the argument array of rays
     [r0, r1) and a function to call once that chunk is queued (or None);
     ``part`` and ``scratch`` are None when only the scratch size is asked.
     Returns the flat fp32 gradient (total,)."""
+    err_fn = getattr(lib, error or f"{prefix}_error")
+
     def scratch_bytes(rays: int) -> int:
         b = call(getattr(lib, f"{prefix}_scratch_bytes"),
                  make_args(0, rays, None, None)[0])
         if b < 0:
-            raise RuntimeError(f"{ops.name}: "
-                               f"{getattr(lib, prefix + '_error')(b).decode()}"
-                               f" ({b})")
+            raise RuntimeError(f"{ops.name}: {err_fn(b).decode()} ({b})")
         return b
 
     q = SPLIT_ROWS // math.gcd(SPLIT_ROWS, s)  # rays in a whole number of splits
-    if scratch_bytes(n) <= SCRATCH_CAP:
+    whole = scratch_bytes(n)
+    if whole <= SCRATCH_CAP:
         spans = [(0, n)]
     else:
         per = SCRATCH_CAP // scratch_bytes(q) * q
@@ -239,8 +316,8 @@ def run_chunks(ops: Operands, lib, prefix: str, n: int, s: int, total: int,
     n_split = -(-rows_padded // SPLIT_ROWS)
     part = torch.empty((n_split, total), dtype=torch.float32,
                        device=ops.device)
-    scratch = torch.empty((scratch_bytes(spans[0][1] - spans[0][0]),),
-                          dtype=torch.uint8, device=ops.device)
+    first = whole if len(spans) == 1 else scratch_bytes(spans[0][1])
+    scratch = torch.empty((first,), dtype=torch.uint8, device=ops.device)
     run_chunks.last = {"scratch_bytes": scratch.numel(), "chunks": len(spans)}
     run_chunks.max_scratch = max(run_chunks.max_scratch, scratch.numel())
     stream = torch.cuda.current_stream(ops.device).cuda_stream
@@ -250,8 +327,7 @@ def run_chunks(ops: Operands, lib, prefix: str, n: int, s: int, total: int,
         rc = call(launch, arr, stream)
         if rc != 0:
             raise RuntimeError(f"{ops.name} kernel failed to launch: "
-                               f"{getattr(lib, prefix + '_error')(rc).decode()}"
-                               f" ({rc})")
+                               f"{err_fn(rc).decode()} ({rc})")
         if after is not None:
             after()
     dw = torch.empty((total,), dtype=torch.float32, device=ops.device)
@@ -277,34 +353,6 @@ def offsets(ws, base: int = 0):
     return out, o
 
 
-def net_block(ops: Operands, ws, off, depth: int, width: int, kc: int,
-              skips: tuple, logscale: bool, with_head: bool) -> list:
-    """read_net's block: depth, width, kc, n_out, bands, 8 layers of
-    (wpe, wpe^T, wh, wh^T, b, g_wpe, g_wh, g_b), head (w, w^T, b, g_w, g_b).
-    With ``with_head`` the two operands after the trunk are the head."""
-    ops.check(1 <= depth <= MAX_DEPTH, f"depth {depth} not in 1..{MAX_DEPTH}")
-    ops.check(2 <= width <= MAX_WIDTH, f"width {width} not in 2..{MAX_WIDTH}")
-    idx, rest = _trunk_layers(list(range(len(ws))), depth, skips)
-    n_out = ws[rest[0]].shape[-1] if with_head else 0
-    blk = [depth, width, kc, n_out, ops.bands(kc, logscale)]
-    for layer in range(MAX_DEPTH):
-        if layer < depth:
-            ipe, ih, ib = idx[layer]
-            pe = ops.mat(ws[ipe]) if ipe is not None else [0, 0]
-            h = ops.mat(ws[ih]) if ih is not None else [0, 0]
-            blk += pe + h + [ops.vec(ws[ib]),
-                             off[ipe] if ipe is not None else 0,
-                             off[ih] if ih is not None else 0, off[ib]]
-        else:
-            blk += [0] * 8
-    if with_head:
-        iw, ib = rest[0], rest[1]
-        blk += ops.mat(ws[iw]) + [ops.vec(ws[ib]), off[iw], off[ib]]
-    else:
-        blk += [0] * 5
-    return blk
-
-
 def as_array(args) -> np.ndarray:
     return np.asarray(args, dtype=np.int64)
 
@@ -320,7 +368,3 @@ def split(flat: torch.Tensor, ws) -> list:
         out.append(flat[o:o + w.numel()].view(w.shape))
         o += w.numel()
     return out
-
-
-def sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -97,24 +97,20 @@ def load_library() -> ctypes.CDLL:
     lib.render_pass_error.restype = ctypes.c_char_p
     args = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     for name in ("nerf_fwd_launch", "nerf_bwd_launch", "chain_fwd_launch",
-                 "chain_bwd_launch",
-                 "nof_rays_fwd_launch", "nof_rays_bwd_launch",
+                 "chain_bwd_launch", "nof_fwd_launch", "nof_bwd_launch",
                  "fused_mlp_nerf_launch", "fused_mlp_nof_launch",
                  "wg_probe_launch"):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = ctypes.c_int
-    for name in ("nerf_bwd_scratch_bytes", "chain_bwd_scratch_bytes"):
+    for name in ("nerf_bwd_scratch_bytes", "chain_bwd_scratch_bytes",
+                 "nof_bwd_scratch_bytes"):
         getattr(lib, name).argtypes = args[:2]
         getattr(lib, name).restype = ctypes.c_int64
     lib.wgrad_reduce.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_int64, ctypes.c_void_p,
                                  ctypes.c_void_p]
     lib.wgrad_reduce.restype = ctypes.c_int
-    lib.nof_rays_tile_rows.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                       ctypes.c_int]
-    lib.nof_rays_tile_rows.restype = ctypes.c_int
-    for name in ("nerf_bwd_error", "chain_bwd_error",
-                 "nof_rays_error", "fused_mlp_error"):
+    for name in ("nerf_bwd_error", "chain_bwd_error", "fused_mlp_error"):
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_char_p
     return lib

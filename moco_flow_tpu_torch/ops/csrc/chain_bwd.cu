@@ -1,10 +1,13 @@
 // The NoF warp chain of the training step for Hopper (sm_90a): its forward
-// (kernel #5) and its backward (kernel #6).
+// (kernel #5) and its backward (kernel #6); and the single NoF warp, its
+// forward (kernel #3) and backward (kernel #4), which are the chain's first
+// stage alone.
 //
 // Replaces the TPU kernels moco_flow_tpu/ops/megakernel.py::_chain_fwd_call
-// and ::_chain_bwd_call (via nof_chain_rays_t / _chain_op): up to five NoF
-// evaluations a sample (_chain_stages: bw@ind -> cano; fw@ind -> recon;
-// fw@chained -> bw@chained -> fw@ind -> chain_recon), each the packed PE
+// and ::_chain_bwd_call (via nof_chain_rays_t / _chain_op), and
+// ::_nof_fwd_call and ::_nof_bwd_call (via nof_fused_rays / _nof_op): up to
+// five NoF evaluations a sample (_chain_stages: bw@ind -> cano; fw@ind ->
+// recon; fw@chained -> bw@chained -> fw@ind -> chain_recon), each the packed PE
 // [x; sin; cos], a ReLU trunk with per-ray frame partials added at layer 0
 // and at the skip layer, and the log-quaternion (or offset) head. The
 // backward recomputes them, then runs their VJPs in reverse (global, local,
@@ -34,6 +37,10 @@
 //       that uses the net (the stages as pieces, in stage order); bias
 //       gradients as column sums, each partial set's gradients as
 //       segmented row sums over the stages that use the set.
+// #3 and #4 run the same device code on arguments with one stage (bw@ind,
+// the caller's net and partials; no fw net) through entry points of their
+// own (nof_fwd_kernel; nof_fwd_pass, nof_walk_pass), so a profile and the
+// launch counts tell them apart from #5 / #6.
 // Rounding follows _nof_tile / _nof_bwd_tile: activations, embeddings, dz
 // and the head cotangent stored in T, fp32 accumulation, explicitly rounded
 // elementwise steps.
@@ -224,6 +231,20 @@ chain_fwd_kernel(const CB a) {
   chain_tile<T, true>(a, smem);
 }
 
+// #4's pass (a): chain_fwd_pass on one stage
+template <typename T>
+__global__ void __launch_bounds__(kRTThreads, 1) nof_fwd_pass(const CB a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  chain_tile<T, false>(a, smem);
+}
+
+// kernel #3: chain_fwd_kernel on one stage
+template <typename T>
+__global__ void __launch_bounds__(kRTThreads, 1) nof_fwd_kernel(const CB a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  chain_tile<T, true>(a, smem);
+}
+
 template <typename T>
 __device__ __forceinline__ void masked(T* dst, const T* act, float u0,
                                        float u1) {
@@ -233,8 +254,7 @@ __device__ __forceinline__ void masked(T* dst, const T* act, float u0,
 
 // (b) the backward walk of one 128-row tile through the stages in reverse
 template <typename T>
-__global__ void __launch_bounds__(kRTThreads, 1) chain_walk_pass(const CB a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__device__ __forceinline__ void chain_walk(const CB& a, unsigned char* smem) {
   const int W = a.width, kp = 3 + 2 * a.kc, D = a.depth;
   const int e_ld = tile_ld<T>(kp), h_ld = tile_ld<T>(W), de_ld = pad16(kp);
   float* X = reinterpret_cast<float*>(smem);      // [3][kRT] stage input
@@ -333,6 +353,19 @@ __global__ void __launch_bounds__(kRTThreads, 1) chain_walk_pass(const CB a) {
     const int64_t gi = row0 + i % kRT;
     if (gi < a.rows) a.dx[(i / kRT) * a.rows + gi] = Gu[i];
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRTThreads, 1) chain_walk_pass(const CB a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  chain_walk<T>(a, smem);
+}
+
+// #4's pass (b): chain_walk_pass on one stage
+template <typename T>
+__global__ void __launch_bounds__(kRTThreads, 1) nof_walk_pass(const CB a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  chain_walk<T>(a, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -451,6 +484,7 @@ void jobs(const Decoded& d, wg::Call* mat, wg::Call* col, wg::SegCall* seg) {
     c->n_jobs = 0;
   }
   for (int net = 0; net < 2; ++net) {
+    if (!a.net[net].head.f) continue;  // #4 passes no fw net
     int st[kMaxStages], ns = 0;        // the stages of this net, in order
     for (int si = 0; si < a.n_stages; ++si)
       if (a.stage_net[si] == net) st[ns++] = si;
@@ -517,13 +551,49 @@ void jobs(const Decoded& d, wg::Call* mat, wg::Call* col, wg::SegCall* seg) {
 }
 
 template <typename T>
-int run_passes(const CB& a, cudaStream_t s) {
+int run_passes(const CB& a, bool nof, cudaStream_t s) {
   const unsigned blocks = static_cast<unsigned>(a.rp / kRT);
-  int rc = launch(chain_fwd_pass<T>, fwd_smem<T, false>(a), blocks,
-                  kRTThreads, s, a);
+  int rc = launch(nof ? nof_fwd_pass<T> : chain_fwd_pass<T>,
+                  fwd_smem<T, false>(a), blocks, kRTThreads, s, a);
   if (rc) return rc;
-  return launch(chain_walk_pass<T>, walk_smem<T>(a), blocks, kRTThreads, s,
-                a);
+  return launch(nof ? nof_walk_pass<T> : chain_walk_pass<T>, walk_smem<T>(a),
+                blocks, kRTThreads, s, a);
+}
+
+// #3 / #4 take the chain's arguments with one stage, bw@ind (set 0, net 0)
+int decode_nof(const int64_t* p, int n, Decoded* d) {
+  const int rc = decode(p, n, d);
+  if (rc) return rc;
+  const CB& a = d->a;
+  return a.n_stages == 1 && !a.chain_local && !a.chain_global &&
+                 a.stage_net[0] == 0 && a.stage_set[0] == 0
+             ? 0
+             : -2;
+}
+
+// passes (a), (b), (c) of one chunk of whole rays (#4 or #6)
+int run_backward(const Decoded& d, bool nof, cudaStream_t s) {
+  if (d.a.rows <= 0) return 0;
+  int rc = d.a.bf16 ? run_passes<bf16>(d.a, nof, s)
+                    : run_passes<float>(d.a, nof, s);
+  if (rc) return rc;
+  wg::Call mat, col;
+  wg::SegCall seg;
+  jobs(d, &mat, &col, &seg);
+  if ((rc = wg::matrix_launch(mat, s))) return rc;
+  if ((rc = wg::colsum_launch(col, s))) return rc;
+  return wg::segsum_launch(seg, s);
+}
+
+// the forward of all stages (#3 or #5)
+int run_forward(const CB& a, bool nof, cudaStream_t s) {
+  if (a.rows <= 0) return 0;
+  const unsigned blocks = static_cast<unsigned>(a.rp / kRT);
+  if (a.bf16)
+    return launch(nof ? nof_fwd_kernel<bf16> : chain_fwd_kernel<bf16>,
+                  fwd_smem<bf16, true>(a), blocks, kRTThreads, s, a);
+  return launch(nof ? nof_fwd_kernel<float> : chain_fwd_kernel<float>,
+                fwd_smem<float, true>(a), blocks, kRTThreads, s, a);
 }
 
 }  // namespace
@@ -541,18 +611,9 @@ extern "C" int64_t chain_bwd_scratch_bytes(const int64_t* p, int n) {
 // done), partial gradients to dparts_out, dxyz to dx.
 extern "C" int chain_bwd_launch(const int64_t* p, int n, void* stream) {
   Decoded d;
-  int rc = decode(p, n, &d);
-  if (rc) return rc;
-  if (d.a.rows <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rc = d.a.bf16 ? run_passes<bf16>(d.a, s) : run_passes<float>(d.a, s);
-  if (rc) return rc;
-  wg::Call mat, col;
-  wg::SegCall seg;
-  jobs(d, &mat, &col, &seg);
-  if ((rc = wg::matrix_launch(mat, s))) return rc;
-  if ((rc = wg::colsum_launch(col, s))) return rc;
-  return wg::segsum_launch(seg, s);
+  const int rc = decode(p, n, &d);
+  return rc ? rc
+            : run_backward(d, false, static_cast<cudaStream_t>(stream));
 }
 
 // Kernel #5 on the arguments of chain_bwd_launch: the three cotangent
@@ -562,15 +623,33 @@ extern "C" int chain_bwd_launch(const int64_t* p, int n, void* stream) {
 extern "C" int chain_fwd_launch(const int64_t* p, int n, void* stream) {
   Decoded d;
   const int rc = decode(p, n, &d);
-  if (rc) return rc;
-  const CB& a = d.a;
-  if (a.rows <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = static_cast<unsigned>(a.rp / kRT);
-  return a.bf16 ? launch(chain_fwd_kernel<bf16>, fwd_smem<bf16, true>(a),
-                         blocks, kRTThreads, s, a)
-                : launch(chain_fwd_kernel<float>, fwd_smem<float, true>(a),
-                         blocks, kRTThreads, s, a);
+  return rc ? rc
+            : run_forward(d.a, false, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel #4 (the single warp's backward): chain_bwd_scratch_bytes and
+// chain_bwd_launch on arguments with one stage, bw@ind, and the fw net's
+// operands 0.
+extern "C" int64_t nof_bwd_scratch_bytes(const int64_t* p, int n) {
+  Decoded d;
+  const int rc = decode_nof(p, n, &d);
+  return rc ? rc : d.a.lay.end;
+}
+
+extern "C" int nof_bwd_launch(const int64_t* p, int n, void* stream) {
+  Decoded d;
+  const int rc = decode_nof(p, n, &d);
+  return rc ? rc
+            : run_backward(d, true, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel #3 (the single warp's forward): chain_fwd_launch on the same
+// one-stage arguments.
+extern "C" int nof_fwd_launch(const int64_t* p, int n, void* stream) {
+  Decoded d;
+  const int rc = decode_nof(p, n, &d);
+  return rc ? rc
+            : run_forward(d.a, true, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* chain_bwd_error(int code) {

@@ -207,7 +207,7 @@ def _fwd_launch(spec: _NerfSpec, dt, xyz_t, p_e, ws):
     xyz = xyz_t.reshape(3, n * s).float().contiguous()
     out = torch.empty((1 if spec.sigma_only else 4, n, s),
                       dtype=torch.float32, device=dev)
-    arr = _args.as_array(
+    arr = ops.array(
         _scalars(spec, dt, n, s) + [_args.SPLIT_ROWS, 0, 0]
         + [ops.bands(spec.kc, spec.logscale), ops.ptr(xyz), ops.ptr(out), 0,
            ops.ptr(p), 0, 0, 0] + blk)
@@ -250,7 +250,7 @@ def _bwd_launch(spec: _NerfSpec, dt, xyz_t, p_e, ws, g):
                     ops.ptr(scratch)]
             if not whole:
                 after = lambda: dx[:, a:b].copy_(dx_c)  # noqa: E731
-        return _args.as_array(
+        return ops.array(
             _scalars(spec, dt, r1 - r0, s)
             + [_args.SPLIT_ROWS, a // _args.SPLIT_ROWS, total, bands] + ptrs
             + blk), after

@@ -249,64 +249,100 @@ def _by_slot(spec: _ChainSpec, ts, ops: _args.Operands):
     return out
 
 
+_NET_ARGS = 8 * _args.MAX_DEPTH + 5   # csrc/chain_bwd.cu kNetArgs
+
+
 def _operands(spec: _ChainSpec, n_pe, n, parts, ws_bw, ws_fw, ops,
               backward: bool):
-    """The parts of ``csrc/chain_bwd.cu``'s argument array that #5 and #6
+    """The parts of ``csrc/chain_bwd.cu``'s argument array that #3-#6
     share: (the chain's scalars, the stage table, the nets' block, the flat
-    gradient's size)."""
+    gradient's size). ``ws_fw`` None (the single warp #3 / #4): the fw
+    net's operands are 0 and the gradient holds the bw net's alone."""
     nof = spec.nof
     w = nof.width
     ops.check(w % 32 == 0 and 32 <= w <= _args.MAX_WIDTH,
               f"width {w}: a multiple of 32 up to {_args.MAX_WIDTH}")
     body = _stage_args(spec, n_pe, n, parts, ops)
-    off_bw, end_bw = _args.offsets(ws_bw)
-    off_fw, total = _args.offsets(ws_fw, end_bw)
-    nets = []
-    for ws, off in ((ws_bw, off_bw), (ws_fw, off_fw)):
-        nets += (_args.row_layers(ops, ws[:-2], off, nof.depth, nof.skips,
-                                  backward)
-                 + _args.row_mat(ops, ws, off, len(ws) - 2, len(ws) - 1,
-                                 backward))
+
+    def net(ws, off):
+        return (_args.row_layers(ops, ws[:-2], off, nof.depth, nof.skips,
+                                 backward)
+                + _args.row_mat(ops, ws, off, len(ws) - 2, len(ws) - 1,
+                                backward))
+
+    off_bw, total = _args.offsets(ws_bw)
+    nets = net(ws_bw, off_bw)
+    if ws_fw is None:
+        nets += [0] * _NET_ARGS
+    else:
+        off_fw, total = _args.offsets(ws_fw, total)
+        nets += net(ws_fw, off_fw)
     head = [len(_chain_stages(spec)), int(nof.use_quat),
             int(spec.chain_local), int(spec.chain_global), n_pe, nof.depth,
             w, nof.kc, ws_bw[-2].shape[-1]]
     return head, body, nets, total
 
 
-def _fwd_launch(spec: _ChainSpec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw):
-    from ._build import load_library
-    lib = load_library()
+def _fwd_args(spec: _ChainSpec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw,
+              ops: _args.Operands):
+    """The forward's argument array (the outputs in the cotangent slots)
+    and its outputs, allocated."""
     nof = spec.nof
     n, s = xyz_t.shape[1], xyz_t.shape[2]
-    dev = xyz_t.device
-    ops = _args.Operands("chain_fwd", dev, _storage(dt))
     head, body, nets, _ = _operands(spec, n_pe, n, parts, ws_bw, ws_fw, ops,
                                     backward=False)
     xyz = xyz_t.reshape(3, n * s).float().contiguous()
     n_out = 1 + int(spec.chain_local) + int(spec.chain_global)
-    outs = [torch.empty((3, n, s), dtype=torch.float32, device=dev)
+    outs = [torch.empty((3, n, s), dtype=torch.float32, device=ops.device)
             for _ in range(n_out)]
     ptrs = ([ops.bands(nof.kc, nof.logscale), ops.ptr(xyz)]
             + _by_slot(spec, outs, ops) + [0, 0, 0]
             + _part_ptrs([p.float().contiguous() for p in parts], n_pe, ops)
             + [0] * (_MAX_SETS * _MAX_PE))
-    arr = _args.as_array([1 if dt == torch.bfloat16 else 0, n, s] + head
-                         + [_args.SPLIT_ROWS, 0, 0] + body + ptrs + nets)
-    rc = _args.call(lib.chain_fwd_launch, arr,
+    arr = ops.array([1 if dt == torch.bfloat16 else 0, n, s] + head
+                    + [_args.SPLIT_ROWS, 0, 0] + body + ptrs + nets)
+    return arr, outs
+
+
+def scratch_bytes(spec: _ChainSpec, dt, rows: int) -> int:
+    """The backward's device scratch for ``rows`` rows (``csrc/
+    chain_bwd.cu::layout``): per stage and row (rows padded to the 128-row
+    tile) the input x (4 fp32), the packed PE, each activation, the head
+    output (16 fp32), each layer's dz, the head cotangent (16) and its fp32
+    value (16 fp32), in the storage type unless stated."""
+    nof, t = spec.nof, 2 if dt == torch.bfloat16 else 4
+    kp16 = -(-(3 + 2 * nof.kc) // 16) * 16
+    per_row = (16 + t * kp16 + 2 * nof.depth * t * nof.width + 64 + t * 16
+               + 64)
+    return len(_chain_stages(spec)) * per_row * (-(-rows // 128) * 128)
+
+
+def _fwd_launch(spec: _ChainSpec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw,
+                entry: str = "chain_fwd"):
+    """#5, or with ``entry`` "nof_fwd" and one stage #3: the outputs."""
+    from ._build import load_library
+    lib = load_library()
+    dev = xyz_t.device
+    ops = _args.Operands(entry, dev, _storage(dt))
+    arr, outs = _fwd_args(spec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw, ops)
+    rc = _args.call(getattr(lib, f"{entry}_launch"), arr,
                     torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"chain_fwd kernel failed to launch: "
+        raise RuntimeError(f"{entry} kernel failed to launch: "
                            f"{lib.chain_bwd_error(rc).decode()} ({rc})")
     return tuple(outs)
 
 
-def _bwd_launch(spec: _ChainSpec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw, gs):
+def _bwd_launch(spec: _ChainSpec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw, gs,
+                entry: str = "chain_bwd"):
+    """#6, or with ``entry`` "nof_bwd", one stage and ``ws_fw`` None #4:
+    (dxyz, [d partial], [dW])."""
     from ._build import load_library
     lib = load_library()
     nof = spec.nof
     n, s = xyz_t.shape[1], xyz_t.shape[2]
     dev = xyz_t.device
-    ops = _args.Operands("chain_bwd", dev, _storage(dt))
+    ops = _args.Operands(entry, dev, _storage(dt))
     for g in gs:
         ops.check(tuple(g.shape) == (3, n, s), f"cotangent {tuple(g.shape)}")
     head, body, nets, total = _operands(spec, n_pe, n, parts, ws_bw, ws_fw,
@@ -335,14 +371,15 @@ def _bwd_launch(spec: _ChainSpec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw, gs):
                     + _part_ptrs(list(dparts), n_pe, ops, rows))
             if not whole:
                 after = lambda: dx[:, a:b].copy_(dx_c)  # noqa: E731
-        return _args.as_array(
+        return ops.array(
             [1 if dt == torch.bfloat16 else 0, r1 - r0, s] + head
             + [_args.SPLIT_ROWS, a // _args.SPLIT_ROWS, total] + body
             + [bands] + ptrs + nets), after
 
-    dw = _args.run_chunks(ops, lib, "chain_bwd", n, s, total, make_args)
+    dw = _args.run_chunks(ops, lib, entry, n, s, total, make_args,
+                          error="chain_bwd_error")
     return (dx.view(3, n, s), list(dparts),
-            _args.split(dw, list(ws_bw) + list(ws_fw)))
+            _args.split(dw, list(ws_bw) + list(ws_fw or [])))
 
 
 def chain_fwd(spec: _ChainSpec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw):

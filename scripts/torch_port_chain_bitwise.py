@@ -21,7 +21,10 @@ how many of the saved tensors are bitwise equal and the max |diff| of the
 others. ``sass`` compares two builds of the kernel library
 (``build/torch_kernels/*/libmoco_kernels.so``) instruction by instruction
 (``cuobjdump -sass``, addresses and encodings left out) for the backward
-kernels' row-tile passes, which #1 and #5 share their code with.
+kernels' row-tile passes, which #1 and #5 share their code with, and in
+LIB_B the single warp's entry points (#3 ``nof_fwd_kernel``, #4
+``nof_fwd_pass`` / ``nof_walk_pass``) against the chain's (#5 / #6) whose
+device code they instantiate.
 """
 
 from __future__ import annotations
@@ -158,6 +161,12 @@ def sass(lib_a: str, lib_b: str):
                     if ln[:1] in "+-" and ln[:3] not in ("---", "+++")]
             print(f"  {len(diff)} lines differ, the first: "
                   + " | ".join(diff[:12]))
+    for name in sorted(k for k in b if re.match(r"\d+nof_fwd_(pass|kernel)"
+                                                r"|\d+nof_walk_pass", k)):
+        m = re.match(r"(\d+)nof_(.*)", name)   # mangled: length, name
+        twin = f"{int(m.group(1)) + 2}chain_{m.group(2)}"
+        print(f"B {name} vs {twin}: {len(b[name])} / {len(b.get(twin, []))} "
+              f"instructions, the same {b[name] == b.get(twin)}")
 
 
 if __name__ == "__main__":

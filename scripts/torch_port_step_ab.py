@@ -4,7 +4,7 @@ all its kernels, in two trees of this repository on one card, interleaved
 A, B, B, A.
 
     python scripts/torch_port_step_ab.py A_DIR B_DIR [--steps 10]
-        [--what step|render|kernels] [--pairs 3]
+        [--what step|render|kernels|nof|phases] [--pairs 3]
 
 Each directory is a checkout holding ``chip_smoke.py`` and
 ``moco_flow_tpu_torch/`` (for example a parent commit unpacked with ``git
@@ -23,9 +23,19 @@ launches each, N=1024, bf16 and fp32, mean of 3 after a warm pair; the
 forwards' plain versions too), the
 render pass #7 as above (with a 256x256 frame's own 8 launches) and #8 /
 #9 at chip_smoke.py phase 12's shapes, each with its plain version (fp32
-where the tree's chip_smoke.py times it). The runs go A B B A, ``--pairs`` times over (at least 3);
-beside every run the card's SM clock, memory clock
-and temperature as nvidia-smi reads them just before and just after it.
+where the tree's chip_smoke.py times it), and the single NoF warp #3 / #4
+as ``--what nof`` does. ``--what nof`` times only #3 / #4, bf16 and fp32,
+with their plain versions: the step's correspondence ray (1 x 2000,
+forward and backward), the val tile (16384 x 128, forward) and stage 2's
+200,000-point set in the shape the tree's ``nof_fused_rays`` launches the
+kernels with (forward and backward), and splits one stage-2 call of #4
+into device time by kernel name (torch.profiler) beside its wall time on
+the host clock. ``--what phases`` runs chip_smoke.py's phase 11 (the
+``msk`` / ``full`` steps and the val step at 108x108, bf16 and fp32) and
+reports its three times per dtype. The runs go A B B A, ``--pairs``
+times over (at least 3); beside every run the card's SM clock, memory
+clock and temperature as nvidia-smi reads them just before and just after
+it.
 Prints one JSON line per run and the card's name and power limit.
 """
 
@@ -50,6 +60,92 @@ if sys.argv[1] == "build":
 if sys.argv[1] == "render":
     times = cs.phase_kernel_vs_plain(torch.device("cuda"))["times"]
     print("MS " + json.dumps({k: v[0] for k, v in times.items()}),
+          flush=True)
+    sys.exit(0)
+NOF_ROWS = 200000     # stage 2: both NoFs' point set of init_nof.yaml
+
+
+def nof_times(dev):
+    # #3 / #4 at the step ray (1 x 2000, forward and backward), the val
+    # tile (16384 x 128, forward) and stage 2's 200k-point set (forward and
+    # backward) in the shape the tree's nof_fused_rays hands the kernels,
+    # each with its plain version, bf16 and fp32; and the device time of
+    # one stage-2 call of #4 by kernel name beside its host-clock wall time
+    import re
+    import time
+    from moco_flow_tpu_torch.nn.embedding import anneal_weights
+    from moco_flow_tpu_torch.ops import nof_rays as nr
+    gen = torch.Generator().manual_seed(2)
+    fcfg = cs.NoFConfig()
+    P = cs.init_nof(gen, fcfg, dev)
+    an_f = anneal_weights(505000, 5, 5000, 1005000).to(dev)
+    cases = {"ray": cs._nof_case(P, fcfg, an_f, 1, 2000, gen, dev),
+             "val": cs._nof_case(P, fcfg, an_f, 16384, 128, gen, dev)}
+    seen = {}
+    apply = nr._NofOp.apply
+
+    def grab(spec, dt, n_parts, xyz_t, *arrs):
+        seen["args"] = (spec, xyz_t, list(arrs[:n_parts]),
+                        list(arrs[n_parts:]))
+        return apply(spec, dt, n_parts, xyz_t, *arrs)
+
+    nr._NofOp.apply = grab
+    try:
+        nr.nof_fused_rays(P, fcfg, 5, True, an_f,
+                          (0.6 * torch.randn(1, NOF_ROWS, 3,
+                                             generator=gen)).to(dev),
+                          torch.randn(1, 33, generator=gen).to(dev))
+    finally:
+        nr._NofOp.apply = apply
+    spec, xyz, parts, ws = seen["args"]
+    g = (torch.randn(tuple(xyz.shape), generator=gen)
+         / NOF_ROWS ** 0.5).to(dev)
+    cases["stage2"] = (spec, xyz, parts, ws, g)
+    out = {"stage2 kernel shape": list(xyz.shape[1:])}
+    for dname, dt in (("bf16", torch.bfloat16), ("fp32", None)):
+        for shape, bwd in (("ray", True), ("val", False), ("stage2", True)):
+            spec, xyz, parts, ws, g = cases[shape]
+            calls = {"nof_fwd": lambda: nr.nof_fwd(spec, dt, xyz, parts, ws),
+                     "nof_fwd plain": lambda: nr._nof_fwd_ref(spec, dt, xyz,
+                                                              parts, ws)}
+            if bwd:
+                calls["nof_bwd"] = lambda: nr.nof_bwd(spec, dt, xyz, parts,
+                                                      ws, g)
+                calls["nof_bwd plain"] = lambda: nr._nof_bwd_ref(
+                    spec, dt, xyz, parts, ws, g)
+            for name, fn in calls.items():
+                out[f"{name} {shape} {dname}"] = cs.cuda_ms(fn, reps=5)
+        spec, xyz, parts, ws, g = cases["stage2"]
+        fn = lambda: nr.nof_bwd(spec, dt, xyz, parts, ws, g)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        split = {"wall": wall}
+        for ev in prof.key_averages():
+            ms = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+            if ms > 0:
+                name = re.sub(r"^void |\(anonymous namespace\)::", "",
+                              ev.key)
+                m = re.match(r"[\w:]+", name)
+                k = m.group(0) if m else ev.key[:40]
+                split[k] = split.get(k, 0.0) + ms
+        out[f"split nof_bwd stage2 {dname}"] = split
+    return out
+
+
+if sys.argv[1] == "nof":
+    print("MS " + json.dumps(nof_times(torch.device("cuda"))), flush=True)
+    sys.exit(0)
+if sys.argv[1] == "phases":
+    r = cs.phase_phases_slice("")
+    print("MS " + json.dumps({f"{k} {d}": v for d in ("bfloat16", "float32")
+                              for k, v in zip(("msk", "full", "val"), r[d])}),
           flush=True)
     sys.exit(0)
 if sys.argv[1] == "kernels":
@@ -93,6 +189,7 @@ if sys.argv[1] == "kernels":
         name = k if " " in k else k + " bf16"
         out[name] = v[0]
         out[name.replace("_pallas", "_pallas plain")] = v[1]
+    out.update(nof_times(dev))
     print("MS " + json.dumps(out), flush=True)
     sys.exit(0)
 from moco_flow_tpu_torch.train.__main__ import parse_args, train
@@ -144,7 +241,8 @@ def main(argv=None):
     p.add_argument("a")
     p.add_argument("b")
     p.add_argument("--steps", type=int, default=10)
-    p.add_argument("--what", choices=("step", "render", "kernels"),
+    p.add_argument("--what", choices=("step", "render", "kernels", "nof",
+                                      "phases"),
                    default="step")
     p.add_argument("--pairs", type=int, default=3,
                    help="A B B A rounds, at least 3")

@@ -78,24 +78,42 @@ def _rel_max(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,s", [(1, 2000), (1, 5000), (37, 64)],
-                         ids=["ray2000", "ray5000", "37x64"])
-def test_nof_kernels_match_plain(card, n, s):
-    """Kernels #3/#4 (fp32) at full NoF width: the warp within 1e-4 +
-    1e-4|ref|; dxyz, d(partials) and every dW within 0.1 of each tensor's
-    largest magnitude (chip_smoke.py's TRAIN_TOL: another summation order
-    and ReLU flips at pre-activations within rounding of zero; measured
-    below 1e-6 at these shapes)."""
+def _nof_kernel_case(card, n, s, rechunk=False):
+    """Full-width NoF operands for #3/#4 on n rays of s samples; with
+    ``rechunk`` one ray of s samples as ``nof_fused_rays`` launches it (rays
+    of 4096 samples, the padding's cotangent 0)."""
     gen = torch.Generator().manual_seed(n + s)
     fcfg = NoFConfig()
     p = init_nof(gen, fcfg, card)
     an = anneal_weights(505000, 5, 5000, 1005000).to(card)
-    ws, parts = _nof_fold(p, fcfg, 5, an,
-                          torch.randn(n, 33, generator=gen).to(card))
-    spec = _NofSpec(4, 128, 15, (2,), True, True)
-    xyz = (0.6 * torch.randn(3, n, s, generator=gen)).to(card)
+    raw = {"emb": torch.randn(n, 33, generator=gen).to(card),
+           "xyz": (0.6 * torch.randn(3, n, s, generator=gen)).to(card),
+           "p": p, "an": an}
+    emb, xyz = raw["emb"], raw["xyz"]
     g = torch.randn(3, n, s, generator=gen).to(card)
+    if rechunk:
+        x_rows, emb = nof_rays._rechunk(xyz.permute(1, 2, 0), emb)
+        xyz = x_rows.permute(2, 0, 1).contiguous()
+        g = nof_rays._rechunk(g.permute(1, 2, 0), emb)[0].permute(2, 0, 1)
+        g = g.contiguous()
+    ws, parts = _nof_fold(p, fcfg, 5, an, emb)
+    return raw, _NofSpec(4, 128, 15, (2,), True, True), xyz, parts, ws, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,rechunk", [(1, 2000, False), (1, 5000, False),
+                                         (37, 64, False), (1, 9000, True)],
+                         ids=["ray2000", "ray5000", "37x64",
+                              "ray9000-rechunked"])
+def test_nof_kernels_match_plain(card, n, s, rechunk):
+    """Kernels #3/#4 (fp32) at full NoF width: the warp within 1e-4 +
+    1e-4|ref|; dxyz, d(partials) and every dW within 0.1 of each tensor's
+    largest magnitude (chip_smoke.py's TRAIN_TOL: another summation order
+    and ReLU flips at pre-activations within rounding of zero; measured
+    below 1e-6 at these shapes). The 9000-sample ray goes in as
+    ``nof_fused_rays`` re-chunks it (3 rays of 4096, zero-padded), and
+    ``nof_fused_rays`` on the card warps it as those launches do."""
+    raw, spec, xyz, parts, ws, g = _nof_kernel_case(card, n, s, rechunk)
     before = (nof_rays.nof_fwd.launches, nof_rays.nof_bwd.launches)
     out = nof_rays.nof_fwd(spec, None, xyz, parts, ws)
     kb = nof_rays.nof_bwd(spec, None, xyz, parts, ws, g)
@@ -109,6 +127,32 @@ def test_nof_kernels_match_plain(card, n, s):
     for a, b in zip([kb[0], *kb[1], *kb[2]], [rb[0], *rb[1], *rb[2]]):
         assert a.shape == b.shape and torch.isfinite(a).all()
         assert _rel_max(a, b) <= 0.1
+    if rechunk:
+        assert tuple(xyz.shape) == (3, -(-s // 4096), 4096)
+        assert not xyz.reshape(3, -1)[:, s:].any()
+        warped = nof_rays.nof_fused_rays(raw["p"], NoFConfig(), 5, True,
+                                         raw["an"],
+                                         raw["xyz"].permute(1, 2, 0),
+                                         raw["emb"])
+        assert nof_rays.nof_fwd.launches == before[0] + 2
+        assert torch.equal(warped, out.reshape(3, -1)[:, :s].T[None])
+
+
+@pytest.mark.cuda
+def test_nof_kernels_leave_chain_counts(card):
+    """#3/#4 launch their own entry points: the warp chain's counters
+    (#5/#6) do not move, #3/#4's move by one a call."""
+    from moco_flow_tpu_torch.ops import nof_chain as nc
+    _, spec, xyz, parts, ws, g = _nof_kernel_case(card, 2, 300)
+    chain = (nc.chain_fwd.launches, nc.chain_bwd.launches)
+    before = (nof_rays.nof_fwd.launches, nof_rays.nof_bwd.launches)
+    for dt in (None, torch.bfloat16):
+        nof_rays.nof_fwd(spec, dt, xyz, parts, ws)
+        nof_rays.nof_bwd(spec, dt, xyz, parts, ws, g)
+    torch.cuda.synchronize()
+    assert (nc.chain_fwd.launches, nc.chain_bwd.launches) == chain
+    assert (nof_rays.nof_fwd.launches, nof_rays.nof_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
 
 
 @pytest.mark.cuda

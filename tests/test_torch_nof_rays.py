@@ -7,10 +7,13 @@ the CPU backend.
 
 NoF 4x32 with the quaternion head and the 21-dim frame embedding, PE
 annealing below one. Shapes: 3 rays x 7 samples, and one "ray" of 5000
-samples, longer than the 4096 after which JAX re-chunks a single ray (the
-port does not: a tile is a run of flat rows). The loss is a fixed random
+or 4100 samples, longer than the 4096 after which both JAX and the port
+re-chunk a single ray into 4096-sample rays. The loss is a fixed random
 weighting of the warped positions; the gradients are compared for every
-parameter leaf, the positions and the frame embedding.
+parameter leaf, the positions and the frame embedding. Two tests read
+back what the CUDA kernels would be given, with no card: the one-stage
+argument array of #3/#4 (the warp chain's with one stage) and the size of
+the backward's device scratch.
 
 Tolerances, relative to each array's largest magnitude: fp32 1e-5 (both
 sides sum in fp32, in other orders; measured <= 8e-7). bf16 2e-4: both
@@ -161,3 +164,100 @@ def test_kernel_wrappers_reject_other_devices():
         nof_rays.nof_fwd(None, None, meta, [], [])
     with pytest.raises(ValueError, match="no kernel for device"):
         nof_rays.nof_bwd(None, None, meta, [], [], meta)
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_nof_fused_rays_rechunks_as_jax(params, dt):
+    """One ray of 4100 samples goes to the kernels as JAX sends it: 2 rays
+    of 4096, the second zero-padded after its 4 samples, each with the
+    same frame embedding; the output is sliced back to 4100. Outputs and
+    every gradient against JAX's ``nof_fused_rays`` under TOL."""
+    inp = _inputs(1, 4100, seed=41)
+    seen = []
+    apply = nof_rays._NofOp.apply
+
+    def grab(spec, dt_, n_parts, xyz_t, *arrs):
+        seen.append((xyz_t.detach().clone(),
+                     [a.detach().clone() for a in arrs[:n_parts]]))
+        return apply(spec, dt_, n_parts, xyz_t, *arrs)
+
+    nof_rays._NofOp.apply = grab
+    try:
+        got = _port(params, inp, dt)
+    finally:
+        nof_rays._NofOp.apply = apply
+    (xyz_t, parts), = seen
+    assert tuple(xyz_t.shape) == (3, 2, 4096)
+    flat = xyz_t.reshape(3, -1)
+    assert torch.equal(flat[:, :4100].T, torch.from_numpy(inp["xyz"][0]))
+    assert not flat[:, 4100:].any()
+    for q in parts:
+        assert tuple(q.shape) == (2, NOF["width"])
+        assert torch.equal(q[0], q[1])
+    xc, ec = nof_rays._rechunk(torch.from_numpy(inp["xyz"]),
+                               torch.from_numpy(inp["emb"]))
+    assert tuple(xc.shape) == (2, 4096, 3) and tuple(ec.shape) == (2, 21)
+    want = _jax(params, inp, dt)
+    assert set(got) == set(want)
+    assert got["out"].shape == (1, 4100, 3)
+    for k in want:
+        g, w = got[k], want[k]
+        assert g.shape == w.shape and np.isfinite(g).all(), k
+        scale = max(float(np.abs(w).max()), 1e-6)
+        err = float(np.abs(g - w).max())
+        assert err <= TOL[dt] * scale, f"{k}: {err:.3e} > {TOL[dt] * scale:.3e}"
+
+
+def test_one_stage_arguments_and_scratch(params):
+    """#3/#4 take the warp chain's argument array with one stage: read back
+    at the offsets ``csrc/chain_bwd.cu::decode`` reads, it holds one stage
+    (bw net, partial set 0, no input source), both chains off, the partials
+    of set 0 only and a zero fw net; the gradient buffer holds the one
+    net's operands. The backward's scratch (``nof_chain.scratch_bytes``,
+    ``chain_bwd.cu::layout``) per row and stage: x 16 B, the packed PE
+    padded to 16 columns, depth x width activations and as many dz, the
+    head output 64 B, its cotangent 16 columns and its fp32 value 64 B."""
+    from moco_flow_tpu_torch.ops import _args, nof_chain
+    from moco_flow_tpu_torch.ops.folds import _NofSpec, _nof_fold
+    p = params_from_jax(params)
+    inp = _inputs(3, 7, seed=3)
+    ws, parts = _nof_fold(p, NoFConfig(**NOF), 3,
+                          torch.from_numpy(inp["anneal"]),
+                          torch.from_numpy(inp["emb"]))
+    spec = nof_chain._ChainSpec(_NofSpec(4, 32, 9, (2,), True, True),
+                                False, False)
+    ops = _args.Operands("nof_fwd", torch.device("cpu"), torch.float32)
+    xyz_t = torch.from_numpy(inp["xyz"]).permute(2, 0, 1)
+    arr, outs = nof_chain._fwd_args(spec, None, len(parts), xyz_t, parts,
+                                    ws, None, ops)
+    net_args = 8 * _args.MAX_DEPTH + 5
+    assert len(arr) == 15 + 3 * 5 + 8 + 2 * 16 + 2 * net_args
+    assert list(arr[:15]) == [0, 3, 7, 1, 1, 0, 0, 2, 4, 32, 9, 9,
+                              _args.SPLIT_ROWS, 0, 0]
+    assert list(arr[15:30]) == [0] * 5 + [0] * 5 + [-1, 0, 0, 0, 0]
+    ptrs = arr[30:38]
+    assert ptrs[0] != 0 and ptrs[1] != 0             # bands, xyz
+    assert ptrs[2] == outs[0].data_ptr() and not ptrs[3:].any()
+    part_ptrs = arr[38:54].reshape(4, 4)
+    assert part_ptrs[0, :2].all() and not part_ptrs[0, 2:].any()
+    assert not part_ptrs[1:].any() and not arr[54:70].any()
+    bw, fw = arr[70:70 + net_args], arr[70 + net_args:]
+    assert len(fw) == net_args and not fw.any()
+    assert bw[:8 * 4].reshape(4, 8)[:, 4].all()      # the 4 layers' biases
+    assert not bw[8 * 4:8 * 8].any()                 # no layers 4..7
+    _, _, _, total = nof_chain._operands(spec, 2, 3, parts, ws, None, ops,
+                                         backward=True)
+    assert total == sum(w.numel() for w in ws)
+    for dt, t in ((torch.bfloat16, 2), (None, 4)):
+        per_row = 16 + t * 32 + 2 * 4 * 32 * t + 64 + t * 16 + 64
+        assert nof_chain.scratch_bytes(spec, dt, 21) == 128 * per_row
+        assert nof_chain.scratch_bytes(spec, dt, 300) == 384 * per_row
+    # stage 2's 200,000 points as 49 rays of 4096 at the published NoF
+    # (4x128, 5 frequencies): 2,320 B a row in bf16, 4,496 B in fp32
+    full = nof_chain._ChainSpec(_NofSpec(4, 128, 15, (2,), True, True),
+                                False, False)
+    assert nof_chain.scratch_bytes(full, torch.bfloat16, 49 * 4096) == (
+        49 * 4096 * 2320)
+    assert nof_chain.scratch_bytes(full, None, 49 * 4096) == 49 * 4096 * 4496
+    chain = nof_chain._ChainSpec(full.nof, True, True)
+    assert nof_chain.scratch_bytes(chain, None, 128) == 5 * 128 * 4496

@@ -8,12 +8,18 @@ element (n, k) of W^T sits in slice k // 64, row n, 16-byte chunk
 every image must give W^T zero-padded to (wg_width(N), 64 * slices), and
 the padding must be exactly zero. Shapes: every product that #7 and #8 pack
 at c2f.yaml's and init_nerf.yaml's widths, and ragged K.
+
+The row-tile operands of the training kernels and of the fp32 forwards
+(``row_ops``, one gather a launch) must be each matrix, or its transpose
+read from the same values, in its product's layout: bf16 B^T zero-padded
+to (pad16(N), pad16(K)), fp32 B zero-padded to (K, pad16(N)).
 """
 
 import pytest
 import torch
 
-from moco_flow_tpu_torch.ops._args import WG_K, wg_pack, wg_pack_all, wg_width
+from moco_flow_tpu_torch.ops._args import (WG_K, row_ops, wg_pack,
+                                          wg_pack_all, wg_width)
 
 SHAPES = {
     "nerf-pe-63x256": (63, 256),          # NeRF layer 0, the skip's PE rows
@@ -86,3 +92,30 @@ def test_wg_pack_all_matches_each():
             assert o % 512 == 0                     # whole 1 KB slices
             assert torch.equal(buf[o:o + img.numel()], img)
         ws = [w * 2 for w in ws]                    # new values, same shapes
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_row_ops_layout(dt):
+    """One gather gives each matrix's and each transpose's row-tile operand
+    (zero padding included), at offsets of whole 16-byte rows."""
+    gen = torch.Generator().manual_seed(8)
+    ws = [torch.randn(*SHAPES[k], generator=gen)
+          for k in ("nof-pe-33x128", "nof-128x128", "nof-head-128x9",
+                    "ragged-65x17")]
+    mats = [(w, t) for w in ws for t in (False, True)] + [(ws[1], False)]
+    buf, offs = row_ops(mats, dt)
+    assert buf.dtype == dt
+    pad = lambda x: -(-x // 16) * 16  # noqa: E731
+    for (w, t), o in zip(mats, offs):
+        b = w.T if t else w
+        k, n = b.shape
+        if dt == torch.bfloat16:
+            want = torch.zeros((pad(n), pad(k)), dtype=dt)
+            want[:n, :k] = b.T
+        else:
+            want = torch.zeros((k, pad(n)), dtype=dt)
+            want[:, :n] = b
+        want = want.reshape(-1)
+        assert (o * buf.element_size()) % 16 == 0
+        assert torch.equal(buf[o:o + want.numel()], want)
