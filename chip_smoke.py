@@ -198,21 +198,30 @@ def phase_card() -> str:
     return card
 
 
-# the kernels of #7 / #8 (wgmma tile in bf16, split TF32 in fp32) and the
-# wgmma layer probe, by the name ptxas gives them
+# the kernels of #7 / #8 / #9 (wgmma tile in bf16, split TF32 in fp32) and
+# the wgmma layer probe, by the name ptxas gives them
 FWD_KERNELS = ("render_pass_wg_kernel", "render_pass_tf32_kernel",
-               "nerf_wg_kernel", "nerf_tf32_kernel", "wg_probe_kernel")
+               "nerf_wg_kernel", "nerf_tf32_kernel", "nof_wg_kernel",
+               "nof_tf32_kernel", "wg_probe_kernel")
 # their dynamic shared memory a block at the main paths' widths (ptxas
 # reports only static shared memory), from the kernels' layouts: wgmma
 # tile 1 KB alignment + 4 x 32 KB weight ring + H (4 x 16 KB) + E (16 KB) +
-# 64 B of mbarriers, #7 also positions and NoF head outputs (9,728 B);
+# 128 B of mbarriers, #7 also positions and NoF head outputs (9,728 B);
 # split TF32 two 16 x 264 fp32 weight slices + E (128 x 68) + H (128 x 260)
-# fp32, #7 also positions and head outputs (19 x 128 fp32)
-FWD_SMEM = {"render_pass_wg_kernel": 1024 + 4 * 32768 + 5 * 16384 + 9728 + 64,
-            "nerf_wg_kernel": 1024 + 4 * 32768 + 5 * 16384 + 64,
+# fp32, #7 also positions and head outputs (19 x 128 fp32). #9 at c2f's NoF
+# (66 inputs, 128 wide): a 7 x 16 KB ring, H (2 x 16 KB), two E buffers (2
+# x 2 x 16 KB), two position buffers and the head outputs (22 x 128 fp32)
+# and their 4 mbarriers; split TF32 two hi + lo pairs of 16 x 264 slices,
+# E (128 x 84), H (128 x 132) and the head outputs (128 x 16)
+FWD_SMEM = {"render_pass_wg_kernel": 1024 + 4 * 32768 + 5 * 16384 + 9728
+            + 128,
+            "nerf_wg_kernel": 1024 + 4 * 32768 + 5 * 16384 + 128,
+            "nof_wg_kernel": 1024 + 7 * 16384 + 6 * 16384 + 22 * 128 * 4
+            + 32 + 128,
             "render_pass_tf32_kernel": 4 * (19 * 128 + 2 * 16 * 264
                                             + 128 * (68 + 260)),
-            "nerf_tf32_kernel": 4 * (2 * 16 * 264 + 128 * (68 + 260))}
+            "nerf_tf32_kernel": 4 * (2 * 16 * 264 + 128 * (68 + 260)),
+            "nof_tf32_kernel": 4 * (4 * 16 * 264 + 128 * (16 + 84 + 132))}
 PTXAS = {}   # kernel -> its ptxas lines (registers, stack, spills)
 
 
@@ -242,7 +251,7 @@ def phase_build():
 
 
 def fwd_weight_bytes(mats, dname: str) -> int:
-    """Bytes of weights one 128-row tile of #7 / #8 streams from L2: bf16
+    """Bytes of weights one 128-row tile of #7 / #8 / #9 streams from L2: bf16
     the wgmma tile's slice images (ceil(K / 64) x wg_width(N) x 128), fp32
     the split-TF32 product's staged rows (K x pad16(N) x 4)."""
     from moco_flow_tpu_torch.ops._args import wg_width
@@ -1290,10 +1299,13 @@ def phase_nof_kernels(dev, card: str,
             b_ms, b_by = bound_ms(flops, nbytes, dname)
             if dname == "bf16" and key == step_shape:
                 times[name] = (k_ms, p_ms, b_ms, b_by)
+            # #3's fp32 build multiplies in split TF32 (#4's passes: FFMA)
+            shares = (f"; {fwd_shares(flops, k_ms, dname)}"
+                      if name == "nof_fwd" else "")
             log(f"[9 nof kernels] {name} {dname} N={n_r} S={s}, one launch: "
                 f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
                 f"{b_ms:.5f} ms ({b_by}: {flops / 1e9:.3f} GFLOP, "
-                f"{nbytes / 1e6:.2f} MB) on {card}")
+                f"{nbytes / 1e6:.2f} MB){shares} on {card}")
         spec, xyz, parts, ws, g = cases[stage2]
         split = _device_split(lambda: nr.nof_bwd(spec, dt, xyz, parts, ws, g),
                               BWD_GROUPS)
@@ -1631,21 +1643,28 @@ def phase_mlp_kernels(dev, card: str, scale: int = 1) -> dict:
             what = ("one stage-1 step's two launches (5120 x 128 + 5120 x "
                     "256 rows)" if name == "nerf_pallas" else
                     "one launch (16384 x 128 rows)")
-            extra = ""
             if name == "nerf_pallas":   # 63 inputs, 8x256 skip 4, dir 27
                 mats = ([(63, 256)] + [(256, 256)] * 3
                         + [(63, 256), (256, 256)] + [(256, 256)] * 4
                         + [(256, 128), (27, 128), (128, 3)])
                 tiles = sum(-(-c[1].shape[0] // 128) for c in step)
-                l2 = tiles * fwd_weight_bytes(mats, dname)
-                extra = (f"; {fwd_shares(flops, k_ms, dname)}; weights "
-                         f"streamed from L2 {l2 / 1e9:.2f} GB ("
-                         f"{l2 / k_ms / 1e9:.2f} TB/s)")
+                parts = 1
+            else:   # c2f's NoF: 66 inputs, 4x128 skip 2, the 9-wide head
+                k_in = fcfg.in_dim
+                mats = ([(k_in, 128), (128, 128), (k_in, 128), (128, 128),
+                         (128, 128), (128, 9)])
+                tiles = -(-cases["nof"][0][1].shape[0] // 128)
+                parts = 1 if dt is not None else 2   # fp32: hi and lo parts
+            l2 = tiles * parts * fwd_weight_bytes(mats, dname)
+            extra = (f"; {fwd_shares(flops, k_ms, dname)}; weights streamed "
+                     f"from L2 {l2 / 1e9:.2f} GB ({l2 / k_ms / 1e9:.2f} "
+                     "TB/s)")
             log(f"[12 mlp kernels] {name} {dname}, {what}: kernel "
                 f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
                 f"({b_by}: {flops / 1e12:.3f} TFLOP, {nbytes / 1e6:.1f} MB)"
                 f"{extra} on {card}")
-    for k in ("nerf_wg_kernel", "nerf_tf32_kernel"):
+    for k in ("nerf_wg_kernel", "nerf_tf32_kernel", "nof_wg_kernel",
+              "nof_tf32_kernel"):
         log(f"[12 mlp kernels] {k}: "
             f"{' | '.join(PTXAS.get(k, ['(cached build)']))}; dynamic "
             f"shared memory {FWD_SMEM[k]} bytes a block")

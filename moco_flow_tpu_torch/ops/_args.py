@@ -16,7 +16,8 @@ take their weights in their products' own layouts (``fwd_ops``): the
 row-tile operands of the split-TF32 product in fp32 (``row_ops``), and in
 bf16 the shared-memory images of the wgmma tile's weight slices
 (``wg_pack``, ``wg_pack_all``), which one bulk copy each brings into
-shared memory.
+shared memory. #9 takes the same bf16 images, and in fp32 the row-tile
+operands split once into their TF32 hi and lo parts (``split_ops``).
 """
 
 from __future__ import annotations
@@ -245,6 +246,31 @@ def fwd_ops(ops: Operands, ws: list) -> list:
         base = ops.ptr(buf)
         it = iter([base + 2 * o for o in offs])
     return [0 if w is None else next(it) for w in ws]
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """fp32 x as (hi, lo), x = hi + lo, each rounded to TF32 as
+    ``cvt.rna.tf32.f32`` rounds (10 mantissa bits, nearest, ties away from
+    zero: half of the 13 dropped bits added to the magnitude, then cleared),
+    the split of ``row_tile.cuh::tf32_split``; x - hi is exact."""
+    def tf32(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000)
+                & ~0x1FFF).view(torch.float32)
+    hi = tf32(x.float())
+    return hi, tf32(x.float() - hi)
+
+
+def split_ops(ops: Operands, ws: list) -> tuple:
+    """The fp32 (K, N) weights of #9 (None entries give 0) split once for
+    its split-TF32 product (``row_tile.cuh::rt_mm_presplit``): one buffer of
+    every matrix's TF32 hi part in ``row_ops``' layout, then every lo part
+    in the same order. Returns the pointers to the hi parts and the lo
+    parts' distance from them (elements)."""
+    real = [w for w in ws if w is not None]
+    buf, offs = row_ops([(w, False) for w in real], torch.float32)
+    base = ops.ptr(torch.cat(tf32_split(buf)))
+    it = iter([base + 4 * o for o in offs])
+    return [0 if w is None else next(it) for w in ws], buf.numel()
 
 
 def _fb(ops: Operands, w, backward: bool) -> list:

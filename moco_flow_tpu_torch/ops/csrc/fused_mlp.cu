@@ -39,9 +39,18 @@
 //   NeRF (#8), fp32: the split-TF32 product of row_tile.cuh (the training
 //     forward #1's) on the 128-row tile, the `dir` extra as a second term
 //     of the extra layer, the sigma row an fp32 dot.
-//   NoF (#9): the row-tile layers of pass_tile.cuh, 128 rows on mma.sync
-//     in bf16 (64-deep weight slices staged with cp.async and shared by the
-//     block), 64 rows on an FFMA loop in fp32.
+//   NoF (#9), bf16: the same wgmma tile on the NoF's pre-embedded rows,
+//     which stay in E through the trunk (the skip layer reads them again);
+//     the head into the tile's fp32 outputs O, then the warp, one row a
+//     consumer thread. A NoF tile is ~10x less work than a NeRF tile, so
+//     reading its inputs would stall the tensor cores: three warps of the
+//     producer warpgroup load the next tile's rows into a second E buffer
+//     while the consumers run this one, and a ring stage holds one 16 KB
+//     slice (7 stages in flight).
+//   NoF (#9), fp32: the split-TF32 product as #8's, but with each weight
+//     split into its TF32 hi and lo parts once, by the wrapper, instead of
+//     by every warp that reads it (rt_mm_presplit); the head into a
+//     per-row fp32 buffer, then the warp.
 
 #include "row_tile.cuh"
 #include "wg_tile.cuh"
@@ -52,7 +61,8 @@ constexpr int kMaxDepth = 8;             // ops/_args.py MAX_DEPTH
 
 // out = E @ wpe + H @ wh + b: wpe against the layer's direct inputs (x,
 // extra), wh against the previous activation; either may be null. fp32:
-// (K, N) row-major; bf16: W^T zero-padded to (pad16(N), pad16(K)).
+// the row-tile operand (K, pad16(N)) of row_tile.cuh; bf16: wg_tile.cuh's
+// slice images (ops/_args.py wg_pack).
 struct Lin {
   const void* wpe;
   const void* wh;
@@ -70,7 +80,7 @@ struct NerfArgs {
 };
 
 struct NofArgs {
-  int64_t n;
+  int64_t n, lo;          // lo: fp32, the lo parts' distance (elements)
   int kin, depth, width, n_out, use_quat;
   const float* in;        // (n, kin) [xyz_emb, ind_emb]
   const float* xyz;       // (n, 3)
@@ -78,77 +88,6 @@ struct NofArgs {
   Lin layer[kMaxDepth];
   Lin head;
 };
-
-__device__ __forceinline__ const bf16* wbf(const void* p) {
-  return static_cast<const bf16*>(p);
-}
-
-// ===========================================================================
-// NoF (#9), bf16: tensor cores
-// ===========================================================================
-
-// rows [row0, row0 + 128) of an (n, k) fp32 matrix into row-major E, rounded
-// to bf16, zeros in the columns k..pad16(k) and in the rows past n
-__device__ void mma_load(const MmaCtx& c, const float* src, int k) {
-  const int kp = pad16(k);
-  const float* s = src + c.row0 * k;
-  for (int i = c.tid; i < kMmaRows * kp; i += kMmaThreads) {
-    const int r = i / kp, j = i % kp;
-    const bool in = j < k && c.row0 + r < c.total;
-    c.E[r * c.e_ld + j] = __float2bfloat16_rn(in ? s[r * k + j] : 0.f);
-  }
-  __syncthreads();
-}
-
-__device__ MmaCtx mma_ctx(unsigned char* smem, int e_ld, int h_ld,
-                          int64_t n) {
-  MmaCtx c;
-  c.X = nullptr;
-  c.O = reinterpret_cast<float*>(smem);
-  c.Ws = reinterpret_cast<bf16*>(c.O + kMaxHeadOut * kMmaRows);
-  c.E = c.Ws + 2 * kMaxWidth * kWsLd;
-  c.H = c.E + kMmaRows * e_ld;
-  c.e_ld = e_ld;
-  c.h_ld = h_ld;
-  c.tid = threadIdx.x;
-  c.lane = threadIdx.x & 31;
-  c.warp_m = (threadIdx.x >> 5) & 7;
-  c.warp_n = threadIdx.x >> 8;
-  c.total = n;
-  c.row0 = static_cast<int64_t>(blockIdx.x) * kMmaRows;
-  c.ray[0] = c.ray[1] = 0;   // no per-ray partials
-  c.sigma = c.rgb = nullptr;
-  c.out_rs = c.rgb_cs = 0;
-  return c;
-}
-
-// the ReLU trunk: E @ wpe at layer 0 and the skips, H @ wh elsewhere
-__device__ void mma_trunk(const MmaCtx& c, const Lin* layers, int depth,
-                          int k_in, int width) {
-  for (int l = 0; l < depth; ++l) {
-    const Lin& L = layers[l];
-    mma_layer(c, wbf(L.wpe), k_in, wbf(L.wh), width, width, L.b,
-              nullptr, kReluPartialFirst);
-  }
-}
-
-__global__ void __launch_bounds__(kMmaThreads, 1)
-nof_mma_kernel(const NofArgs a, int e_ld, int h_ld) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const MmaCtx c = mma_ctx(smem, e_ld, h_ld, a.n);
-  mma_load(c, a.in, a.kin);
-  mma_trunk(c, a.layer, a.depth, a.kin, a.width);
-  mma_layer(c, nullptr, 0, wbf(a.head.wh), a.width, a.n_out, a.head.b,
-            nullptr, kHeadO);
-  const int64_t g = c.row0 + c.tid;
-  if (c.tid < kMmaRows && g < a.n) {
-    float o[9], x[3];
-    for (int q = 0; q < a.n_out; ++q) o[q] = c.O[q * kMmaRows + c.tid];
-    for (int j = 0; j < 3; ++j) x[j] = a.xyz[g * 3 + j];
-    nof_head_apply(o, a.use_quat, x);
-    for (int j = 0; j < 3; ++j) a.out[g * 3 + j] = x[j];
-  }
-}
 
 // ===========================================================================
 // NeRF (#8), bf16: the wgmma tile
@@ -200,7 +139,217 @@ nerf_wg_kernel(const __grid_constant__ NerfWgArgs a) {
 }
 
 // ===========================================================================
-// NeRF (#8), fp32: the split-TF32 product
+// NoF (#9), bf16: the wgmma tile
+// ===========================================================================
+
+struct NofWgArgs {
+  int64_t n;
+  int kin, use_quat;
+  const float* in;        // 16-byte aligned
+  const float* xyz;
+  float* out;
+  int n_layers, stages, stage_bytes, h_blocks, e_blocks;
+  wg::Layer layers[kMaxDepth + 1];   // trunk, head
+};
+
+// The tile's tail: positions X of E buffer 0, the head outputs O, positions
+// of E buffer 1, then the mbarriers of the two E buffers (full, empty)
+constexpr size_t kNofX = 3 * wg::kRows;                 // floats
+constexpr size_t kNofWgTail =
+    (2 * kNofX + wg::kHeadLd * wg::kRows) * sizeof(float) + 4 * 8;
+constexpr int kNofLoaders = 96;  // warps 1-3 of the producer warpgroup
+constexpr int kNofLoads = 3;     // float4 loads of a loader in flight
+// registers a thread: the loaders need more than a producer's 40 (at 40
+// and at 56 they spilled, and the tile ran 10-15% slower), which the
+// consumers give up
+constexpr int kNofProducerRegs = 72, kNofConsumerRegs = 216;
+
+// cp.async.bulk.prefetch of [p, p + bytes) into L2, trimmed to whole
+// 16-byte chunks inside the range
+__device__ __forceinline__ void prefetch_l2(const float* p, int64_t bytes) {
+  const uint64_t a = reinterpret_cast<uint64_t>(p);
+  const uint64_t lo = (a + 15) & ~15ull, hi = (a + bytes) & ~15ull;
+  if (hi > lo)
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(lo),
+                 "r"(static_cast<unsigned>(hi - lo))
+                 : "memory");
+}
+
+// bf16 of v <- element (r, c) of the A operand at shared address A
+__device__ __forceinline__ void put_s(unsigned A, int r, int c, float v) {
+  const unsigned short h = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(A + wg::a_off(r, c)),
+               "h"(h)
+               : "memory");
+}
+
+// The inputs of #9's tiles, a tile ahead of the consumers: the loaders
+// (96 threads at the producer warpgroup's 72 registers) fill E buffer b
+// (tile u of the block: b = u % 2) with the tile's (n, k) input rows,
+// rounded to bf16, and X buffer b with their positions, once the
+// consumers have released the buffer (e_empty[b]; its first phase: they
+// zeroed it), then arrive on e_full[b]. The tile's inputs are one
+// contiguous range, read 16 bytes a load (the wrapper passes them 16-byte
+// aligned); rows past n are 0. E's columns past k keep the consumers'
+// zeros: nothing else writes E. The next tile's range streams into L2
+// meanwhile. Shared memory by 32-bit addresses, the tile counters 32-bit:
+// the loader's state fits its registers.
+__device__ __forceinline__ void nof_loader(const NofWgArgs& a, unsigned E0,
+                                           unsigned e_bytes, unsigned X0,
+                                           unsigned X1, unsigned bars,
+                                           int n_tiles) {
+  const int t = threadIdx.x - (128 - kNofLoaders), k = a.kin;
+  const int n = static_cast<int>(a.n);
+  // flat element e of a tile is (row, column) (e / k, e % k); a loader
+  // steps its elements by 4 kNofLoaders = q k + m without a division
+  const int q = 4 * kNofLoaders / k, m = 4 * kNofLoaders % k;
+  int u = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++u) {
+    const int b = u & 1, row0 = tile * wg::kRows;
+    const int next = row0 + static_cast<int>(gridDim.x) * wg::kRows;
+    if (t == 0 && next < n) {
+      const int rows = min(n - next, wg::kRows);
+      prefetch_l2(a.in + static_cast<int64_t>(next) * k, rows * k * 4);
+      prefetch_l2(a.xyz + 3 * static_cast<int64_t>(next), rows * 12);
+    }
+    wg::wait_parity(bars + 8 * (2 + b), (u >> 1) & 1);   // e_empty[b]
+    const unsigned E = E0 + b * e_bytes;
+    const int avail = min(n - row0, wg::kRows) * k;      // elements
+    const float* in = a.in + static_cast<int64_t>(row0) * k;
+    int r = 4 * t / k, j = 4 * t % k;
+    for (int e0 = 4 * t; e0 < wg::kRows * k;
+         e0 += 4 * kNofLoads * kNofLoaders) {
+      float4 v[kNofLoads];
+#pragma unroll
+      for (int l = 0; l < kNofLoads; ++l) {
+        const int e = e0 + 4 * l * kNofLoaders;
+        if (e + 3 < avail) {
+          v[l] = __ldg(reinterpret_cast<const float4*>(in + e));
+        } else {                           // past n, or the partial vector
+          v[l].x = e < avail ? in[e] : 0.f;
+          v[l].y = e + 1 < avail ? in[e + 1] : 0.f;
+          v[l].z = e + 2 < avail ? in[e + 2] : 0.f;
+          v[l].w = 0.f;
+        }
+      }
+#pragma unroll
+      for (int l = 0; l < kNofLoads; ++l) {
+        const bool real = e0 + 4 * l * kNofLoaders < wg::kRows * k;
+        const float f[4] = {v[l].x, v[l].y, v[l].z, v[l].w};
+        int rr = r, jj = j;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (real) put_s(E, rr, jj, f[i]);
+          if (++jj == k) {
+            jj = 0;
+            ++rr;
+          }
+        }
+        r += q;
+        j += m;
+        if (j >= k) {
+          j -= k;
+          ++r;
+        }
+      }
+    }
+    const float* xs = a.xyz + 3 * static_cast<int64_t>(row0);
+    const int x_avail = 3 * min(n - row0, wg::kRows);
+    const unsigned X = b ? X1 : X0;
+    for (int i = t; i < 3 * wg::kRows; i += kNofLoaders) {
+      const float x = i < x_avail ? __ldg(xs + i) : 0.f;
+      asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(
+                       X + 4 * ((i % 3) * wg::kRows + i / 3)),
+                   "f"(x)
+                   : "memory");
+    }
+    wg::fence_async_smem();               // E, before the consumers' wgmma
+    wg::arrive(bars + 8 * b);             // e_full[b]
+  }
+}
+
+// One layer of #9, the variants it runs: the ReLU trunk, then the head
+// into O (wg::run instantiates every kernel's variants; these alone leave
+// the consumers' registers room).
+__device__ __forceinline__ void nof_run(wg::Ctx& c, const wg::Layer L) {
+  if (L.ep == wg::kHeadO) {
+    if (L.n_pad == 8) wg::layer_v<8, wg::kHeadO, false>(c, L);
+    else wg::layer_v<16, wg::kHeadO, false>(c, L);
+    return;
+  }
+  switch (L.n_pad) {
+    case 8: wg::layer_v<8, wg::kRelu, false>(c, L); break;
+    case 16: wg::layer_v<16, wg::kRelu, false>(c, L); break;
+    case 32: wg::layer_v<32, wg::kRelu, false>(c, L); break;
+    case 64: wg::layer_v<64, wg::kRelu, false>(c, L); break;
+    case 128: wg::layer_v<128, wg::kRelu, false>(c, L); break;
+    default: wg::layer_v<256, wg::kRelu, false>(c, L); break;
+  }
+}
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+nof_wg_kernel(const __grid_constant__ NofWgArgs a) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  wg::Ctx c;
+  // E holds two buffers of e_blocks: the loaders fill one while the
+  // consumers run the trunk on the other
+  wg::setup(c, wg_smem, a.stages, a.h_blocks, 2 * a.e_blocks, kNofWgTail,
+            a.stage_bytes);
+  unsigned char* const E0 = c.E;
+  const int e_bytes = a.e_blocks * wg::kBlockBytes;
+  float* const X0 = c.X;
+  float* const X1 = c.O + wg::kHeadLd * wg::kRows;
+  const unsigned bars = wg::smem_u32(X1 + kNofX);   // e_full[2], e_empty[2]
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                       bars + 8 * b),
+                   "r"(kNofLoaders));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 256;\n" ::"r"(
+          bars + 8 * (2 + b)));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int64_t n_tiles = (a.n + wg::kRows - 1) / wg::kRows;
+  if (threadIdx.x < 128) {
+    wg::producer<kNofProducerRegs>(c, a.layers, a.n_layers, n_tiles);
+    if (threadIdx.x >= 128 - kNofLoaders)
+      nof_loader(a, wg::smem_u32(E0), e_bytes, wg::smem_u32(X0),
+                 wg::smem_u32(X1), bars, static_cast<int>(n_tiles));
+  } else {
+    // zeroes both buffers
+    wg::consumer<kNofConsumerRegs>(c, a.h_blocks, 2 * a.e_blocks);
+    for (int b = 0; b < 2; ++b) wg::arrive(bars + 8 * (2 + b));
+    c.total = static_cast<int>(a.n);
+    c.s = 1;
+    int u = 0;
+    for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++u) {
+      const int b = u & 1;
+      c.row0 = static_cast<int>(tile * wg::kRows);
+      c.E = E0 + b * e_bytes;
+      wg::wait_parity(bars + 8 * b, (u >> 1) & 1);      // e_full[b]
+      for (int l = 0; l < a.n_layers; ++l) nof_run(c, a.layers[l]);
+      // the warp of the warpgroup's 64 rows (the head layer's barrier made
+      // O visible), then buffer b goes back to the loaders
+      if (c.tid < 64) {
+        const int r = 64 * c.wgi + c.tid, g = c.row0 + r;
+        if (g < c.total) {
+          const float* X = b ? X1 : X0;
+          float x[3];
+          for (int j = 0; j < 3; ++j) x[j] = X[j * wg::kRows + r];
+          nof_head_apply(c.O + r * wg::kHeadLd, a.use_quat, x);
+          for (int j = 0; j < 3; ++j)
+            a.out[3 * static_cast<int64_t>(g) + j] = x[j];
+        }
+      }
+      wg::arrive(bars + 8 * (2 + b));                   // e_empty[b]
+    }
+  }
+}
+
+// ===========================================================================
+// fp32: the split-TF32 product (#8, #9)
 // ===========================================================================
 
 // the tile's rows [row0, row0 + 128) of an (n, k) matrix into row-major E
@@ -269,58 +418,41 @@ nerf_tf32_kernel(const NerfArgs a, int e_ld, int h_ld) {
         });
 }
 
-// ===========================================================================
-// NoF (#9), fp32: FFMA
-// ===========================================================================
-
-// the warp's 8 rows [row0, row0 + 8) of an (n, k) matrix into K-major E
-// (E[j * kLda + i]); zeros in the rows past n
-__device__ void ffma_load(float* E, const float* src, int64_t row0,
-                          int64_t n, int k, int lane) {
-  const float* s = src + row0 * k;
-  for (int i = lane; i < kRows * k; i += 32) {
-    const int r = i / k, j = i % k;
-    E[j * kLda + r] = row0 + r < n ? s[i] : 0.f;
-  }
-  __syncwarp();
-}
-
-__device__ void ffma_trunk(float* H, const float* E, const Lin* layers,
-                           int depth, int k_in, int width, int lane) {
-  for (int l = 0; l < depth; ++l) {
-    const Lin& L = layers[l];
-    layer(H, E, k_in, L.wpe, L.wh, width, L.b, nullptr, width, nullptr,
-          kPartialFirst, lane);
-  }
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
-nof_ffma_kernel(const NofArgs a, int e_rows) {
+// #9: B split once in the wrapper (rt_mm_presplit), slices kd deep
+__global__ void __launch_bounds__(kRTThreads, 1)
+nof_tf32_kernel(const NofArgs a, int kd, int e_ld, int h_ld) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* O = reinterpret_cast<float*>(smem);   // [kMaxHeadOut][kTile]
-  float* E = O + kMaxHeadOut * kTile;          // [e_rows][kLda]
-  float* H = E + e_rows * kLda;                // [width][kLda]
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * kRows;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kTile + r0;
-  if (row0 >= a.n) return;
-  ffma_load(E + r0, a.in, row0, a.n, a.kin, lane);
-  ffma_trunk(H + r0, E + r0, a.layer, a.depth, a.kin, a.width, lane);
-  float out[kRows];
-  head(out, H + r0, a.width, a.head.wh, a.n_out, lane);
-  if (lane < a.n_out) {
-    const float bias = a.head.b[lane];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-      O[lane * kTile + r0 + i] = __fadd_rn(out[i], bias);
+  float* O = reinterpret_cast<float*>(smem);   // [kRT][kMaxHeadOut]
+  float* Ws = O + kRT * kMaxHeadOut;           // the staged weight slices
+  float* E = Ws + 4 * kd * kWsLdF;             // [kRT][e_ld]
+  float* H = E + kRT * e_ld;                   // [kRT][h_ld]
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRT;
+  const int w = a.width, n_out = a.n_out;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  tf32_load(E, e_ld, a.in, a.kin, row0, a.n);
+  for (int l = 0; l < a.depth; ++l) {
+    const Lin& L = a.layer[l];
+    rt_mm_presplit(Ws, kd, Term<float>{E, e_ld, f(L.wpe), L.wpe ? a.kin : 0},
+                   Term<float>{H, h_ld, f(L.wh), L.wh ? w : 0}, a.lo, w,
+                   [&](int r, int c, float v0, float v1) {
+                     st2(H + r * h_ld + c, fmaxf(__fadd_rn(v0, L.b[c]), 0.f),
+                         fmaxf(__fadd_rn(v1, L.b[c + 1]), 0.f));
+                   });
   }
-  __syncwarp();
-  const int64_t g = row0 + lane;
-  if (lane < kRows && g < a.n) {
-    float o[9], x[3];
-    for (int q = 0; q < a.n_out; ++q) o[q] = O[q * kTile + r0 + lane];
+  const float* hb = a.head.b;
+  rt_mm_presplit(Ws, kd, Term<float>{H, h_ld, f(a.head.wh), w},
+                 no_term<float>(), a.lo, n_out,
+                 [&](int r, int c, float v0, float v1) {
+                   O[r * kMaxHeadOut + c] = __fadd_rn(v0, hb[c]);
+                   if (c + 1 < n_out)
+                     O[r * kMaxHeadOut + c + 1] = __fadd_rn(v1, hb[c + 1]);
+                 });
+  for (int r = threadIdx.x; r < kRT; r += kRTThreads) {
+    const int64_t g = row0 + r;
+    if (g >= a.n) continue;
+    float x[3];
     for (int j = 0; j < 3; ++j) x[j] = a.xyz[g * 3 + j];
-    nof_head_apply(o, a.use_quat, x);
+    nof_head_apply(O + r * kMaxHeadOut, a.use_quat, x);
     for (int j = 0; j < 3; ++j) a.out[g * 3 + j] = x[j];
   }
 }
@@ -347,9 +479,10 @@ void read_lin(Reader& rd, Lin* l) {
 // width, sigma_only; x; extra; out; kMaxDepth x (wpe, wh, b); sigma, final,
 // extra, rgb (wpe, wh, b) each.
 constexpr int kNerfArgs = 8 + 3 + 3 * kMaxDepth + 12;
-// NoF arguments: dtype, n, kin, depth, width, n_out, use_quat; in; xyz;
-// out; kMaxDepth x (wpe, wh, b); head (wpe, wh, b).
-constexpr int kNofArgs = 7 + 3 + 3 * kMaxDepth + 3;
+// NoF arguments: dtype, n, kin, depth, width, n_out, use_quat, lo; in;
+// xyz; out; kMaxDepth x (wpe, wh, b); head (wpe, wh, b). fp32 matrices are
+// their TF32 hi parts, each lo part lo elements further on.
+constexpr int kNofArgs = 8 + 3 + 3 * kMaxDepth + 3;
 
 bool shape_ok(int depth, int width) {
   return depth >= 1 && depth <= kMaxDepth && width >= 2 &&
@@ -393,32 +526,16 @@ int decode_nof(const int64_t* p, int n, NofArgs* a, int* dtype) {
   a->width = static_cast<int>(rd.i());
   a->n_out = static_cast<int>(rd.i());
   a->use_quat = static_cast<int>(rd.i());
+  a->lo = rd.i();
   a->in = rd.ptr<const float*>();
   a->xyz = rd.ptr<const float*>();
   a->out = rd.ptr<float*>();
   for (int l = 0; l < kMaxDepth; ++l) read_lin(rd, &a->layer[l]);
   read_lin(rd, &a->head);
-  if (!shape_ok(a->depth, a->width) || a->kin < 1 || a->kin > kMaxWidth ||
-      a->n_out != (a->use_quat ? 9 : 3))
+  if (!shape_ok(a->depth, a->width) || a->width % 2 || a->kin < 1 ||
+      a->kin > kMaxWidth || a->n_out != (a->use_quat ? 9 : 3))
     return -2;
   return 0;
-}
-
-// bf16: O, the two weight slices, then E (e_cols) and H (width) per row
-size_t mma_bytes(int e_ld, int h_ld) {
-  return kMaxHeadOut * kMmaRows * sizeof(float) +
-         (2 * static_cast<size_t>(kMaxWidth) * kWsLd +
-          static_cast<size_t>(kMmaRows) * (e_ld + h_ld)) * sizeof(bf16);
-}
-
-template <typename Args, typename Kernel>
-int launch_mma(Kernel kernel, const Args& a, int e_cols, int width,
-               cudaStream_t s) {
-  const int e_ld = pad16(e_cols) + 8, h_ld = pad16(width) + 8;
-  const unsigned blocks = static_cast<unsigned>((a.n + kMmaRows - 1) /
-                                                kMmaRows);
-  return launch(kernel, mma_bytes(e_ld, h_ld), blocks, kMmaThreads, s, a,
-                e_ld, h_ld);
 }
 
 // #8 in bf16: the layer list of the wgmma tile, the ring's depth, launch
@@ -478,13 +595,51 @@ int launch_nerf_wg(const NerfArgs& a, int e_cols, cudaStream_t s) {
                 s, w);
 }
 
-template <typename Args, typename Kernel>
-int launch_ffma(Kernel kernel, const Args& a, size_t head_floats, int e_rows,
-                int width, cudaStream_t s) {
-  const size_t smem = (head_floats + static_cast<size_t>(e_rows + width) *
-                                         kLda) * sizeof(float);
-  const unsigned blocks = static_cast<unsigned>((a.n + kTile - 1) / kTile);
-  return launch(kernel, smem, blocks, kWarps * 32, s, a, e_rows);
+// #9 in bf16: the layer list of the wgmma tile, the ring's depth; rows in
+// launches of at most wg::kMaxRows
+int launch_nof_wg(const NofArgs& a, cudaStream_t s) {
+  NofWgArgs w{};
+  w.kin = a.kin;
+  w.use_quat = a.use_quat;
+  int n = 0;
+  auto add = [&](const Lin& L, int n_out, int ep) {
+    wg::Layer& d = w.layers[n++];
+    d = wg::Layer{};
+    d.img[0] = static_cast<const bf16*>(L.wpe);
+    d.k[0] = L.wpe ? a.kin : 0;
+    d.img[1] = static_cast<const bf16*>(L.wh);
+    d.src[1] = 1;
+    d.k[1] = L.wh ? a.width : 0;
+    d.n = n_out;
+    d.n_pad = wg::width_of(n_out);
+    d.ep = ep;
+    d.bias = L.b;
+  };
+  for (int l = 0; l < a.depth; ++l) add(a.layer[l], a.width, wg::kRelu);
+  add(a.head, a.n_out, wg::kHeadO);
+  w.n_layers = n;
+  w.h_blocks = (wg::width_of(a.width) + 63) / 64;
+  w.e_blocks = (a.kin + 63) / 64;
+  // a ring stage holds the widest slice; E two buffers
+  w.stage_bytes = 128 * wg::width_of(a.width);
+  const size_t fixed = wg::smem_bytes(0, w.h_blocks, 2 * w.e_blocks,
+                                      kNofWgTail, w.stage_bytes);
+  w.stages = static_cast<int>((kMaxSmem - fixed) / w.stage_bytes);
+  if (w.stages > wg::kMaxStages) w.stages = wg::kMaxStages;
+  if (w.stages < 2) return -3;
+  const size_t smem = wg::smem_bytes(w.stages, w.h_blocks, 2 * w.e_blocks,
+                                     kNofWgTail, w.stage_bytes);
+  for (int64_t r0 = 0; r0 < a.n; r0 += wg::kMaxRows) {
+    w.n = a.n - r0 < wg::kMaxRows ? a.n - r0 : wg::kMaxRows;
+    w.in = a.in + r0 * a.kin;
+    w.xyz = a.xyz + 3 * r0;
+    w.out = a.out + 3 * r0;
+    const int rc = launch(nof_wg_kernel, smem,
+                          wg::grid_of((w.n + wg::kRows - 1) / wg::kRows),
+                          wg::kThreads, s, w);
+    if (rc) return rc;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -514,17 +669,25 @@ extern "C" int fused_mlp_nof_launch(const int64_t* p, int n, void* stream) {
   if (rc) return rc;
   if (a.n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_mma(nof_mma_kernel, a, a.kin, a.width, s);
-  return launch_ffma(nof_ffma_kernel, a, kMaxHeadOut * kTile, a.kin, a.width,
-                     s);
+  if (dtype == 1) return launch_nof_wg(a, s);
+  // 16-deep slices, or 8 where those leave the tile too little room
+  const int e_ld = tile_ld<float>(a.kin), h_ld = tile_ld<float>(a.width);
+  auto bytes = [&](int kd) {
+    return (static_cast<size_t>(kRT) * (kMaxHeadOut + e_ld + h_ld) +
+            4 * kd * kWsLdF) * sizeof(float);
+  };
+  const int kd = bytes(kKs) <= kMaxSmem ? kKs : kKs / 2;
+  const unsigned blocks = static_cast<unsigned>((a.n + kRT - 1) / kRT);
+  return launch(nof_tf32_kernel, bytes(kd), blocks, kRTThreads, s, a, kd,
+                e_ld, h_ld);
 }
 
 extern "C" const char* fused_mlp_error(int code) {
   switch (code) {
     case -1: return "wrong argument count";
-    case -2: return "unsupported network shape (depth 1..8, width 2..256, "
-                    "even for the NeRF, as its extra layer's, inputs "
-                    "1..256, NoF head 9 or 3 outputs)";
+    case -2: return "unsupported network shape (depth 1..8, width 2..256 "
+                    "and even, as the NeRF's extra layer's, inputs 1..256, "
+                    "NoF head 9 or 3 outputs)";
     case -3: return "a tile exceeds the 227 KB of shared memory";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }

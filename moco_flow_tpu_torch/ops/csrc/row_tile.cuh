@@ -7,12 +7,11 @@
 // from it; they store what the weight gradients need to a device scratch
 // (wgrad.cuh) instead of keeping it in shared memory.
 //
-// - bf16: tensor cores, as pass_tile.cuh::mma_layer (16 warps = 8 row
-//   groups x 2 column halves, mma.sync m16n8k16, A fragments by ldmatrix
-//   from row-major shared memory, 64-deep slices of B^T staged with
-//   cp.async, double-buffered, shared by the 16 warps). B arrives as B^T
-//   zero-padded to (pad16(n), pad16(k)); A holds finite values (zeros) in
-//   its columns k..pad16(k).
+// - bf16: tensor cores (16 warps = 8 row groups x 2 column halves,
+//   mma.sync m16n8k16, A fragments by ldmatrix from row-major shared
+//   memory, 64-deep slices of B^T staged with cp.async, double-buffered,
+//   shared by the 16 warps). B arrives as B^T zero-padded to (pad16(n),
+//   pad16(k)); A holds finite values (zeros) in its columns k..pad16(k).
 // - fp32: an FFMA loop; warp w owns rows 8w..8w+7, lane l the column pairs
 //   2l + 64j, reading A by broadcast from row-major shared memory and B
 //   (zero-padded to (k, pad16(n))) as coalesced float2 rows. The backward
@@ -26,7 +25,9 @@
 //   bf16 one; B (the FFMA layout, (k, pad16(n))) is staged in 16-deep fp32
 //   slices with cp.async, double-buffered, and split at fragment load; A
 //   fragments are 32-bit loads from row-major fp32 shared memory, whose
-//   row stride (tile_ld: 4 mod 16 floats) keeps them conflict-free.
+//   row stride (tile_ld: 4 mod 16 floats) keeps them conflict-free. The
+//   per-op NoF #9 takes B split once by its wrapper (rt_mm_presplit): only
+//   A is split in the kernel, with the same bits.
 // Every product accumulates in fp32 from the stored operands.
 
 #pragma once
@@ -297,6 +298,97 @@ __device__ void rt_mm(float* Ws, Term<float> t1, Term<float> t2, int n,
           unsigned bh[2], bl[2];
           tf32_split(B[ks * kWsLdF + t * 8], bh[0], bl[0]);
           tf32_split(B[(ks + 4) * kWsLdF + t * 8], bh[1], bl[1]);
+          mma_tf32(acc[t], al, bh);
+          mma_tf32(acc[t], ah, bl);
+          mma_tf32(acc[t], ah, bh);
+        }
+      }
+    }
+    __syncthreads();   // slice ci consumed; after the last, A read by all
+  }
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    if (t >= ntw) continue;
+    const int col = nbase + t * 8 + tq * 2;
+    if (col >= n) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      epi(warp_m * 16 + g + 8 * hh, col, acc[t][2 * hh], acc[t][2 * hh + 1]);
+  }
+  __syncthreads();
+}
+
+// rt_mm's split-TF32 product with B split once by the caller (the per-op
+// NoF #9): B's TF32 hi part at t.b and its lo part at t.b + lo (elements),
+// each in rt_mm's layout and rounded as tf32_split rounds
+// (ops/_args.py::tf32_split), so the sums are rt_mm's bit for bit and only A
+// is split here. A slice is kd (16 or 8) deep: its hi and lo parts are
+// staged side by side, double-buffered, 2 x 2 x kd x kWsLdF floats.
+template <class Epi>
+__device__ void rt_mm_presplit(float* Ws, int kd, Term<float> t1,
+                               Term<float> t2, int64_t lo, int n, Epi epi) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp_m = (tid >> 5) & 7, warp_n = tid >> 8;
+  const int g = lane >> 2, tq = lane & 3;
+  const int n_pad = pad16(n), ntw = n_pad / 16, nbase = warp_n * ntw * 8;
+  float acc[16][4];
+#pragma unroll
+  for (int t = 0; t < 16; ++t)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[t][q] = 0.f;
+  const int k1 = (t1.k + 7) & ~7, k2 = (t2.k + 7) & ~7;
+  const int n1 = (k1 + kd - 1) / kd;
+  const int n_slices = n1 + (k2 + kd - 1) / kd;
+  const int part = kd * kWsLdF;               // a slice's hi (or lo) part
+  auto stage = [&](int ci) {
+    if (ci < n_slices) {
+      const bool first = ci < n1;
+      const float* w = first ? t1.b : t2.b;
+      const int K = first ? t1.k : t2.k;
+      const int k0 = (first ? ci : ci - n1) * kd;
+      const int rows = min(kd, (first ? k1 : k2) - k0);
+      const int vpr = n_pad / 4;              // 16-byte vectors per row
+      float* buf = Ws + (ci & 1) * 2 * part;
+      for (int v = tid; v < 2 * rows * vpr; v += kRTThreads) {
+        const int lo_part = v >= rows * vpr, u = v - lo_part * rows * vpr;
+        const int kk = u / vpr, q = (u % vpr) * 4;
+        float* dst = buf + lo_part * part + kk * kWsLdF + q;
+        if (k0 + kk < K)
+          cp_async16(dst, w + lo_part * lo +
+                              static_cast<int64_t>(k0 + kk) * n_pad + q);
+        else
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    cp_async_commit();
+  };
+  stage(0);
+  for (int ci = 0; ci < n_slices; ++ci) {
+    stage(ci + 1);
+    cp_async_wait_all_but_one();         // slice ci has landed ...
+    __syncthreads();                     // ... for every thread
+    const bool first = ci < n1;
+    const int k0 = (first ? ci : ci - n1) * kd;
+    const int kl = min(kd, (first ? k1 : k2) - k0);
+    const int lda = first ? t1.lda : t2.lda;
+    const float* A = (first ? t1.a : t2.a) + (warp_m * 16 + g) * lda + k0 +
+                     tq;
+    const float* Bh = Ws + (ci & 1) * 2 * part + tq * kWsLdF + nbase + g;
+    const float* Bl = Bh + part;
+    for (int ks = 0; ks < kl; ks += 8) {
+      unsigned ah[4], al[4];
+      tf32_split(A[ks], ah[0], al[0]);
+      tf32_split(A[ks + 8 * lda], ah[1], al[1]);
+      tf32_split(A[ks + 4], ah[2], al[2]);
+      tf32_split(A[ks + 8 * lda + 4], ah[3], al[3]);
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        if (t < ntw) {
+          const int b0 = ks * kWsLdF + t * 8, b1 = b0 + 4 * kWsLdF;
+          const unsigned bh[2] = {__float_as_uint(Bh[b0]),
+                                  __float_as_uint(Bh[b1])};
+          const unsigned bl[2] = {__float_as_uint(Bl[b0]),
+                                  __float_as_uint(Bl[b1])};
           mma_tf32(acc[t], al, bh);
           mma_tf32(acc[t], ah, bl);
           mma_tf32(acc[t], ah, bh);

@@ -58,7 +58,7 @@ extern "C" int wg_probe_launch(const int64_t* p, int n, void* stream) {
     return -2;
   a.a = reinterpret_cast<const float*>(p[3]);
   a.out = reinterpret_cast<float*>(p[6]);
-  a.stages = wg::kMaxStages;
+  a.stages = 4;
   a.layer.img[0] = reinterpret_cast<const bf16*>(p[4]);
   a.layer.src[0] = 1;
   a.layer.k[0] = k;

@@ -7,9 +7,10 @@
 // Block layout: three warpgroups (384 threads), one block an SM (~220 KB
 // of shared memory), a persistent grid that walks the tiles. Warpgroup 0
 // is the producer: one elected thread copies the weight slices, in the
-// order the layers use them, tile after tile, into a ring of 32 KB
-// shared-memory stages with cp.async.bulk, each completing on the stage's
-// "full" mbarrier; so the next tile's first slices arrive while this one
+// order the layers use them, tile after tile, into a ring of shared-memory
+// stages (32 KB, or a kernel's largest slice) with cp.async.bulk, each
+// completing on the stage's "full" mbarrier; so the next tile's first
+// slices arrive while this one
 // ends. Warpgroups 1 and 2 are the consumers and own rows 0-63 and 64-127
 // of the tile; each runs every layer on its own rows with
 // wgmma.mma_async m64nNk16 (bf16 operands, fp32 accumulation in registers)
@@ -19,7 +20,8 @@
 // cores about half busy on the H100 (measured), two keep them full.
 // setmaxnreg moves registers from the producer (40) to the consumers (232:
 // a 64 x 256 fp32 accumulator is 128 a thread; 2 x 128 x 232 + 128 x 40 =
-// 64,512 of the 65,536, all that the 384 threads hold at launch); the
+// 64,512 of the 65,536, all that the 384 threads hold at launch; #9,
+// whose producer warpgroup also loads inputs, splits them 72 / 216); the
 // roles split once, in one if/else, and never meet at a block-wide barrier
 // again.
 //
@@ -69,8 +71,8 @@ namespace wg {
 constexpr int kRows = 128;               // rows per tile (block)
 constexpr int kThreads = 384;            // producer + 2 consumer warpgroups
 constexpr int kBlockBytes = kRows * 128; // one 64-column block of E or H
-constexpr int kStageBytes = 32768;       // one slice at N = 256
-constexpr int kMaxStages = 4;
+constexpr int kStageBytes = 32768;       // a ring stage: one slice at N = 256
+constexpr int kMaxStages = 8;            // ring stages of any kernel
 constexpr int kMaxLayers = 40;
 constexpr int kHeadLd = 16;              // O: NoF head outputs a row, padded
 constexpr int64_t kMaxRows = (1ll << 31) - 256;   // rows of one launch
@@ -383,10 +385,11 @@ __device__ __forceinline__ int tiles_of(int64_t n_tiles) {
   return static_cast<int>((n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x);
 }
 
-// The shared ring of weight slices: stage s at buf + s * kStageBytes, its
-// full and empty mbarriers at full + 8 s, empty + 8 s (shared addresses).
+// The shared ring of weight slices: stage s at buf + s * bytes (bytes: the
+// kernel's largest slice, kStageBytes unless it says otherwise), its full
+// and empty mbarriers at full + 8 s, empty + 8 s (shared addresses).
 struct Ring {
-  unsigned buf, full, empty;
+  unsigned buf, full, empty, bytes;
   int stages, stage;
   unsigned phase;
   __device__ __forceinline__ void advance() {
@@ -419,8 +422,7 @@ __device__ __forceinline__ void produce(const Layer* layers, int n_layers,
             : "memory");
         asm volatile(
             "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
-            "bytes [%0], [%1], %2, [%3];\n" ::"r"(r.buf + r.stage *
-                                                   kStageBytes),
+            "bytes [%0], [%1], %2, [%3];\n" ::"r"(r.buf + r.stage * r.bytes),
             "l"(src), "r"(bytes), "r"(full)
             : "memory");
         r.advance();
@@ -470,7 +472,7 @@ __device__ __forceinline__ void product(float (&acc)[kN / 2], Ctx& c,
     for (int k0 = 0; k0 < K; k0 += 64) {
       wait_parity(c.ring.full + 8 * c.ring.stage, c.ring.phase);
       const uint64_t da = desc_of(A + (k0 >> 6) * kBlockBytes);
-      const uint64_t db = desc_at(c.ring.buf + c.ring.stage * kStageBytes);
+      const uint64_t db = desc_at(c.ring.buf + c.ring.stage * c.ring.bytes);
       wgmma_fence();
 #pragma unroll
       for (int q = 0; q < 4; ++q)
@@ -758,12 +760,14 @@ __device__ __forceinline__ void pe_fill(Ctx& c, const float* bands,
   wg_sync(c.wgi);
 }
 
-// Shared memory of a kernel: the ring (stages x 32 KB), H (h_blocks) and E
-// (e_blocks) 64-column blocks, then `tail` bytes, then the barriers; the
-// ring starts at the first 1024-byte boundary of the dynamic allocation.
+// Shared memory of a kernel: the ring (stages x stage_bytes), H (h_blocks)
+// and E (e_blocks) 64-column blocks, then `tail` bytes, then the barriers;
+// the ring starts at the first 1024-byte boundary of the dynamic
+// allocation.
 __host__ __device__ inline size_t smem_bytes(int stages, int h_blocks,
-                                             int e_blocks, size_t tail) {
-  return 1024 + static_cast<size_t>(stages) * kStageBytes +
+                                             int e_blocks, size_t tail,
+                                             int stage_bytes = kStageBytes) {
+  return 1024 + static_cast<size_t>(stages) * stage_bytes +
          static_cast<size_t>(h_blocks + e_blocks) * kBlockBytes + tail +
          16 * kMaxStages;
 }
@@ -774,11 +778,13 @@ __host__ __device__ inline size_t smem_bytes(int stages, int h_blocks,
 // producer(), the others consumer() and then the kernel's own layers.
 __device__ __forceinline__ void setup(Ctx& c, unsigned char* smem,
                                       int stages, int h_blocks, int e_blocks,
-                                      size_t tail) {
+                                      size_t tail,
+                                      int stage_bytes = kStageBytes) {
   const unsigned base = smem_u32(smem);
   unsigned char* p = smem + (((base + 1023u) & ~1023u) - base);
   c.ring.buf = smem_u32(p);
-  p += stages * kStageBytes;
+  c.ring.bytes = stage_bytes;
+  p += stages * stage_bytes;
   c.H = p;
   p += h_blocks * kBlockBytes;
   c.E = p;
@@ -803,19 +809,22 @@ __device__ __forceinline__ void setup(Ctx& c, unsigned char* smem,
   __syncthreads();
 }
 
-// The producer warpgroup: gives its registers up, and one thread streams
-// every slice.
+// The producer warpgroup: gives its registers up (to kRegs a thread), and
+// one thread streams every slice.
+template <int kRegs = 40>
 __device__ __forceinline__ void producer(const Ctx& c, const Layer* layers,
                                          int n_layers, int64_t n_tiles) {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
   if (threadIdx.x == 0)
     produce(layers, n_layers, tiles_of(n_tiles), c.ring);
 }
 
-// A consumer warpgroup: takes the registers, and its rows of E and H,
-// which it zeroes.
+// A consumer warpgroup: takes the registers (kRegs a thread; 128 x the
+// producer's + 256 x kRegs stays within the 64,512 the block holds at
+// launch), and its rows of E and H, which it zeroes.
+template <int kRegs = 232>
 __device__ __forceinline__ void consumer(Ctx& c, int h_blocks, int e_blocks) {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
   c.wgi = (threadIdx.x >> 7) - 1;
   c.tid = threadIdx.x & 127;
   zero_rows(c, h_blocks, e_blocks);

@@ -5,9 +5,10 @@ Port of ``moco_flow_tpu/ops/fused_mlp.py``: the kernels ``_nerf_pallas`` and
 ``_nof_fused_vjp``.
 
 - ``nerf_pallas`` / ``nof_pallas`` are the kernels' wrappers: CUDA tensors
-  launch ``csrc/fused_mlp.cu`` (or raise; #8 on the wgmma tile of
+  launch ``csrc/fused_mlp.cu`` (or raise; #8 and #9 on the wgmma tile of
   ``csrc/wg_tile.cuh`` in bf16 and the split-TF32 product of
-  ``csrc/row_tile.cuh`` in fp32), CPU tensors run the plain
+  ``csrc/row_tile.cuh`` in fp32, #9's weights split into TF32 hi and lo
+  parts once a launch by ``_args.split_ops``), CPU tensors run the plain
   versions ``_nerf_pallas_ref`` / ``_nof_pallas_ref``, written from
   ``_nerf_tile_forward`` / ``_nof_tile_forward`` so that they round where
   those round: every product on operands cast to the compute dtype with fp32
@@ -141,24 +142,6 @@ def _nof_pallas_ref(cfg: NoFConfig, dt, inputs, xyz, ws):
 # Kernel launches
 # ---------------------------------------------------------------------------
 
-def _lin(ops: _args.Operands, wpe, wh, b) -> list:
-    """One NoF layer's (wpe, wh, b): ``wpe`` multiplies the layer's direct
-    inputs, ``wh`` the previous activation; either may be None. fp32
-    weights go as (K, N) row-major; bf16 ones transposed and zero-padded to
-    (pad16(N), pad16(K)), the tensor-core layout of ``pass_tile.cuh``."""
-    def mat(w):
-        if w is None:
-            return 0
-        if ops.dtype != torch.bfloat16:
-            return ops.ptr(w.float().contiguous())
-        k, n = w.shape
-        t = torch.zeros((-(-n // 16) * 16, -(-k // 16) * 16),
-                        dtype=ops.dtype, device=ops.device)
-        t[:n, :k] = w.T
-        return ops.ptr(t)
-    return [mat(wpe), mat(wh), ops.vec(b)]
-
-
 def _trunk_triples(ops, ws, depth: int, width: int, skips: tuple,
                    k_in: int) -> list:
     """The trunk's layers as (wpe, wh, b): the skip as the split product
@@ -185,13 +168,22 @@ def _trunk_triples(ops, ws, depth: int, width: int, skips: tuple,
     return out
 
 
-def _trunk_lins(ops, ws, depth: int, width: int, skips: tuple,
-                k_in: int) -> list:
-    """The trunk's layers as ``_lin`` triples, padded to MAX_DEPTH."""
-    out = []
-    for wpe, wh, b in _trunk_triples(ops, ws, depth, width, skips, k_in):
-        out += _lin(ops, wpe, wh, b)
-    return out + [0, 0, 0] * (_args.MAX_DEPTH - depth)
+def _mats(lins: list) -> list:
+    """The matrices of (wpe, wh, b) layers, in order."""
+    return [w for wpe, wh, _ in lins for w in (wpe, wh)]
+
+
+def _lin_ptrs(ops, lins: list, ptrs: list) -> list:
+    """(wpe, wh, b) layers as flat (wpe, wh, b) pointers: ``ptrs`` those of
+    ``_mats(lins)``, packed in one gather."""
+    ptr = iter(ptrs)
+    return [x for _, _, b in lins for x in (next(ptr), next(ptr),
+                                            ops.vec(b))]
+
+
+def _padded(flat: list, depth: int) -> list:
+    """A trunk's pointer triples padded to MAX_DEPTH layers."""
+    return flat + [0, 0, 0] * (_args.MAX_DEPTH - depth)
 
 
 def _nerf_launch(cfg: NeRFConfig, dt, x, extra, sigma_only: bool, ws):
@@ -225,13 +217,11 @@ def _nerf_launch(cfg: NeRFConfig, dt, x, extra, sigma_only: bool, ws):
                  (None, ws[k + 6], ws[k + 7])]
     else:
         heads = []
-    ptr = iter(_args.fwd_ops(ops, [w for wpe, wh, _ in lins + heads
-                                   for w in (wpe, wh)]))
-    trunk = [x for _, _, b in lins for x in (next(ptr), next(ptr),
-                                             ops.vec(b))]
-    trunk += [0, 0, 0] * (_args.MAX_DEPTH - cfg.depth)
-    hp = [x for _, _, b in heads for x in (next(ptr), next(ptr), ops.vec(b))]
-    heads = [0, ops.vec(ws[k]), ops.vec(ws[k + 1])] + (hp or [0, 0, 0] * 3)
+    flat = _lin_ptrs(ops, lins + heads,
+                     _args.fwd_ops(ops, _mats(lins + heads)))
+    trunk = _padded(flat[:3 * cfg.depth], cfg.depth)
+    heads = ([0, ops.vec(ws[k]), ops.vec(ws[k + 1])]
+             + (flat[3 * cfg.depth:] or [0, 0, 0] * 3))
     out = torch.empty((n, 1 if sigma_only else 4), dtype=torch.float32,
                       device=dev)
     arr = _args.as_array(
@@ -255,19 +245,30 @@ def _nof_launch(cfg: NoFConfig, dt, inputs, xyz, ws):
     ops.check(inputs.dim() == 2 and inputs.shape[1] == cfg.in_dim,
               f"inputs {tuple(inputs.shape)}, expected (n, {cfg.in_dim})")
     ops.check(tuple(xyz.shape) == (n, 3), f"xyz {tuple(xyz.shape)}")
-    trunk = _trunk_lins(ops, ws, cfg.depth, cfg.width, cfg.skips,
-                        cfg.in_dim)
+    ops.check(cfg.width % 2 == 0, f"width {cfg.width} not even")
+    lins = _trunk_triples(ops, ws, cfg.depth, cfg.width, cfg.skips,
+                          cfg.in_dim)
     n_out = 9 if cfg.use_quat else 3
     k = 2 * cfg.depth
     ops.check(tuple(ws[k].shape) == (cfg.width, n_out),
               f"head {tuple(ws[k].shape)}, expected ({cfg.width}, {n_out})")
+    lins.append((None, ws[k], ws[k + 1]))
+    # bf16: the wgmma tile's slice images; fp32: row-tile operands split
+    # once into their TF32 hi and lo parts, the lo parts lo elements on
+    if dt == torch.bfloat16:
+        ptrs, lo = _args.fwd_ops(ops, _mats(lins)), 0
+    else:
+        ptrs, lo = _args.split_ops(ops, _mats(lins))
+    flat = _lin_ptrs(ops, lins, ptrs)
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    x = inputs.float().contiguous()
+    if x.data_ptr() % 16:        # the bf16 kernel reads 16 bytes a load
+        x = x.clone()
     arr = _args.as_array(
         [1 if dt == torch.bfloat16 else 0, n, cfg.in_dim, cfg.depth,
-         cfg.width, n_out, int(cfg.use_quat),
-         ops.ptr(inputs.float().contiguous()),
+         cfg.width, n_out, int(cfg.use_quat), lo, ops.ptr(x),
          ops.ptr(xyz.float().contiguous()), ops.ptr(out)]
-        + trunk + _lin(ops, None, ws[k], ws[k + 1]))
+        + _padded(flat[:-3], cfg.depth) + flat[-3:])
     rc = _args.call(lib.fused_mlp_nof_launch, arr,
                     torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Compare kernels of two trees of this repository bit for bit on one card:
 the training step's backward kernels #2 ``nerf_bwd`` and #6 ``chain_bwd``,
-its forward kernels #1 ``nerf_fwd`` and #5 ``chain_fwd``, and the per-op
-NoF #9 ``nof_pallas``.
+its forward kernels #1 ``nerf_fwd`` and #5 ``chain_fwd``, the render pass
+#7 ``render_pass`` and the per-op NeRF #8 ``nerf_pallas``.
 
     (cd TREE_A && python /path/to/scripts/torch_port_chain_bitwise.py dump a.pt)
     (cd TREE_B && python /path/to/scripts/torch_port_chain_bitwise.py dump b.pt)
@@ -15,8 +15,10 @@ launches the warp chain at full NoF width (4x128, skip 2, 5 + 16
 frequencies, quaternion head) with local + global chains, and the NeRF at
 full width (8x256, skip 4, 10 frequencies, the 5-dim frame feature) with
 its rgb head and sigma-only, and saves every forward output, and every
-dxyz, d(partial) and dW of the backward; and #9 at c2f.yaml's NoF (4x128,
-skip 2, quaternion head) on 16384 x 128 and 100003 seeded rows. ``compare`` prints, per kernel,
+dxyz, d(partial) and dW of the backward; #7 at the same widths with the
+bw-NoF warp (N x S = 1000 x 128, coarse sigma-only and fine); and #8 at
+init_nerf.yaml's model (8x256, 63 inputs, the 27-wide ``dir`` extra) on
+100003 seeded rows, full and sigma-only. ``compare`` prints, per kernel,
 how many of the saved tensors are bitwise equal and the max |diff| of the
 others. ``sass`` compares two builds of the kernel library
 (``build/torch_kernels/*/libmoco_kernels.so``) instruction by instruction
@@ -38,7 +40,8 @@ import sys
 
 import torch
 
-KERNELS = ("nerf_fwd", "nerf_bwd", "chain_fwd", "chain_bwd", "nof_pallas")
+KERNELS = ("nerf_fwd", "nerf_bwd", "chain_fwd", "chain_bwd", "render_pass",
+           "nerf_pallas")
 
 
 def dump(path: str):
@@ -99,13 +102,41 @@ def dump(path: str):
                 keep("nerf_bwd", tag, [dx] + ([] if dp is None else [dp])
                      + list(dw))
     from moco_flow_tpu_torch.ops import fused_mlp as fm
-    nws = fm._nof_weights_flat(bw)
-    for rows in (16384 * 128, 100003):
-        inp = (torch.rand(rows, fcfg.in_dim, generator=gen) * 2 - 1).to(dev)
-        xyz = (0.6 * torch.randn(rows, 3, generator=gen)).to(dev)
+    from moco_flow_tpu_torch.ops.render_pass import render_pass
+    from moco_flow_tpu_torch.render.volume import EmbeddingSpec, embed_padded
+    n, s = 1000, 128
+    o = (torch.tensor([0.0, 0.0, 4.0])
+         + 0.05 * torch.randn(n, 3, generator=gen)).to(dev)
+    d = torch.randn(n, 3, generator=gen)
+    d[:, 2] = -d[:, 2].abs() - 1
+    d = (d / d.norm(dim=-1, keepdim=True)).to(dev)
+    z = torch.sort(2.5 + 3 * torch.rand(n, s, generator=gen), -1).values
+    ind = (torch.rand(n, 1, generator=gen) * 2 - 1).to(dev)
+    extra = embed_padded(ind, EmbeddingSpec(2, in_channels=1), 5)
+    ind_emb = embed_padded(ind, EmbeddingSpec(16, in_channels=1), 33)
+    params = {"coarse_NeRF": nerf, "bw_NoF": bw}
+    for sigma_only in (True, False):
         for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
-            keep("nof_pallas", f"{rows}/{dname}",
-                 [fm.nof_pallas(fcfg, dt, inp, xyz, nws)])
+            outs = render_pass(params, "coarse_NeRF", ncfg, fcfg, 10, 5,
+                               True, True, an_n, an, o, d, z.to(dev),
+                               None if sigma_only else extra, ind_emb, True,
+                               sigma_only, dt)
+            keep("render_pass",
+                 f"{n}x{s}/{dname}/{'sigma' if sigma_only else 'full'}",
+                 [t for t in outs if t is not None])
+    mcfg = NeRFConfig(depth=8, width=256, in_channels_xyz=63, skips=(4,),
+                      extra_feat_type="dir", extra_feat_dim=27)
+    mlp = init_nerf(gen, mcfg, dev)
+    rows = 100003
+    x = (torch.rand(rows, 63, generator=gen) * 2 - 1).to(dev)
+    e = (torch.rand(rows, 27, generator=gen) * 2 - 1).to(dev)
+    for sigma_only in (False, True):
+        ws = fm._nerf_weights_flat(mlp, sigma_only)
+        for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+            keep("nerf_pallas",
+                 f"{rows}/{dname}/{'sigma' if sigma_only else 'full'}",
+                 [fm.nerf_pallas(mcfg, dt, x, None if sigma_only else e,
+                                 sigma_only, ws)])
     torch.cuda.synchronize()
     torch.save(out, path)
     print(f"saved {len(out)} tensors to {path}")

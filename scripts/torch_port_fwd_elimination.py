@@ -5,8 +5,11 @@ how fast one block can stream a tile's weight slices from L2, on one card.
 
     python scripts/torch_port_fwd_elimination.py PARENT_DIR OUT_DIR
 
-PARENT_DIR is a checkout of the tree with that design (for example commit
-6245cc4 unpacked with ``git archive`` under the git-ignored ``build/``).
+PARENT_DIR is a checkout of a tree that still has that design: commit
+6245cc4, the last one before #7 moved to the wgmma tile, unpacked with ``git
+archive`` under the git-ignored ``build/``. The script edits only
+PARENT_DIR's copies, never the tree it runs from: from a4e337b on #7 no
+longer runs ``mma_layer``, and later trees have no ``mma_layer`` at all.
 The script copies it four times under OUT_DIR: ``base`` as it is,
 ``noproduct`` without the layers' ldmatrix + mma.sync loops (the weight
 staging, the barriers and the epilogues remain), ``nostage`` without the

@@ -4,7 +4,7 @@ all its kernels, in two trees of this repository on one card, interleaved
 A, B, B, A.
 
     python scripts/torch_port_step_ab.py A_DIR B_DIR [--steps 10]
-        [--what step|render|kernels|nof|phases] [--pairs 3]
+        [--what step|render|kernels|nof|mlp|frame|phases] [--pairs 3]
 
 Each directory is a checkout holding ``chip_smoke.py`` and
 ``moco_flow_tpu_torch/`` (for example a parent commit unpacked with ``git
@@ -30,9 +30,14 @@ forward and backward), the val tile (16384 x 128, forward) and stage 2's
 200,000-point set in the shape the tree's ``nof_fused_rays`` launches the
 kernels with (forward and backward), and splits one stage-2 call of #4
 into device time by kernel name (torch.profiler) beside its wall time on
-the host clock. ``--what phases`` runs chip_smoke.py's phase 11 (the
-``msk`` / ``full`` steps and the val step at 108x108, bf16 and fp32) and
-reports its three times per dtype. The runs go A B B A, ``--pairs``
+the host clock. ``--what mlp`` times the per-op NoF #9 alone at the
+``pallas`` render tile (16384 x 128 rows, bf16 and fp32, mean of 5 after
+a warm launch) with its plain version and a digest of its output (equal
+digests, the same bits); ``--what frame`` runs chip_smoke.py's phase 15
+(one 256x256 frame under ``pallas`` and under ``fused``, bf16 and fp32,
+through ``test(config, args)``). ``--what phases`` runs chip_smoke.py's
+phase 11 (the ``msk`` / ``full`` steps and the val step at 108x108, bf16
+and fp32) and reports its three times per dtype. The runs go A B B A, ``--pairs``
 times over (at least 3); beside every run the card's SM clock, memory
 clock and temperature as nvidia-smi reads them just before and just after
 it.
@@ -142,6 +147,37 @@ def nof_times(dev):
 if sys.argv[1] == "nof":
     print("MS " + json.dumps(nof_times(torch.device("cuda"))), flush=True)
     sys.exit(0)
+if sys.argv[1] == "mlp":
+    # #9 at the pallas render tile (16384 x 128 rows of c2f.yaml's NoF),
+    # bf16 and fp32, with its plain version and a digest of its output
+    # (equal digests: the same bits)
+    import hashlib
+    from moco_flow_tpu_torch.ops import fused_mlp as fm
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(3)
+    fcfg = cs.NoFConfig()
+    ws = fm._nof_weights_flat(cs.init_nof(gen, fcfg, dev))
+    rows = 16384 * 128
+    inp = (torch.rand(rows, fcfg.in_dim, generator=gen) * 2 - 1).to(dev)
+    xyz = (0.6 * torch.randn(rows, 3, generator=gen)).to(dev)
+    out = {}
+    for dname, dt in (("bf16", torch.bfloat16), ("fp32", None)):
+        o = fm.nof_pallas(fcfg, dt, inp, xyz, ws).cpu().numpy()
+        out[f"nof_pallas {dname} digest"] = hashlib.sha256(
+            o.tobytes()).hexdigest()[:16]
+        out[f"nof_pallas {dname}"] = cs.cuda_ms(
+            lambda: fm.nof_pallas(fcfg, dt, inp, xyz, ws), reps=5)
+        out[f"nof_pallas plain {dname}"] = cs.cuda_ms(
+            lambda: fm._nof_pallas_ref(fcfg, dt, inp, xyz, ws), reps=3)
+    print("MS " + json.dumps(out), flush=True)
+    sys.exit(0)
+if sys.argv[1] == "frame":
+    ms = cs.phase_pallas_frame("")["ms"]
+    print("MS " + json.dumps({f"{route} {dtype}": v
+                              for (route, dtype), v in ms.items()}),
+          flush=True)
+    sys.exit(0)
 if sys.argv[1] == "phases":
     r = cs.phase_phases_slice("")
     print("MS " + json.dumps({f"{k} {d}": v for d in ("bfloat16", "float32")
@@ -242,7 +278,7 @@ def main(argv=None):
     p.add_argument("b")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--what", choices=("step", "render", "kernels", "nof",
-                                      "phases"),
+                                      "mlp", "frame", "phases"),
                    default="step")
     p.add_argument("--pairs", type=int, default=3,
                    help="A B B A rounds, at least 3")

@@ -183,13 +183,42 @@ def test_fused_mlp_nerf_matches_plain(card, sigma_only, dt):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [None, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("use_quat", [True, False], ids=["quat", "offset"])
-def test_fused_mlp_nof_matches_plain(card, use_quat, dt):
-    """Kernel #9 (the per-op NoF) at c2f.yaml's widths, both heads."""
+@pytest.mark.parametrize("n", [1, 127, 129, 3001, 100003])
+def test_fused_mlp_nof_matches_plain(card, n, use_quat, dt):
+    """Kernel #9 (the per-op NoF) at c2f.yaml's widths, both heads, on row
+    counts around the 128-row tile and a ragged 100,003; in bf16 also within
+    the plain version's own bf16-vs-fp32 gap (max and mean)."""
     from moco_flow_tpu_torch.ops import fused_mlp as fm
     gen = torch.Generator().manual_seed(4)
     cfg = NoFConfig(use_quat=use_quat)
     ws = fm._nof_weights_flat(init_nof(gen, cfg, card))
-    n = 3001
+    inp = (torch.rand(n, cfg.in_dim, generator=gen) * 2 - 1).to(card)
+    xyz = (0.6 * torch.randn(n, 3, generator=gen)).to(card)
+    before = fm.nof_pallas.launches
+    got = fm.nof_pallas(cfg, dt, inp, xyz, ws)
+    want = fm._nof_pallas_ref(cfg, dt, inp, xyz, ws)
+    want32 = fm._nof_pallas_ref(cfg, None, inp, xyz, ws)
+    torch.cuda.synchronize()
+    assert fm.nof_pallas.launches == before + 1
+    assert got.shape == (n, 3) and torch.isfinite(got).all()
+    atol, rtol = TOL[dt]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+    if dt is not None:
+        err, gap = (got - want).abs(), (want - want32).abs()
+        assert err.max() <= gap.max() and err.mean() <= gap.mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+def test_fused_mlp_nof_wide(card, dt):
+    """#9 at a 256-wide NoF: four 64-column blocks of H and a 3-stage ring
+    in bf16; 8-deep weight slices in fp32, where 16-deep hi + lo slices
+    leave the 128-row tile too little shared memory."""
+    from moco_flow_tpu_torch.ops import fused_mlp as fm
+    gen = torch.Generator().manual_seed(5)
+    cfg = NoFConfig(width=256)
+    ws = fm._nof_weights_flat(init_nof(gen, cfg, card))
+    n = 1000
     inp = (torch.rand(n, cfg.in_dim, generator=gen) * 2 - 1).to(card)
     xyz = (0.6 * torch.randn(n, 3, generator=gen)).to(card)
     got = fm.nof_pallas(cfg, dt, inp, xyz, ws)

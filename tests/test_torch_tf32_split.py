@@ -1,6 +1,6 @@
 """The fp32 tensor-core product of the forward kernels #1 (``nerf_fwd``), #5
-(``chain_fwd``), #7 (``render_pass``) and #8 (``nerf_pallas``), emulated on
-the CPU.
+(``chain_fwd``), #7 (``render_pass``), #8 (``nerf_pallas``) and #9
+(``nof_pallas``), emulated on the CPU.
 
 The kernels' fp32 builds multiply on the tensor cores in TF32 with split
 operands (``csrc/row_tile.cuh``): a = a_hi + a_lo and b = b_hi + b_lo, each
@@ -10,9 +10,10 @@ in fp32 ("3xTF32"). The exact three-piece split (hi + mid + lo, six
 products) is the fallback whose error is at fp32's level. Here every
 product of the plain forwards ``_nerf_fwd_ref`` / ``_chain_fwd_ref`` /
 ``render_pass_ref`` (with the bw-NoF warp) / ``_nerf_pallas_ref`` (with
-the ``dir`` extra) is replaced by the emulated split product (the sigma
-row, a plain fp32 dot in the kernels, excepted) at full width (NeRF 8x256,
-NoF 4x128; #8 at init_nerf.yaml's model) on a few hundred seeded rows, and
+the ``dir`` extra) / ``_nof_pallas_ref`` (both heads) is replaced by the
+emulated split product (the sigma row, a plain fp32 dot in the kernels,
+excepted) at full width (NeRF 8x256, NoF 4x128; #8 at init_nerf.yaml's
+model, #9 at c2f.yaml's NoF) on a few hundred seeded rows, and
 the outputs are held against the fp32 plain versions: the two-piece split
 within chip_smoke.py's ``TOL["fp32"]`` (1e-4 + 1e-4 |ref|), the three-piece
 split within 1e-6 of the largest magnitude.
@@ -164,11 +165,24 @@ def _nerf_pallas():
     return lambda: [fused_mlp._nerf_pallas_ref(cfg, None, x, e, False, ws)]
 
 
+def _nof_pallas(use_quat: bool):
+    """#9 at c2f.yaml's NoF (66 inputs, 4x128, skip 2) with the quaternion
+    or the offset head."""
+    gen = torch.Generator().manual_seed(15)
+    cfg = NoFConfig(use_quat=use_quat)
+    ws = fused_mlp._nof_weights_flat(init_nof(gen, cfg, torch.device("cpu")))
+    inp = torch.rand(N_RAYS * N_SAMPLES, cfg.in_dim, generator=gen) * 2 - 1
+    xyz = 0.6 * torch.randn(N_RAYS * N_SAMPLES, 3, generator=gen)
+    return lambda: [fused_mlp._nof_pallas_ref(cfg, None, inp, xyz, ws)]
+
+
 CASES = {"nerf": lambda: _nerf(False), "nerf-sigma-only": lambda: _nerf(True),
          "chain": _chain,
          "render-pass": lambda: _render_pass(False),
          "render-pass-sigma-only": lambda: _render_pass(True),
-         "nerf-pallas": _nerf_pallas}
+         "nerf-pallas": _nerf_pallas,
+         "nof-pallas": lambda: _nof_pallas(True),
+         "nof-pallas-offset": lambda: _nof_pallas(False)}
 # the modules whose products the kernels' fp32 builds take in split TF32
 SPLIT_MODULES = (nerf_rays, nof_chain, render_pass, fused_mlp)
 

@@ -1,4 +1,4 @@
-"""The weight images of the bf16 forward kernels #7 and #8
+"""The weight images of the bf16 forward kernels #7, #8 and #9
 (``csrc/wg_tile.cuh``), built on the CPU by ``ops/_args.py::wg_pack``.
 
 Each (K, N) weight becomes ceil(K / 64) slices of wg_width(N) rows of 64
@@ -6,19 +6,24 @@ bf16 (128 bytes), in the 128-byte swizzle that the wgmma descriptor names:
 element (n, k) of W^T sits in slice k // 64, row n, 16-byte chunk
 ((k % 64) // 8) ^ (n % 8), position k % 8. Read back through that formula,
 every image must give W^T zero-padded to (wg_width(N), 64 * slices), and
-the padding must be exactly zero. Shapes: every product that #7 and #8 pack
-at c2f.yaml's and init_nerf.yaml's widths, and ragged K.
+the padding must be exactly zero. Shapes: every product that #7, #8 and #9
+pack at c2f.yaml's and init_nerf.yaml's widths, and ragged K.
 
 The row-tile operands of the training kernels and of the fp32 forwards
 (``row_ops``, one gather a launch) must be each matrix, or its transpose
 read from the same values, in its product's layout: bf16 B^T zero-padded
-to (pad16(N), pad16(K)), fp32 B zero-padded to (K, pad16(N)).
+to (pad16(N), pad16(K)), fp32 B zero-padded to (K, pad16(N)). #9's fp32
+operands (``split_ops``) are those, split once into TF32 hi and lo parts:
+hi + lo gives each weight within the split's error, both parts are TF32
+values rounded as ``cvt.rna.tf32.f32`` rounds, and the padding is exactly
+zero in both.
 """
 
 import pytest
 import torch
 
-from moco_flow_tpu_torch.ops._args import (WG_K, row_ops, wg_pack,
+from moco_flow_tpu_torch.ops._args import (WG_K, Operands, row_ops,
+                                          split_ops, tf32_split, wg_pack,
                                           wg_pack_all, wg_width)
 
 SHAPES = {
@@ -31,6 +36,8 @@ SHAPES = {
     "nof-pe-33x128": (33, 128),
     "nof-128x128": (128, 128),
     "nof-head-128x9": (128, 9),           # N padded to 16
+    "nof-pallas-in-66x128": (66, 128),    # #9: layer 0's, the skip's inputs
+    "nof-offset-head-128x3": (128, 3),    # #9's offset head, N padded to 8
     "ragged-90x48": (90, 48),             # the golden fixture's width
     "ragged-1x1": (1, 1),
     "ragged-65x17": (65, 17),
@@ -119,3 +126,62 @@ def test_row_ops_layout(dt):
         want = want.reshape(-1)
         assert (o * buf.element_size()) % 16 == 0
         assert torch.equal(buf[o:o + want.numel()], want)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: the 13 dropped
+    mantissa bits rounded to nearest, ties away from zero, written as the
+    arithmetic on the magnitude (not the bit trick of ``tf32_split``)."""
+    m, e = torch.frexp(x.double())           # x = m 2^e, 0.5 <= |m| < 1
+    q = torch.floor(m.abs() * 2 ** 11 + 0.5) * torch.sign(m)
+    return torch.ldexp(q / 2 ** 11, e).float()
+
+
+def test_tf32_split_rounding():
+    gen = torch.Generator().manual_seed(10)
+    x = torch.cat([torch.randn(4096, generator=gen) * 10 ** torch.randint(
+        -6, 6, (4096,), generator=gen).float(),
+        torch.tensor([0.0, 1.0 + 2 ** -11, -(1.0 + 2 ** -11),
+                      1.0 + 2 ** -12, 3.0e-3])])
+    hi, lo = tf32_split(x)
+    assert torch.equal(hi, _tf32(x)) and torch.equal(lo, _tf32(x - hi))
+    assert torch.equal(hi[-4:-1], torch.tensor([1.0 + 2 ** -10,
+                                                -(1.0 + 2 ** -10), 1.0]))
+    assert ((hi.view(torch.int32) | lo.view(torch.int32)) & 0x1FFF == 0).all()
+    assert ((hi + lo - x).abs() <= x.abs() * 2 ** -21).all()
+
+
+@pytest.mark.parametrize("use_quat", [True, False], ids=["quat", "offset"])
+def test_split_ops_reads_back(use_quat):
+    """#9's fp32 operands at c2f.yaml's NoF: one buffer of hi parts in
+    ``row_ops``' layout, then the lo parts at a fixed distance; None gives
+    0."""
+    gen = torch.Generator().manual_seed(11)
+    k_in, w, n_out = 66, 128, 9 if use_quat else 3
+    skip = torch.randn(k_in + w, w, generator=gen)
+    ws = [torch.randn(k_in, w, generator=gen), None, None,
+          torch.randn(w, w, generator=gen), skip[:k_in], skip[k_in:], None,
+          torch.randn(w, w, generator=gen), None,
+          torch.randn(w, n_out, generator=gen)]
+    ops = Operands("nof_pallas", torch.device("cpu"), torch.float32)
+    ptrs, lo = split_ops(ops, ws)
+    buf = ops.keep[-1]
+    assert buf.dtype == torch.float32 and buf.numel() == 2 * lo
+    pad = lambda x: -(-x // 16) * 16  # noqa: E731
+    assert lo == sum(m.shape[0] * pad(m.shape[1]) for m in ws
+                     if m is not None)
+    for m, p in zip(ws, ptrs):
+        if m is None:
+            assert p == 0
+            continue
+        o = (p - buf.data_ptr()) // 4
+        assert (p - buf.data_ptr()) % 16 == 0
+        k, n = m.shape
+        hi = buf[o:o + k * pad(n)].view(k, pad(n))
+        lo_part = buf[o + lo:o + lo + k * pad(n)].view(k, pad(n))
+        assert not hi[:, n:].any() and not lo_part[:, n:].any()
+        want_hi, want_lo = _tf32(m), _tf32(m - _tf32(m))
+        assert torch.equal(hi[:, :n], want_hi)
+        assert torch.equal(lo_part[:, :n], want_lo)
+        assert ((hi[:, :n] + lo_part[:, :n] - m).abs()
+                <= m.abs() * 2 ** -21).all()
