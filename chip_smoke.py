@@ -82,13 +82,38 @@ happened; any failure raises and the script exits non-zero):
      bounds and weight bytes streamed from L2 a stage-1 step);
   13. JAX's stage-1 fixture replayed on the card (fp32);
   14. stage 1 through ``train(config, args)`` at init_nerf.yaml's model
-     under mlp_impl: pallas (launches, step, peak memory, val, profile),
+     under mlp_impl: pallas from a seeded init whose sigma heads are
+     biased up by 1 (launches, step, peak memory, val, profile),
      then a step as the YAML is written ('xla': #1/#2), with its peak
      memory and the backward's chunks;
-  15. the pallas 256x256 frame against the fused render.
-The last three lines are the card, the kernel JSON (launch counts from the
-main paths of phases 5, 8, 11, 14 and 15) and the result JSON. Needs one CUDA card;
-imports neither JAX nor moco_flow_tpu.
+  15. the pallas 256x256 frame against the fused render;
+  16. JAX's stage-2 fixture (tests/fixtures/torch_port_stage2_golden.npz,
+     written by scripts/make_torch_port_stage2_golden.py) replayed on the
+     card in fp32: three stage-2 steps and the val step, and the stage-3
+     none / msk steps and val step under mlp_impl: pallas;
+  17. stage 2 through ``train(config, args)`` at init_nof.yaml's model and
+     N_sampled 100,000 on a body of 6890 vertices: #3/#4 launches, the val
+     step every 2 steps, step time, the KNN's time beside the plain BLAS
+     formula's (and its bits in other chunks, with TF32 allowed and as the
+     BLAS formula), peak memory, a profile with the idle
+     share (build/chip_smoke_stage2/stage2_step_profile.txt);
+  18. the stage-3 step under mlp_impl: pallas at c2f.yaml's widths through
+     ``train(config, args)`` (full -> none, none -> msk; bf16 and fp32) with
+     #8/#9 launches a step, #8/#9 against their plain versions on the
+     arguments of the steps' own launches (each shape: c2f's NeRF with its
+     5-wide 'ind' extra at 1024 x 128 and 1024 x 256 rows, the mask
+     term's sigma-only rows, the NoF's sample sets and N_sampled points;
+     fp32 and bf16), each phase's step time beside the fused route's, and
+     the pallas val step;
+  19. the hand-over: stage 3 built from phase 14's and phase 17's finals
+     (pretrained_nerf / pretrained_nof), the moved tensors checked equal,
+     then a few fused full steps through ``train(config, args)`` in which
+     the NoFs and the rgb branch move, with each step's share of samples
+     with alpha >= 0.01.
+Phase 9 also holds #3/#4 at init_nof.yaml's NoF (0 xyz bands) at stage 2's
+shape. The last three lines are the card, the kernel JSON (launch counts
+from the main paths of phases 5, 8, 11, 14, 15, 17, 18 and 19) and the
+result JSON. Needs one CUDA card; imports neither JAX nor moco_flow_tpu.
 """
 
 from __future__ import annotations
@@ -1180,11 +1205,14 @@ def phase_train_slice(card: str) -> dict:
 STAGE2_POINTS = 200_000   # init_nof.yaml's N_sampled 100,000: 2 x 100,000 a NoF
 
 
-def _nof_case(P, fcfg, an_f, n, s, gen, dev, rechunk: bool = False):
-    """#3/#4's inputs for n rays of s samples; with ``rechunk`` one ray of s
-    samples as nof_fused_rays launches the kernels with it (rays of 4096
-    samples, zero-padded, the frame embedding broadcast; the cotangent of
-    the padding 0, as the slice of the output makes it)."""
+def _nof_case(P, fcfg, an_f, n, s, gen, dev, rechunk: bool = False,
+              n_freqs: int = 5):
+    """#3/#4's inputs for n rays of s samples at ``n_freqs`` xyz PE bands
+    (c2f's 5, or init_nof.yaml's 0, padded to the same 33 inputs); with
+    ``rechunk`` one ray of s samples as nof_fused_rays launches the kernels
+    with it (rays of 4096 samples, zero-padded, the frame embedding
+    broadcast; the cotangent of the padding 0, as the slice of the output
+    makes it)."""
     from moco_flow_tpu_torch.ops import nof_rays as nr
     from moco_flow_tpu_torch.ops.folds import _NofSpec, _nof_fold
     xyz = (0.6 * torch.randn(3, n, s, generator=gen)).to(dev)
@@ -1195,19 +1223,29 @@ def _nof_case(P, fcfg, an_f, n, s, gen, dev, rechunk: bool = False):
         xyz = xyz_c.permute(2, 0, 1).contiguous()
         g = nr._rechunk(g.permute(1, 2, 0), emb)[0].permute(2, 0, 1)
         g = g.contiguous()
-    ws, parts = _nof_fold(P, fcfg, 5, an_f, emb)
-    return _NofSpec(4, 128, 15, (2,), True, True), xyz, parts, ws, g
+    ws, parts = _nof_fold(P, fcfg, n_freqs, an_f if n_freqs else None, emb)
+    spec = _NofSpec(4, 128, 3 * max(n_freqs, 1), (2,), True, True)
+    return spec, xyz, parts, ws, g
+
+
+def _nof_macs(ws) -> int:
+    """Multiply-adds a row of the NoF's products (matrices of the folded
+    operands; biases and per-ray partials excluded)."""
+    return sum(w.shape[0] * w.shape[1] for w in ws
+               if w.dim() == 2 and w.shape[0] > 1)
 
 
 def phase_nof_kernels(dev, card: str,
                       sizes=((1, 2000, True), (1, 10000, True),
                              (1, STAGE2_POINTS, True),
+                             (1, STAGE2_POINTS, True, 0),
                              (16384, 128, False))) -> dict:
     """Kernels #3/#4 (the single NoF warp) against their plain versions at
-    full width on ``sizes`` (rays, samples, with the backward; one ray of
+    full width on ``sizes`` (rays, samples, with the backward, and the xyz
+    PE bands if not c2f's 5: init_nof.yaml's NoF has 0; one ray of
     STAGE2_POINTS samples goes in re-chunked, as stage 2 launches it), then
     each timed with its plain version and bound on the first (the step's
-    correspondence ray), the stage-2 set and the last forward (the val
+    correspondence ray), the stage-2 sets and the last forward (the val
     tile)."""
     from moco_flow_tpu_torch.ops import _args
     from moco_flow_tpu_torch.ops import nof_chain as nc
@@ -1218,11 +1256,15 @@ def phase_nof_kernels(dev, card: str,
     an_f = anneal_weights(505000, 5, 5000, 1005000).to(dev)
     err = {"nof_fwd": 0.0, "nof_bwd": 0.0}
     cases = {}
-    for n_r, s, with_bwd in sizes:
+    keys = []
+    for n_r, s, with_bwd, *bands in sizes:
+        nf = bands[0] if bands else 5
+        keys.append((n_r, s, nf))
         case = _nof_case(P, fcfg, an_f, n_r, s, gen, dev,
-                         rechunk=s == STAGE2_POINTS)
-        spec, xyz, parts, ws, g = cases[(n_r, s)] = case
-        shape = f"N={xyz.shape[1]} S={xyz.shape[2]}"
+                         rechunk=s == STAGE2_POINTS, n_freqs=nf)
+        spec, xyz, parts, ws, g = cases[keys[-1]] = case
+        shape = f"N={xyz.shape[1]} S={xyz.shape[2]}" + (
+            f" xyz bands {nf}" if nf != 5 else "")
         plain32 = None
         for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
             tag = f"nof {shape} {dname}"
@@ -1270,39 +1312,45 @@ def phase_nof_kernels(dev, card: str,
     # bound: each input read once (xyz 12 B a row, the cotangent 12 B, the
     # per-ray partials, the weights in the compute type), each output
     # written once (warped or dxyz 12 B a row, dW fp32)
-    step_shape, val_shape = sizes[0][:2], sizes[-1][:2]
-    stage2 = next(sz[:2] for sz in sizes if sz[1] == STAGE2_POINTS)
-    n_w = sum(w.numel() for w in cases[step_shape][3])
-    n_p = len(cases[step_shape][2])
-    times = {}
+    step_shape, val_shape = keys[0], keys[-1]
+    stage2 = next(k for k in keys if k[1] == STAGE2_POINTS and k[2] == 5)
+    stage2_0 = [k for k in keys if k[1] == STAGE2_POINTS and k[2] == 0]
+    times, times_stage2 = {}, {}
     shapes = [("nof_fwd", step_shape), ("nof_bwd", step_shape),
               ("nof_fwd", stage2), ("nof_bwd", stage2),
+              *[(nm, k) for k in stage2_0 for nm in ("nof_fwd", "nof_bwd")],
               ("nof_fwd", val_shape)]
     for dname, dt in (("bf16", torch.bfloat16), ("fp32", None)):
         wb = 2 if dt is not None else 4
         for name, key in shapes:
             spec, xyz, parts, ws, g = cases[key]
+            n_w, n_p = sum(w.numel() for w in ws), len(parts)
+            macs = NOF_MACS if key[2] == 5 else _nof_macs(ws)
             n_r, s = xyz.shape[1], xyz.shape[2]
             rows, part_b = n_r * s, n_r * 128 * 4 * n_p
             if name == "nof_fwd":
                 kern = lambda: nr.nof_fwd(spec, dt, xyz, parts, ws)  # noqa: E731
                 plain = lambda: nr._nof_fwd_ref(spec, dt, xyz, parts, ws)  # noqa: E731
-                flops = 2 * NOF_MACS * rows
+                flops = 2 * macs * rows
                 nbytes = rows * 24 + wb * n_w + part_b
             else:
                 kern = lambda: nr.nof_bwd(spec, dt, xyz, parts, ws, g)  # noqa: E731
                 plain = lambda: nr._nof_bwd_ref(spec, dt, xyz, parts, ws, g)  # noqa: E731
-                flops = 3 * 2 * NOF_MACS * rows
+                flops = 3 * 2 * macs * rows
                 nbytes = rows * 36 + (wb + 4) * n_w + 2 * part_b
             k_ms = cuda_ms(kern, reps=5)
             p_ms = cuda_ms(plain, reps=5)
             b_ms, b_by = bound_ms(flops, nbytes, dname)
             if dname == "bf16" and key == step_shape:
                 times[name] = (k_ms, p_ms, b_ms, b_by)
+            if key in stage2_0:
+                times_stage2[(name, dname)] = (k_ms, p_ms, b_ms, b_by)
             # #3's fp32 build multiplies in split TF32 (#4's passes: FFMA)
             shares = (f"; {fwd_shares(flops, k_ms, dname)}"
                       if name == "nof_fwd" else "")
-            log(f"[9 nof kernels] {name} {dname} N={n_r} S={s}, one launch: "
+            bands = "" if key[2] == 5 else f" xyz bands {key[2]}"
+            log(f"[9 nof kernels] {name} {dname} N={n_r} S={s}{bands}, one "
+                "launch: "
                 f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
                 f"{b_ms:.5f} ms ({b_by}: {flops / 1e9:.3f} GFLOP, "
                 f"{nbytes / 1e6:.2f} MB){shares} on {card}")
@@ -1313,7 +1361,7 @@ def phase_nof_kernels(dev, card: str,
             "by part: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
             + f" on {card}")
     torch.cuda.synchronize()
-    return {"err": err, "times": times}
+    return {"err": err, "times": times, "stage2": times_stage2}
 
 
 def phase_phases_golden(dev):
@@ -1764,9 +1812,11 @@ STAGE1_GROUPS = {"nerf_pallas": ("nerf_wg_kernel",),
 def phase_stage1_slice(card: str, size: int = 256,
                        val_size: int = STAGE1_VAL) -> dict:
     """Stage 1 through train(config, args, scene=...) at init_nerf.yaml's
-    model on the per-op route, fp32 then bf16: launches, step time, peak
-    memory, the val step, a profile; then the YAML's own route (mlp_impl
-    'xla', which the port runs on the fused kernels #1/#2) for comparison."""
+    model on the per-op route from the seeded init with both sigma heads
+    biased up by 1 (``pretrained_path``), fp32 then bf16: launches, step
+    time, peak memory, the val step, a profile; then the YAML's own route
+    (mlp_impl 'xla', which the port runs on the fused kernels #1/#2) for
+    comparison."""
     from moco_flow_tpu_torch.data.dataset import get_dataset
     from moco_flow_tpu_torch.ops import _args
     from moco_flow_tpu_torch.ops import fused_mlp as fm
@@ -1787,8 +1837,16 @@ def phase_stage1_slice(card: str, size: int = 256,
         shutil.rmtree(cfg["save_dir"], ignore_errors=True)   # from step 0
         args = train_args(["-c", "(dict)", "-n", "smoke", "--device",
                            DEVICE])
+        # the seeded init with both sigma heads biased up by 1, as phase 18
+        # (a freshly drawn NeRF is often empty under stage 3's ReLU, and
+        # phase 19 hands this final over to stage 3)
         init = init_params(torch.Generator().manual_seed(0),
                            build_statics(cfg["model"]))
+        for net in ("coarse_NeRF", "fine_NeRF"):
+            init[net]["sigma"]["b"] += 1.0
+        seed = os.path.join(cfg["save_dir"], "seeded")
+        save_checkpoint(seed, {"params": init})
+        cfg["model"]["pretrained_path"] = seed + ".npz"
         fm.nerf_pallas.launches = 0
         tr = train(cfg, args, scene=scene)
         torch.cuda.synchronize()
@@ -1823,6 +1881,9 @@ def phase_stage1_slice(card: str, size: int = 256,
                                  f"{n_val} nerf_pallas launches")
         ms_val = cuda_ms(tr.val_step, reps=1)
         result[dtype] = {"step_ms": ms, "peak_gib": peak, "val_ms": ms_val}
+        tr.save_ckpt("final")              # with the val step's clock
+        result[dtype]["final"] = os.path.join(tr.job_dir, "ckpts",
+                                              "final.npz")
         log(f"[14 stage-1 slice] {dtype}: {STAGE1_STEPS} steps, "
             f"nerf_pallas {got} launches, last losses {json.dumps(losses)}, "
             f"params moved {moved:.2e}; step {ms:.1f} ms = "
@@ -1946,6 +2007,531 @@ def phase_pallas_frame(card: str, size: int = 256) -> dict:
     return {"launches": counts, "ms": result}
 
 
+# ---------------------------------------------------------------------------
+# Stage 2, the stage-3 step under pallas, the hand-over (phases 16-19)
+# ---------------------------------------------------------------------------
+
+def phase_stage2_golden(dev):
+    """JAX's stage-2 steps and val step, and its stage-3 ``none`` / ``msk``
+    steps and val step under mlp_impl: pallas, replayed on the card (fp32)
+    under STEP_TOL (tests/fixtures/torch_port_stage2_golden.npz)."""
+    from moco_flow_tpu_torch.train.checkpoint import _flatten
+    from scripts.make_torch_port_phases_golden import load as load_phases
+    from scripts.make_torch_port_stage2_golden import (
+        N_STEPS, S3_RUNS, load, port_stage2_replay, port_stage3_run)
+    from scripts.make_torch_port_train_golden import SCENE
+    arrs = load()
+    metrics, val, tr = port_stage2_replay(arrs, dev)
+    torch.cuda.synchronize()
+    got = [(f"metrics/{i}/{k}", v) for i, m in enumerate(metrics)
+           for k, v in m.items()] + [(f"val/{k}", v) for k, v in val.items()]
+    params = [(f"params{N_STEPS}/{k}", v)
+              for k, v in _flatten(tr.params).items()]
+    phases = load_phases()
+    scene = make_synthetic_scene(None, **SCENE)
+    for run in S3_RUNS:
+        m, tr3 = port_stage3_run(arrs, phases, run, dev,
+                                 scene if run == "msk" else None)
+        got += [(f"s3/metrics/{run}/{k}", v) for k, v in m.items()]
+        params += [(f"s3/params_{run}/{k}", v)
+                   for k, v in _flatten(tr3.params).items()]
+    got += [(f"s3/val/{k}", v) for k, v in tr3.val_step().items()]
+    torch.cuda.synchronize()
+    worst = perr = 0.0
+    for key, v in got:
+        want = float(arrs[key])
+        rel = abs(v - want) / max(abs(want), 1e-30)
+        worst = max(worst, rel)
+        if not rel <= STEP_TOL["metrics_rtol"]:
+            raise AssertionError(f"stage-2 fixture {key}: port {v} JAX "
+                                 f"{want} (rel {rel:.2e})")
+    for key, v in params:
+        d = float(np.abs(v - arrs[key]).max())
+        perr = max(perr, d)
+        if not d <= STEP_TOL["params_atol"]:
+            raise AssertionError(f"stage-2 fixture {key}: max|diff| {d:.3e}")
+    log(f"[16 stage 2 vs JAX fixture] {N_STEPS} adam steps and the val step "
+        f"of stage 2 (#3/#4), the pallas stage-3 none / msk steps and val "
+        f"step (#8/#9): {len(got)} losses and metrics max rel diff "
+        f"{worst:.2e} (tol {STEP_TOL['metrics_rtol']:g}), params max|diff| "
+        f"{perr:.2e} (tol {STEP_TOL['params_atol']:g})")
+
+
+STAGE2_STEPS, STAGE2_VAL_EVERY = 4, 2
+
+
+def stage2_config() -> dict:
+    """configs/people_snapshot/male-3-casual/init_nof.yaml:4-49 as a dict
+    (the GPU machine has no yaml): N_sampled 100,000, the NoF 4x128 with 0
+    xyz bands padded to 33 inputs, adam 5e-4, steplr; a few steps with the
+    val step every STAGE2_VAL_EVERY of them (the YAML: 5000), no periodic
+    checkpoints."""
+    nof = {"type": "NoF", "D": 4, "W": 128, "in_channels_xyz": 33,
+           "skips": [2], "extra_feat_type": "ind", "extra_feat_dim": 33,
+           "use_quat": True}
+    return {
+        "save_dir": os.path.join(HERE, "build", "chip_smoke_stage2"),
+        "exp_name": "init_nof",
+        "dataloader": {"type": "nof", "root_dir": None, "interval": 1},
+        "model": {
+            "type": "nof", "pretrained_path": None, "pretrained_nof": None,
+            "N_sampled": STAGE2_POINTS // 2,
+            "nof_embedding_xyz": {"type": "Embedding", "in_channels": 3,
+                                  "N_freqs": 0, "logscale": True},
+            "nof_embedding_ind": {"type": "Embedding", "in_channels": 1,
+                                  "N_freqs": 16, "logscale": True},
+            "fw_NoF": nof, "bw_NoF": dict(nof)},
+        "loss": {"type": "L1"},
+        "optimizer": {"type": "adam", "lr": 0.0005, "weight_decay": 0},
+        "scheduler": {"type": "steplr", "decay_step": [300000],
+                      "decay_gamma": 0.5},
+        "trainer": {"num_iters": STAGE2_STEPS,
+                    "val_every_n_step": STAGE2_VAL_EVERY,
+                    "save_every_n_step": 0, "log_freq": 1},
+    }
+
+
+STAGE2_GROUPS = {"nof_fwd (#3)": ("nof_fwd_kernel",),
+                 "nof_bwd passes (#4)": ("nof_fwd_pass", "nof_walk_pass"),
+                 "dW (#4)": ("matrix_mma", "matrix_ffma", "colsum_kernel",
+                             "segsum_kernel", "reduce_kernel")}
+
+
+def phase_stage2_slice(card: str) -> dict:
+    """Stage 2 through train(config, args, scene=...) at init_nof.yaml's
+    model on a body of SMPL's 6890 vertices, fp32 (JAX's stage 2 ignores
+    compute_dtype): #3/#4 launches, the val step through val_every_n_step,
+    step time, the KNN's time, peak memory, a profile (idle share)."""
+    from moco_flow_tpu_torch.geometry.smpl import synthetic_smpl_data
+    from moco_flow_tpu_torch.ops import knn
+    from moco_flow_tpu_torch.ops import nof_rays as nf
+    from moco_flow_tpu_torch.train.__main__ import parse_args as train_args
+    from moco_flow_tpu_torch.train.__main__ import train
+    from moco_flow_tpu_torch.train.checkpoint import _flatten
+    from moco_flow_tpu_torch.train.stage_nof import VAL_POINTS
+    from scripts import torch_port_knn_ab as knn_ab
+    smpl = synthetic_smpl_data(6890)
+    scene = make_synthetic_scene(None, n_frames=8, size=64, smpl=smpl)
+    cfg = stage2_config()
+    shutil.rmtree(cfg["save_dir"], ignore_errors=True)      # from step 0
+    init = init_params(torch.Generator().manual_seed(0),
+                       build_statics(cfg["model"]), with_nerf=False,
+                       with_nof=True, with_fw_nof=True)
+    nf.nof_fwd.launches = nf.nof_bwd.launches = 0
+    tr = train(cfg, train_args(["-c", "(dict)", "-n", "smoke", "--device",
+                                DEVICE]), scene=scene)
+    torch.cuda.synchronize()
+    n_val = -(-STAGE2_STEPS // STAGE2_VAL_EVERY)
+    launches = {"nof_fwd": nf.nof_fwd.launches,
+                "nof_bwd": nf.nof_bwd.launches}
+    want = {"nof_fwd": 2 * STAGE2_STEPS + 2 * n_val,
+            "nof_bwd": 2 * STAGE2_STEPS}
+    if launches != want:
+        raise AssertionError(f"stage 2: launches {launches}, want {want} "
+                             f"({STAGE2_STEPS} steps, {n_val} val steps)")
+    losses = {k: float(v) for k, v in tr.losses.items()}
+    val = tr.val_metrics
+    moved = max(float(np.abs(v - _flatten(init)[k]).max())
+                for k, v in _flatten(tr.params).items())
+    if not all(np.isfinite(v) for v in (*losses.values(), *val.values())) \
+            or not 0 < moved < 1 or tr.clock.step != STAGE2_STEPS:
+        raise AssertionError(f"stage 2: losses {losses}, val {val}, params "
+                             f"moved {moved}, step {tr.clock.step}")
+    log(f"[17 stage-2 slice] {STAGE2_STEPS} steps of 2 x "
+        f"{STAGE2_POINTS // 2} points on 8 frames of a {smpl.num_vertices}-"
+        f"vertex body; val every {STAGE2_VAL_EVERY} steps ({n_val} val steps "
+        f"of {VAL_POINTS} points); launches {launches}; last losses "
+        f"{json.dumps(losses)}, last val {json.dumps(val)}, params moved "
+        f"{moved:.2e}")
+    # the KNN at the step's shape: time, and the same bits in other chunks,
+    # with TF32 allowed by the caller and as the plain BLAS formula of
+    # JAX (and of the port before stage 2: 8192-row chunks)
+    d = tr.draw(0).to(tr.device)
+    verts = tr._corr.verts[d.frame]
+    query = torch.cat([d.cube, verts[d.pick] + 0.1 * d.noise])
+    ref = knn.nearest_neighbor(verts, query)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        other = knn.nearest_neighbor(verts, query, chunk=4096)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def blas():
+        return knn_ab.chunked(knn_ab.blas, verts, query, 8192)
+
+    plain = blas()
+    for what, got in (("chunks of 4096 under TF32", other),
+                      ("the BLAS formula", plain)):
+        if not (torch.equal(ref[1], got[1]) and torch.equal(
+                ref[0].view(torch.int32), got[0].view(torch.int32))):
+            raise AssertionError(f"KNN: other bits in {what}")
+    knn_ms = cuda_ms(lambda: knn.nearest_neighbor(verts, query), reps=5)
+    blas_ms = cuda_ms(blas, reps=5)
+    chunk = knn.chunk_rows(verts.shape[0])
+    by_chunk = {c: cuda_ms(lambda: knn.nearest_neighbor(  # noqa: B023
+        verts, query, chunk=c), reps=3) for c in (8192, 2048, 1024, 512)}
+    log("[17 stage-2 slice] the KNN by chunk rows: " + ", ".join(
+        f"{c} {t:.2f} ms" for c, t in by_chunk.items()) + f"; the BLAS "
+        f"formula (ref_sq - 2 q@v, 8192-row chunks) {blas_ms:.2f} ms, the "
+        f"same bits on {card}")
+    torch.cuda.reset_peak_memory_stats()
+    ms = _timed_steps(tr, warm=2, steps=5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms_val = cuda_ms(tr.val_step, reps=3)
+    log(f"[17 stage-2 slice] fp32 step {ms:.2f} ms ({STAGE2_POINTS} points "
+        f"through both NoFs = {STAGE2_POINTS / ms * 1e3:.0f} points/s), "
+        f"peak memory {peak:.2f} GiB; the KNN {knn_ms:.2f} ms a step "
+        f"({query.shape[0]} x {verts.shape[0]} in launches of at most "
+        f"{chunk} rows, the same bits in chunks of 4096 and with TF32 "
+        f"allowed); val step "
+        f"{ms_val:.2f} ms on {card}")
+    _profile_step(tr, card, "[17 stage-2 slice] profiled fp32",
+                  "stage2_step_profile.txt", "chip_smoke_stage2",
+                  STAGE2_GROUPS)
+    final = os.path.join(tr.job_dir, "ckpts", "final")
+    tr.save_ckpt("final")
+    return {"launches": launches, "step_ms": ms, "knn_ms": knn_ms,
+            "knn_blas_ms": blas_ms,
+            "peak_gib": peak, "val_ms": ms_val, "final": final + ".npz"}
+
+
+# per-op launches a stage-3 step with both chains: #9 five times a sample
+# set (bw; local fw; global fw, bw, fw) on the coarse and the new depths,
+# plus nof_points (bw in msk, bw and fw in full); #8 the coarse and the fine
+# pass
+PALLAS_LAUNCHES = {"none": {"nerf_pallas": 2, "nof_pallas": 10},
+                   "msk": {"nerf_pallas": 2, "nof_pallas": 11},
+                   "full": {"nerf_pallas": 2, "nof_pallas": 12}}
+PALLAS_RUNS = ((4999, 2), (9999, 2))       # full, none; none, msk
+
+
+def _capture_launches(fm, captured: dict):
+    """Wrap #8 / #9's launches so that the first launch of each shape
+    leaves a copy of its arguments in ``captured``: (net, rows[, sigma
+    only]) -> (cfg, args). Returns the function that unwraps them."""
+    launch = {"nerf": fm._nerf_launch, "nof": fm._nof_launch}
+
+    def wrap(net):
+        def f(cfg, dt, *args):
+            key = (net, args[0].shape[0]) + ((args[2],) if net == "nerf"
+                                             else ())
+            if key not in captured:
+                captured[key] = (cfg, [
+                    a.detach().float().clone() if torch.is_tensor(a) else
+                    [w.detach().clone() for w in a]
+                    if isinstance(a, (list, tuple)) else a for a in args])
+            return launch[net](cfg, dt, *args)
+        return f
+
+    fm._nerf_launch, fm._nof_launch = wrap("nerf"), wrap("nof")
+
+    def unwrap():
+        fm._nerf_launch, fm._nof_launch = launch["nerf"], launch["nof"]
+    return unwrap
+
+
+def _check_captured(fm, captured: dict, tag: str) -> dict:
+    """#8 / #9 against their plain versions on the arguments of a training
+    step's launches (``_capture_launches``), fp32 and bf16, as phase 12:
+    within TOL, and bf16 also within the plain version's own bf16-vs-fp32
+    gap. These launches do not count. Returns the largest |diff| a kernel."""
+    counters = (fm.nerf_pallas, fm.nof_pallas)
+    saved = [f.launches for f in counters]
+    err = {"nerf_pallas": 0.0, "nof_pallas": 0.0}
+    for key, (cfg, args) in sorted(captured.items(), key=str):
+        net, what = key[0], (f"{key[0]} rows={key[1]}" + (
+            f" {'sigma-only' if key[2] else 'full'}" if key[0] == "nerf"
+            else ""))
+        kern, plain = ((fm.nerf_pallas, fm._nerf_pallas_ref) if net == "nerf"
+                       else (fm.nof_pallas, fm._nof_pallas_ref))
+        got = {}
+        for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+            ko, ro = kern(cfg, dt, *args), plain(cfg, dt, *args)
+            torch.cuda.synchronize()
+            atol, rtol = TOL[dname]
+            e_max = check_close(f"{tag} {what} {dname}", ko, ro, atol, rtol)
+            err[f"{net}_pallas"] = max(err[f"{net}_pallas"], e_max)
+            got[dname] = (ro, e_max)
+        gap = (got["bf16"][0] - got["fp32"][0]).abs().max().item()
+        if not got["bf16"][1] <= gap:
+            raise AssertionError(
+                f"{tag} {what}: bf16 kernel vs plain {got['bf16'][1]:.3e} "
+                f"exceeds the plain version's bf16-vs-fp32 gap {gap:.3e}")
+        log(f"{tag} kernel vs plain at a step's {what}: max|d| fp32 "
+            f"{got['fp32'][1]:.3e}, bf16 {got['bf16'][1]:.3e} (the plain "
+            f"version's bf16-vs-fp32 gap {gap:.3e})")
+    for f, n in zip(counters, saved):
+        f.launches = n
+    return err
+
+
+def phase_pallas_steps(card: str) -> dict:
+    """The stage-3 step under mlp_impl: pallas at c2f.yaml's widths through
+    train(config, args): full -> none + freeze, none -> msk, bf16 and fp32,
+    with #8 / #9 launches a step, and #8 / #9 against their plain versions
+    on the arguments of the first launch of each shape in those steps;
+    then msk / full / none step times beside the fused route's on the same
+    trainer, and the val step."""
+    import dataclasses
+    from moco_flow_tpu_torch.data.dataset import get_dataset
+    from moco_flow_tpu_torch.geometry.smpl import synthetic_smpl_data
+    from moco_flow_tpu_torch.ops import fused_mlp as fm
+    from moco_flow_tpu_torch.train.__main__ import parse_args as train_args
+    from moco_flow_tpu_torch.train.__main__ import train
+    from moco_flow_tpu_torch.train.stage_mocoflow import MoCoFlowTrainer
+    counters = (fm.nerf_pallas, fm.nof_pallas)
+    smpl = synthetic_smpl_data(6890)
+    scene = make_synthetic_scene(None, n_frames=8, size=256, focal=300.0,
+                                 smpl=smpl)
+    val_scene = make_synthetic_scene(None, n_frames=8, size=VAL_SIZE,
+                                     focal=300.0 * VAL_SIZE / 256, smpl=smpl)
+    orig = MoCoFlowTrainer.train_func
+    record = []
+
+    def counted(self):
+        before = {f.__name__: f.launches for f in counters}
+        out = orig(self)
+        record.append((self.clock.step, self.phase(self.clock.step)[0],
+                       {f.__name__: f.launches - before[f.__name__]
+                        for f in counters}))
+        return out
+
+    counts = {"nerf_pallas": 0, "nof_pallas": 0}
+    result, err = {}, {"nerf_pallas": 0.0, "nof_pallas": 0.0}
+    MoCoFlowTrainer.train_func = counted
+    try:
+        for dtype in ("bfloat16", "float32"):
+            captured = {}
+            unwrap = _capture_launches(fm, captured)
+            cfg = phases_config(dtype)
+            cfg["save_dir"] += "_pallas"
+            cfg["model"]["mlp_impl"] = "pallas"
+            params = init_params(torch.Generator().manual_seed(0),
+                                 build_statics(cfg["model"]), with_nof=True,
+                                 with_fw_nof=True)
+            for net in ("coarse_NeRF", "fine_NeRF"):
+                params[net]["sigma"]["b"] += 1.0
+            for start, n_steps in PALLAS_RUNS:
+                cfg["trainer"]["num_iters"] = start + n_steps
+                seed = os.path.join(cfg["save_dir"], f"seeded{start}")
+                save_checkpoint(seed, {"params": params}, extra={
+                    "clock": {"epoch": 1, "minibatch": 0, "step": start}})
+                record.clear()
+                for f in counters:
+                    f.launches = 0
+                tr = train(cfg, train_args(["-c", "(dict)", "-r",
+                                            seed + ".npz", "-n",
+                                            f"smoke{start}", "--device",
+                                            DEVICE]), scene=scene)
+                torch.cuda.synchronize()
+                for step, mode, got in record:
+                    if got != PALLAS_LAUNCHES[mode]:
+                        raise AssertionError(
+                            f"pallas step {step} ({mode}): launches {got}, "
+                            f"want {PALLAS_LAUNCHES[mode]}")
+                for f in counters:
+                    counts[f.__name__] += f.launches
+                losses = {k: float(v) for k, v in tr.losses.items()}
+                if not all(np.isfinite(v) for v in losses.values()):
+                    raise AssertionError(f"pallas {dtype} from {start}: "
+                                         f"{losses}")
+                log(f"[18 pallas steps] {dtype} from {start}: "
+                    + ", ".join(f"{st} {m} #8/#9 {g['nerf_pallas']}/"
+                                f"{g['nof_pallas']}" for st, m, g in record)
+                    + f"; last losses {json.dumps(losses)}")
+            # #8 / #9 against their plain versions at the steps' own shapes
+            # and arguments (the first launch of each shape)
+            unwrap()
+            for k, e in _check_captured(fm, captured,
+                                        f"[18 pallas steps] {dtype}").items():
+                err[k] = max(err[k], e)
+            del captured
+            # step times on the msk run's trainer: each phase on the per-op
+            # route, then on the fused route (the same weights and draws)
+            times = {}
+            pallas_rcfg = tr.rcfg_train
+            for route in ("pallas", "fused"):
+                tr.rcfg_train = dataclasses.replace(pallas_rcfg,
+                                                    mlp_impl=route)
+                for mode, step, deleted in (("msk", 10000, True),
+                                            ("full", 4000, False),
+                                            ("none", 6000, True)):
+                    tr.clock.step = step
+                    tr.nof_opt_deleted, tr.opt = deleted, None
+                    torch.cuda.reset_peak_memory_stats()
+                    times[(mode, route)] = (
+                        _timed_steps(tr, warm=2, steps=3),
+                        torch.cuda.max_memory_allocated() / 2 ** 30)
+            tr.rcfg_train = pallas_rcfg
+            tr.clock.step = 10000
+            tr.val_dataset = get_dataset(dict(cfg["dataloader"],
+                                              val_size=[VAL_SIZE, VAL_SIZE]),
+                                         "val", scene=val_scene)
+            for f in counters:
+                f.launches = 0
+            val = tr.val_func()
+            n_val = {f.__name__: f.launches for f in counters}
+            if n_val != {"nerf_pallas": 2, "nof_pallas": 2} or not all(
+                    np.isfinite(v) for v in val.values()):
+                raise AssertionError(f"pallas val: {val}, launches {n_val}")
+            for f in counters:
+                counts[f.__name__] += f.launches
+            ms_val = cuda_ms(tr.val_step, reps=2)
+            result[dtype] = {"times": times, "val_ms": ms_val}
+            log(f"[18 pallas steps] {dtype}, ms a step (peak GiB), pallas "
+                "vs fused: " + "; ".join(
+                    f"{m} {times[(m, 'pallas')][0]:.1f} "
+                    f"({times[(m, 'pallas')][1]:.2f}) vs "
+                    f"{times[(m, 'fused')][0]:.1f} "
+                    f"({times[(m, 'fused')][1]:.2f})"
+                    for m in ("msk", "full", "none"))
+                + f"; pallas val step {ms_val:.1f} ms ({VAL_SIZE}x"
+                f"{VAL_SIZE}, #8/#9 {n_val['nerf_pallas']}/"
+                f"{n_val['nof_pallas']}; {json.dumps(val)}) on {card}")
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        MoCoFlowTrainer.train_func = orig
+        unwrap()
+    result["launches"] = counts
+    result["err"] = err
+    return result
+
+
+HANDOVER_STEPS = 3
+
+
+def phase_handover(card: str, nerf_final: str, nof_final: str) -> dict:
+    """Stage 3 at c2f.yaml's model built from phase 14's stage-1 final and
+    phase 17's stage-2 final (pretrained_nerf / pretrained_nof): the moved
+    tensors equal the finals' and the rest is the fresh draw; then
+    HANDOVER_STEPS fused steps from step 0 (full, the density frozen)
+    through train(config, args), after which the frozen trunk and sigma
+    head still hold stage 1's weights while the NoFs and the rgb branch
+    (final, rgb) have moved, and every step's coarse and fine samples hold
+    some with alpha >= 0.01 (the per-op route's quadrature of the step)."""
+    from moco_flow_tpu_torch.ops import nof_rays as nf
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    from moco_flow_tpu_torch.ops import nof_chain as nc
+    from moco_flow_tpu_torch.train.__main__ import parse_args as train_args
+    from moco_flow_tpu_torch.train.__main__ import train
+    import dataclasses
+    from moco_flow_tpu_torch.render import volume
+    from moco_flow_tpu_torch.train import stage_mocoflow as sm
+    from moco_flow_tpu_torch.train.checkpoint import _flatten, load_checkpoint
+    from moco_flow_tpu_torch.train.stage_mocoflow import MoCoFlowTrainer
+    from moco_flow_tpu_torch.geometry.smpl import synthetic_smpl_data
+    cfg = phases_config("float32")
+    cfg["save_dir"] = os.path.join(HERE, "build", "chip_smoke_handover")
+    shutil.rmtree(cfg["save_dir"], ignore_errors=True)
+    cfg["model"].update(pretrained_nerf=nerf_final, pretrained_nof=nof_final)
+    cfg["trainer"]["num_iters"] = HANDOVER_STEPS
+    s1 = _flatten(load_checkpoint(nerf_final)[0]["params"]["fine_NeRF"])
+    s2 = _flatten(load_checkpoint(nof_final)[0]["params"])
+    fresh = _flatten(init_params(torch.Generator().manual_seed(0),
+                                 build_statics(cfg["model"]), with_nof=True,
+                                 with_fw_nof=True))
+    tr = MoCoFlowTrainer(cfg, device=DEVICE)
+    tr.build_model(cfg["model"])
+    moved = 0
+    for k, v in _flatten(tr.params).items():
+        net, rest = k.split("/", 1)
+        from_s1 = rest.split("/")[0] in ("trunk", "sigma", "final")
+        want = (s2[k] if net.endswith("NoF") else
+                s1[rest] if from_s1 else fresh[k])
+        if not np.array_equal(v, want):
+            raise AssertionError(f"hand-over {k}: not the expected tensor")
+        moved += net.endswith("NoF") or from_s1
+    del tr
+    smpl = synthetic_smpl_data(6890)
+    scene = make_synthetic_scene(None, n_frames=8, size=256, focal=300.0,
+                                 smpl=smpl)
+    counters = (nr.nerf_fwd, nr.nerf_bwd, nc.chain_fwd, nc.chain_bwd,
+                nf.nof_fwd, nf.nof_bwd)
+    # each step's render also runs, without gradients, on the per-op route,
+    # whose quadrature gives the alphas that the fused kernels keep inside:
+    # the density that the rgb branch trains through (these launches do not
+    # count)
+    alphas = {"coarse": [], "fine": []}
+    render, composite = sm.render_rays, volume.composite
+
+    def probed(params, statics, anneal, rays, bg, rcfg, draws=None):
+        out = render(params, statics, anneal, rays, bg, rcfg, draws=draws)
+        saved = [f.launches for f in counters]
+        got = []
+
+        def spy(*a, **k):
+            got.append(composite(*a, **k))
+            return got[-1]
+
+        volume.composite = spy
+        try:
+            with torch.no_grad():
+                render(params, statics, anneal, rays, bg, dataclasses.replace(
+                    rcfg, mlp_impl="pallas"), draws=draws)
+        finally:
+            volume.composite = composite
+        for f, n in zip(counters, saved):
+            f.launches = n
+        for name, (a, _) in zip(("coarse", "fine"), got):
+            alphas[name].append(float((a >= 0.01).float().mean()))
+        return out
+
+    for f in counters:
+        f.launches = 0
+    sm.render_rays = probed
+    try:
+        tr = train(cfg, train_args(["-c", "(dict)", "-n", "smoke",
+                                    "--device", DEVICE]), scene=scene)
+    finally:
+        sm.render_rays = render
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in counters}
+    want = {k: 2 * HANDOVER_STEPS for k in launches}
+    if launches != want:
+        raise AssertionError(f"hand-over steps: launches {launches}, want "
+                             f"{want}")
+    losses = {k: float(v) for k, v in tr.losses.items()}
+    now = _flatten(tr.params)
+    for net in ("coarse_NeRF", "fine_NeRF"):
+        for k, v in s1.items():
+            branch = k.split("/")[0]
+            if branch in ("trunk", "sigma") and not np.array_equal(
+                    now[f"{net}/{k}"], v):
+                raise AssertionError(f"{net}/{k} moved while frozen")
+    # the NoFs train on their L1 supervision, the rgb branch (final, and
+    # extra / rgb from the fresh draw) through the transferred density
+    nof_moved = max(float(np.abs(now[k] - v).max()) for k, v in s2.items()
+                    if k in now)
+    final_moved = max(float(np.abs(now[f"{net}/{k}"] - v).max())
+                      for net in ("coarse_NeRF", "fine_NeRF")
+                      for k, v in s1.items() if k.startswith("final/"))
+    rgb_moved = max(float(np.abs(v - fresh[k]).max())
+                    for k, v in now.items() if "NeRF/rgb/" in k)
+    dense = {k: min(v) for k, v in alphas.items()}
+    if not all(np.isfinite(v) for v in losses.values()) or \
+            not nof_moved > 0 or not final_moved > 0 or \
+            not rgb_moved > 0 or len(alphas["fine"]) != HANDOVER_STEPS \
+            or not min(dense.values()) > 0:
+        raise AssertionError(f"hand-over steps: {losses}, NoFs moved "
+                             f"{nof_moved}, final moved {final_moved}, rgb "
+                             f"moved {rgb_moved}, shares of alpha >= 0.01 "
+                             f"{alphas}")
+    log(f"[19 hand-over] stage 3 at c2f's widths from the stage-1 final "
+        f"({os.path.relpath(nerf_final, HERE)}) and the stage-2 final "
+        f"({os.path.relpath(nof_final, HERE)}): {moved} tensors moved "
+        f"exactly, the rest the fresh draw; {HANDOVER_STEPS} fused fp32 "
+        f"full steps from step 0, launches {launches}, trunk and sigma "
+        f"still stage 1's (frozen), NoFs moved {nof_moved:.2e}, final "
+        f"moved {final_moved:.2e}, rgb moved {rgb_moved:.2e}; samples with "
+        f"alpha >= 0.01 a step: coarse "
+        f"{', '.join(f'{a:.4f}' for a in alphas['coarse'])}, fine "
+        f"{', '.join(f'{a:.4f}' for a in alphas['fine'])}; last losses "
+        f"{json.dumps(losses)} on {card}")
+    return {"launches": launches}
+
+
 def main():
     card = phase_card()
     dev = torch.device("cuda")
@@ -1976,6 +2562,14 @@ def main():
     torch.cuda.synchronize()
     pf = phase_pallas_frame(card)
     torch.cuda.synchronize()
+    phase_stage2_golden(dev)
+    torch.cuda.synchronize()
+    s2 = phase_stage2_slice(card)
+    torch.cuda.synchronize()
+    ps = phase_pallas_steps(card)
+    torch.cuda.synchronize()
+    ho = phase_handover(card, s1["float32"]["final"], s2["final"])
+    torch.cuda.synchronize()
     fine = k["times"]["fine S=256 N=4096 nof bf16"]
     n_fine = 4096 * 256
     rp_work = (2 * (NERF_MACS + NOF_MACS) * n_fine,
@@ -1993,27 +2587,30 @@ def main():
         t = tk["times"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": tsl["launches"][name],
+            "launches": tsl["launches"][name] + ho["launches"][name],
             "max_abs_err": tk["err"][name], "ms": t[0], "plain_ms": t[1],
             "bound_ms": t[2], "bound_by": t[3], "library_ms": None})
     for name, src, rep in NOF_KERNELS:
         t = nk["times"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": psl["launches"][name],
+            "launches": (psl["launches"][name] + s2["launches"][name]
+                         + ho["launches"][name]),
             "max_abs_err": nk["err"][name], "ms": t[0], "plain_ms": t[1],
             "bound_ms": t[2], "bound_by": t[3], "library_ms": None})
-    # #8 runs on two main paths (the stage-1 steps and val steps of phase
-    # 14, the pallas frames of phase 15), #9 on the second
-    mlp_launches = {"nerf_pallas": s1["launches"]
-                    + pf["launches"]["nerf_pallas"],
-                    "nof_pallas": pf["launches"]["nof_pallas"]}
+    # #8 runs on three main paths (the stage-1 steps and val steps of phase
+    # 14, the pallas frames of phase 15, the pallas stage-3 steps and val
+    # steps of phase 18), #9 on the last two
+    mlp_launches = {k: pf["launches"][k] + ps["launches"][k]
+                    for k in ("nerf_pallas", "nof_pallas")}
+    mlp_launches["nerf_pallas"] += s1["launches"]
     for name, rep in MLP_KERNELS:
         t = mk["times"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": MLP_SOURCE,
             "replaces": rep, "launches": mlp_launches[name],
-            "max_abs_err": mk["err"][name], "ms": t[0], "plain_ms": t[1],
+            "max_abs_err": max(mk["err"][name], ps["err"][name]),
+            "ms": t[0], "plain_ms": t[1],
             "bound_ms": t[2], "bound_by": t[3], "library_ms": None})
     for kern in kernels:
         if kern["launches"] <= 0:

@@ -8,8 +8,9 @@ and for training the per-frame ``FrameTable`` with its padded valid-pixel
 table (the filled convex hull of the projected AABB) and
 ``sample_train_rays``, which picks a step's rays with the pixel slots and
 background of a ``Draws`` record, and the SMPL correspondence table of the
-train frames (NoF supervision, built at first use). The spherical poses wait
-for a later slice.
+train frames (NoF supervision, built at first use). ``NoFDataset`` is stage
+2's: the same frames without images. The spherical poses wait for a later
+slice.
 
 Tensors live on the CPU; the trainer moves the table and the images to its
 device once, and each val frame's rays as it renders them.
@@ -105,12 +106,13 @@ class MoCoFlowDataset:
 
     ``meta`` / ``images`` ((F, H, W, C) uint8) take the place of the JSON
     file and the PNGs when the scene is held in memory; otherwise both are
-    read from ``root_dir`` (Pillow is imported for the PNGs)."""
+    read from ``root_dir`` (Pillow is imported for the PNGs). Without
+    ``load_images`` the dataset holds no images."""
 
     def __init__(self, root_dir: str, imgs_dir: str, size, aabb, bkgd,
                  interval: int = 1, mode: str = "val",
                  smpl_data: SMPLData | None = None, meta: dict | None = None,
-                 images: np.ndarray | None = None):
+                 images: np.ndarray | None = None, load_images: bool = True):
         if mode not in ("val", "train"):
             raise NotImplementedError(f"dataset mode {mode!r} is not ported")
         self.root_dir = root_dir
@@ -130,7 +132,10 @@ class MoCoFlowDataset:
             self.meta.get("gender", "neutral"))
         self.camera = Camera(self.size, _intrinsics(self.meta, self.size))
         self._build_frames()
-        self._load_images(images)
+        self.images = None
+        self.has_alpha = False
+        if load_images:
+            self._load_images(images)
         self._build_background()
 
     def _build_frames(self):
@@ -207,8 +212,6 @@ class MoCoFlowDataset:
                     im = im.resize((w, h), Image.BILINEAR)
                 imgs.append(np.asarray(im))
             images = np.stack(imgs) if imgs else None
-        self.images = None
-        self.has_alpha = False
         if images is not None:
             if tuple(images.shape[1:3]) != (h, w):
                 raise ValueError(f"in-memory images are {images.shape[1:3]}, "
@@ -264,13 +267,36 @@ class MoCoFlowDataset:
         return raw[:, :3]
 
 
+class NoFDataset(MoCoFlowDataset):
+    """Stage 2's dataset: the frames' SMPL bodies, frame table and
+    correspondence table, without images (JAX's ``NoFDataset``: size
+    (8, 8), aabb ``[[1.2] * 3, [0] * 3]``, correspondences drawn at
+    ``THICKNESS``)."""
+
+    THICKNESS = 0.1
+
+    def __init__(self, root_dir: str, interval: int = 1, mode: str = "train",
+                 smpl_data: SMPLData | None = None, meta: dict | None = None):
+        super().__init__(root_dir, imgs_dir="", size=(8, 8),
+                         aabb=[[1.2, 1.2, 1.2], [0, 0, 0]], bkgd=1.0,
+                         interval=interval, mode=mode, smpl_data=smpl_data,
+                         meta=meta, load_images=False)
+
+
 def get_dataset(data_config: dict, mode: str,
                 smpl_data: SMPLData | None = None, scene=None):
-    """Dataset factory; ``scene`` (a ``SyntheticScene``) supplies meta and
-    images in memory."""
+    """Dataset factory (``type``: ``moco_flow`` or stage 2's ``nof``);
+    ``scene`` (a ``SyntheticScene``) supplies meta, images and body in
+    memory."""
     kind = data_config["type"]
+    if kind == "nof":
+        return NoFDataset(
+            data_config.get("root_dir"),
+            interval=data_config.get("interval", 1), mode=mode,
+            smpl_data=smpl_data if scene is None else scene.smpl,
+            meta=None if scene is None else scene.meta)
     if kind != "moco_flow":
-        raise NotImplementedError(f"dataset type {kind!r} is not ported")
+        raise ValueError(f"dataset type {kind!r} not valid")
     size = data_config["val_size"] if mode.startswith("val") and \
         "val_size" in data_config else data_config["size"]
     return MoCoFlowDataset(

@@ -67,6 +67,17 @@ def init_nerf(gen: torch.Generator, cfg: NeRFConfig,
     }
 
 
+SIGMA_BRANCH = ("trunk", "sigma", "final")
+
+
+def sigma_branch_params(params: dict) -> dict:
+    """The subtree that moves from stage 1 to stage 3: the trunk, the sigma
+    head and ``final`` (the rgb branch, ``extra`` / ``rgb``, is drawn
+    afresh). The hash table of JAX's ``encoding: hashgrid`` is not
+    ported."""
+    return {k: params[k] for k in SIGMA_BRANCH}
+
+
 def nerf_trunk(params: dict, x_emb: torch.Tensor, cfg: NeRFConfig,
                compute_dtype=None) -> torch.Tensor:
     if compute_dtype is not None:

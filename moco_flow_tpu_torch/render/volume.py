@@ -26,9 +26,11 @@ instead, the JAX package's row-major branch (:func:`_render_rows`): the
 sample and warp tensors are (N, S, 3), positions are embedded in PyTorch
 and every MLP evaluation is one call of the per-op kernels (#8 the NeRF, #9
 the NoF; ``ops/fused_mlp.py``) through the funnels :func:`_eval_nerf` and
-:func:`_eval_nof`. It renders stage 1's training and val steps (no NoF) and
-the stage-3 test render (the bw warp of each sample set, a sigma-only
-coarse pass, the fine pass on the depth-merged warps).
+:func:`_eval_nof`. It renders stage 1's training and val steps (no NoF),
+stage 3's training and val steps (the bw warp and the chains as separate
+NoF evaluations, the consensus terms on (N, S, 3) tensors) and the stage-3
+test render (the bw warp of each sample set, a sigma-only coarse pass, the
+fine pass on the depth-merged warps).
 """
 
 from __future__ import annotations
@@ -318,21 +320,22 @@ def nerf_inference_rows(params: dict, nerf_cfg: NeRFConfig,
 
 
 def _consensus(disp_src: torch.Tensor, disp_rec: torch.Tensor,
-               alphas: torch.Tensor) -> torch.Tensor:
+               alphas: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """Masked-mean consensus disparity: the per-sample mean |src - recon|
-    over xyz ((3, N, S) tensors), masked by alpha >= 0.01."""
-    per_sample = torch.mean(torch.abs(disp_src - disp_rec), dim=0)
+    over xyz (``axis`` 0 of (3, N, S) tensors, -1 of (N, S, 3) ones),
+    masked by alpha >= 0.01."""
+    per_sample = torch.mean(torch.abs(disp_src - disp_rec), dim=axis)
     return masked_mean(per_sample, alphas >= 0.01)
 
 
-def _consensus_parts(parts) -> torch.Tensor:
+def _consensus_parts(parts, axis: int = 0) -> torch.Tensor:
     """:func:`_consensus` over the concatenation of ``parts`` (each
     ``(disp_src, disp_rec, alphas)``), as summed numerators and
     denominators, without concatenating."""
     num = den = tot = 0.0
     cnt = 0
     for src, rec, alphas in parts:
-        per = torch.mean(torch.abs(src - rec), dim=0)
+        per = torch.mean(torch.abs(src - rec), dim=axis)
         m = (alphas >= 0.01).to(per.dtype)
         num = num + torch.sum(per * m)
         den = den + torch.sum(m)
@@ -340,6 +343,48 @@ def _consensus_parts(parts) -> torch.Tensor:
         cnt += per.numel()
     return torch.where(den > 0, num / torch.where(den > 0, den, 1.0),
                        tot / cnt)
+
+
+def _consensus_names(rcfg: RenderConfig, use_nof: bool) -> list:
+    """(warp key, result name) of the consensus terms a training render
+    returns."""
+    return [(k, f"nof_{name}_disp") for k, name, on in (
+        ("recon", "local", rcfg.chain_local),
+        ("chain_recon", "global", rcfg.chain_global))
+        if use_nof and on and not rcfg.test_time]
+
+
+def _fine_consensus(result: dict, consensus: list, rcfg: RenderConfig,
+                    alphas_f, fine_pos, halves, whole, axis: int):
+    """The fine pass's consensus terms. Under ``share_coarse_warps`` the
+    fine alphas go back to concatenation order and the terms are summed over
+    the coarse and new ``halves`` (each ``(xyz, warps)``), which is the
+    consensus over the sorted union; otherwise over ``whole``."""
+    if not consensus:
+        return
+    if rcfg.share_coarse_warps:
+        alphas_cat = unsort_by_pos(fine_pos, alphas_f)
+        alphas = (alphas_cat[:, :rcfg.n_samples],
+                  alphas_cat[:, rcfg.n_samples:])
+        for k, name in consensus:
+            result[f"{name}_fine"] = _consensus_parts(
+                [(xyz, w[k], a) for (xyz, w), a in zip(halves, alphas)],
+                axis)
+    else:
+        xyz, w = whole
+        for k, name in consensus:
+            result[f"{name}_fine"] = _consensus(xyz, w[k], alphas_f, axis)
+
+
+def _chained_ind(rays: torch.Tensor, rcfg: RenderConfig, use_nof: bool):
+    """The chained-frame index column of a global-chain training render."""
+    if not (use_nof and rcfg.chain_global and not rcfg.test_time):
+        return None
+    if rays.shape[-1] < 10:
+        raise ValueError(f"chain_global needs 10-wide rays (got "
+                         f"{rays.shape[-1]}): append the chained-frame "
+                         "index column")
+    return rays[:, 9:10]
 
 
 def _check_train(rcfg: RenderConfig, draws):
@@ -355,9 +400,13 @@ def _render_rows(params: dict, statics: ModelStatics, anneal: dict,
                  rays: torch.Tensor, background, rcfg: RenderConfig,
                  draws) -> dict:
     """:func:`render_rays` on the per-op route (``mlp_impl: pallas``), the
-    JAX package's row-major branch: training without the NoF (stage 1) and
-    the test render (with the bw warp of each sample set, shared between
-    the passes under ``share_coarse_warps``)."""
+    JAX package's row-major branch: every NoF evaluation is one
+    :func:`nof_warp` (kernel #9), every NeRF pass one
+    :func:`nerf_inference_rows` (#8). In training with the NoF, each sample
+    set runs the bw warp and the chains that are on (local: fw(cano);
+    global: fw -> bw at the chained frame, then fw at the ray's frame);
+    under ``share_coarse_warps`` the fine pass warps only the new depths and
+    depth-merges them with the coarse warps."""
     use_nof = rcfg.use_nof and statics.nof is not None
     if rcfg.fine_budget or rcfg.coarse_probe:
         raise ValueError("fine_budget / coarse_probe are implemented on the "
@@ -365,36 +414,49 @@ def _render_rows(params: dict, statics: ModelStatics, anneal: dict,
                          "pallas")
     if not rcfg.test_time:
         _check_train(rcfg, draws)
-        if use_nof:
-            raise NotImplementedError(
-                "the stage-3 training step under mlp_impl: pallas is not "
-                "ported yet; ROADMAP 'Modules to port' item 1")
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
     img_ind = rays[:, 8:9]
+    chained_ind = _chained_ind(rays, rcfg, use_nof)
     z_vals = stratified_zvals(near, far, rcfg.n_samples, rcfg.use_disp,
                               rcfg.perturb,
                               u=None if draws is None else draws.perturb)
+    consensus = _consensus_names(rcfg, use_nof)
 
     def at(z):
         return rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
 
-    def warp(xyz):
-        return nof_warp(params["bw_NoF"], statics, anneal, xyz, img_ind,
-                        rcfg)
+    def warp(net, xyz, ind):
+        return nof_warp(params[net], statics, anneal, xyz, ind, rcfg)
+
+    def warp_stack(xyz):
+        cano = warp("bw_NoF", xyz, img_ind)
+        out = {"cano": cano}
+        if rcfg.chain_local and not rcfg.test_time:
+            out["recon"] = warp("fw_NoF", cano, img_ind)
+        if chained_ind is not None:
+            chained = warp("fw_NoF", cano, chained_ind)
+            out["chain_recon"] = warp(
+                "fw_NoF", warp("bw_NoF", chained, chained_ind), img_ind)
+        return out
 
     result: dict = {}
-    coarse_input = warp(at(z_vals)) if use_nof else at(z_vals)
+    xyz_coarse = at(z_vals)
+    warped_c = warp_stack(xyz_coarse) if use_nof else None
     # sigma-only coarse pass at test time when a fine pass follows
     coarse_weights_only = rcfg.n_importance > 0 and rcfg.test_time
-    rgb_c, depth_c, weights_c, _ = nerf_inference_rows(
-        params["coarse_NeRF"], statics.coarse, statics, anneal, coarse_input,
-        img_ind, rays_d, z_vals, rcfg, background=background,
+    rgb_c, depth_c, weights_c, alphas_c = nerf_inference_rows(
+        params["coarse_NeRF"], statics.coarse, statics, anneal,
+        warped_c["cano"] if use_nof else xyz_coarse, img_ind, rays_d,
+        z_vals, rcfg, background=background,
         weights_only=coarse_weights_only)
     result["opacity_coarse"] = torch.sum(weights_c, dim=1)
     if not coarse_weights_only:
         result["rgb_coarse"] = rgb_c
         result["depth_coarse"] = depth_c
+    for k, name in consensus:
+        result[f"{name}_coarse"] = _consensus(xyz_coarse, warped_c[k],
+                                              alphas_c, -1)
     if rcfg.n_importance <= 0:
         return result
     z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
@@ -402,22 +464,30 @@ def _render_rows(params: dict, statics: ModelStatics, anneal: dict,
         z_fine = sample_pdf(z_mid, weights_c[:, 1:-1], rcfg.n_importance,
                             det=(rcfg.perturb == 0),
                             u=None if draws is None else draws.pdf).detach()
+    fine_pos = xyz_new = warped_new = xyz_fine = warped_f = None
     if use_nof and rcfg.share_coarse_warps:
         # warp only the new samples and depth-merge them with the coarse
-        # warps (the same network on the same points)
-        z_all, fine_input, _ = merge_cano_by_z(z_vals, z_fine, coarse_input,
-                                               warp(at(z_fine)))
+        # warps (the same networks on the same points)
+        xyz_new = at(z_fine)
+        warped_new = warp_stack(xyz_new)
+        z_all, fine_input, fine_pos = merge_cano_by_z(
+            z_vals, z_fine, warped_c["cano"], warped_new["cano"])
     else:
         z_all = torch.sort(torch.cat([z_vals, z_fine], dim=-1),
                            dim=-1).values
-        fine_input = warp(at(z_all)) if use_nof else at(z_all)
-    rgb_f, depth_f, weights_f, _ = nerf_inference_rows(
+        xyz_fine = at(z_all)
+        warped_f = warp_stack(xyz_fine) if use_nof else None
+        fine_input = warped_f["cano"] if use_nof else xyz_fine
+    rgb_f, depth_f, weights_f, alphas_f = nerf_inference_rows(
         params["fine_NeRF"], statics.fine or statics.coarse, statics,
         anneal, fine_input, img_ind, rays_d, z_all, rcfg,
         background=background)
     result["rgb_fine"] = rgb_f
     result["depth_fine"] = depth_f
     result["opacity_fine"] = torch.sum(weights_f, dim=1)
+    _fine_consensus(result, consensus, rcfg, alphas_f, fine_pos,
+                    ((xyz_coarse, warped_c), (xyz_new, warped_new)),
+                    (xyz_fine, warped_f), -1)
     return result
 
 
@@ -431,13 +501,7 @@ def _render_train(params: dict, statics: ModelStatics, anneal: dict,
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
     img_ind = rays[:, 8:9]
-    chained_ind = None
-    if use_nof and rcfg.chain_global:
-        if rays.shape[-1] < 10:
-            raise ValueError(f"chain_global needs 10-wide rays (got "
-                             f"{rays.shape[-1]}): append the chained-frame "
-                             "index column")
-        chained_ind = rays[:, 9:10]
+    chained_ind = _chained_ind(rays, rcfg, use_nof)
     z_vals = stratified_zvals(near, far, rcfg.n_samples, rcfg.use_disp,
                               rcfg.perturb,
                               u=None if draws is None else draws.perturb)
@@ -472,9 +536,7 @@ def _render_train(params: dict, statics: ModelStatics, anneal: dict,
     result["opacity_coarse"] = torch.sum(weights_c, dim=1)
     result["rgb_coarse"] = rgb_c
     result["depth_coarse"] = depth_c
-    consensus = [(k, f"nof_{name}_disp") for k, name, on in (
-        ("recon", "local", rcfg.chain_local),
-        ("chain_recon", "global", rcfg.chain_global)) if use_nof and on]
+    consensus = _consensus_names(rcfg, use_nof)
     for k, name in consensus:
         result[f"{name}_coarse"] = _consensus(xyz_coarse, warped_c[k],
                                               alphas_c)
@@ -486,6 +548,7 @@ def _render_train(params: dict, statics: ModelStatics, anneal: dict,
         z_fine = sample_pdf(z_mid, weights_c[:, 1:-1], rcfg.n_importance,
                             det=(rcfg.perturb == 0),
                             u=None if draws is None else draws.pdf).detach()
+    fine_pos = xyz_new = warped_new = xyz_fine = warped_f = None
     if use_nof and rcfg.share_coarse_warps:
         # the fine set is the coarse depths plus the new ones, and the warp
         # chain is the same networks for both passes: warp only the new
@@ -507,20 +570,9 @@ def _render_train(params: dict, statics: ModelStatics, anneal: dict,
     result["rgb_fine"] = rgb_f
     result["depth_fine"] = depth_f
     result["opacity_fine"] = torch.sum(weights_f, dim=1)
-    if consensus and rcfg.share_coarse_warps:
-        # alphas back to concatenation order: the consensus over the coarse
-        # and new halves is the consensus over the sorted union
-        alphas_cat = unsort_by_pos(fine_pos, alphas_f)
-        a_c = alphas_cat[:, :rcfg.n_samples]
-        a_n = alphas_cat[:, rcfg.n_samples:]
-        for k, name in consensus:
-            result[f"{name}_fine"] = _consensus_parts([
-                (xyz_coarse, warped_c[k], a_c),
-                (xyz_new, warped_new[k], a_n)])
-    else:
-        for k, name in consensus:
-            result[f"{name}_fine"] = _consensus(xyz_fine, warped_f[k],
-                                                alphas_f)
+    _fine_consensus(result, consensus, rcfg, alphas_f, fine_pos,
+                    ((xyz_coarse, warped_c), (xyz_new, warped_new)),
+                    (xyz_fine, warped_f), 0)
     return result
 
 

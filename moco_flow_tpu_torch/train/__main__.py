@@ -4,21 +4,22 @@
         [-n job_name] [-s seed] [--device cuda|cpu]
 
 Trains the stage that ``model.type`` names (``train/__init__.py``:
-``nerf``, stage 1; ``moco_flow``, stage 3; stage 2's ``nof`` is not ported
-yet), resuming from the newest checkpoint under ``save_dir/exp_name/*/ckpts``
+``nerf``, stage 1; ``nof``, stage 2; ``moco_flow``, stage 3), resuming from the newest checkpoint under ``save_dir/exp_name/*/ckpts``
 and then from ``-r`` (parameters, the optimizers' state, the clock and the
 stage's extra state; a checkpoint of either package). Checkpoints go to
 ``save_dir/exp_name/<job_name>/ckpts`` every ``save_every_n_step`` steps and
 as ``final`` at the end. ``train(config, args)`` takes the config as a dict,
 so callers can skip YAML.
 
-Stage 1 trains with its optimizer (``radam`` in ``init_nerf.yaml``); every
-phase of stage 3's NoF-supervision schedule trains (``full``, ``none``,
-``msk``; ``MoCoFlowTrainer.phase``). The val step runs as
-``trainer.val_func()``; the JAX loop follows each val step with
-``visualize_batch`` (``train/vis.py``: the spherical video and the mesh),
-which is not ported, so ``val_every_n_step > 0`` raises and names its
-ROADMAP item.
+Stages 1 and 2 train with their optimizer (``radam`` in ``init_nerf.yaml``,
+``adam`` in ``init_nof.yaml``); every phase of stage 3's NoF-supervision
+schedule trains (``full``, ``none``, ``msk``; ``MoCoFlowTrainer.phase``).
+As in the JAX loop, every ``val_every_n_step`` steps the trainer runs its
+val step and then ``visualize_batch``, and once more ``visualize_batch``
+after the last step. Stage 2 visualises nothing; the visualisation of
+stages 1 and 3 (``train/vis.py``: the spherical video and the mesh) is not
+ported, so for them ``val_every_n_step > 0`` raises and names its ROADMAP
+item (``trainer.val_func()`` runs the val step alone).
 """
 
 from __future__ import annotations
@@ -31,10 +32,6 @@ import time
 from . import get_trainer
 from .base import BaseTrainer
 from .checkpoint import find_latest_checkpoint
-
-_VIS = ("ROADMAP 'Modules to port' item 4 (train/vis.py: the "
-        "visualisation that follows each val step)")
-
 
 def job_dir(config: dict, args) -> str:
     name = getattr(args, "job_name", None) or time.strftime("%b%d_%H%M%S")
@@ -49,13 +46,16 @@ def train(config: dict, args, smpl_data=None, scene=None) -> BaseTrainer:
     ``scene``: an in-memory ``SyntheticScene`` in place of the files under
     ``dataloader.root_dir``."""
     tcfg = config["trainer"]
-    if tcfg.get("val_every_n_step", 0):
-        raise NotImplementedError(
-            f"val_every_n_step > 0 is not ported: {_VIS}; set it to 0 and "
-            "call trainer.val_func()")
+    val_every = tcfg.get("val_every_n_step", 0)
     seed = int(args.seed) if getattr(args, "seed", None) is not None else 0
     trainer = get_trainer(config, device=getattr(args, "device", "cuda"),
                           seed=seed, smpl_data=smpl_data, scene=scene)
+    if val_every and not trainer.vis_ported:
+        raise NotImplementedError(
+            f"val_every_n_step > 0 needs {type(trainer).__name__}'s "
+            "visualisation after each val step (train/vis.py), which is not "
+            "ported yet: ROADMAP 'Modules to port' item 4; set it to 0 and "
+            "call trainer.val_func()")
     trainer.job_dir = job_dir(config, args)
     os.makedirs(osp.join(trainer.job_dir, "ckpts"), exist_ok=True)
     trainer.build_model(config["model"])
@@ -72,11 +72,16 @@ def train(config: dict, args, smpl_data=None, scene=None) -> BaseTrainer:
     epoch_len = max(trainer.num_frames, 1)
     while clock.step < tcfg["num_iters"]:
         trainer.train_func()
+        if val_every and clock.step % val_every == 0:
+            trainer.val_func()
+            trainer.visualize_batch()
         if save_every and clock.step % save_every == 0 and clock.step > 0:
             trainer.save_ckpt()
         clock.tick()
         if clock.minibatch >= epoch_len:
             clock.tock()
+    if val_every:
+        trainer.visualize_batch()
     trainer.save_ckpt("final")
     return trainer
 

@@ -5,8 +5,9 @@ Port of ``moco_flow_tpu/train/base.py`` and ``moco_flow_tpu/utils/clock.py``'s
 the clock, checkpoints (parameters, the optimizer state as the JAX
 package's ``opt_named`` keystr paths, the clock and a stage's extra state),
 the val and train datasets, the generator of a step's draws, ``val_rng``,
-chunked full-frame rendering, the val step, sequence evaluation and
-``train_func`` / ``val_func``. A stage (``stage_nerf.py``,
+one optimizer over every parameter (stages 1 and 2), chunked full-frame
+rendering, the val step, sequence evaluation and ``train_func`` /
+``val_func``. A stage (``stage_nerf.py``, ``stage_nof.py``,
 ``stage_mocoflow.py``) adds the model, its optimizers and the training
 step; the loop that ticks the clock is ``train/__main__.py::train``.
 """
@@ -22,6 +23,7 @@ from ..data.dataset import get_dataset
 from ..nn.metrics import dssim, psnr, ssim
 from ..render.volume import RenderConfig, render_rays
 from .checkpoint import _flatten, load_checkpoint, merge_into, save_checkpoint
+from .optim import make_optimizer
 
 
 class TrainClock:
@@ -92,10 +94,38 @@ class BaseTrainer:
 
     def configure_optimizers(self, optimizer_config: dict,
                              scheduler_config: dict | None):
-        raise NotImplementedError
+        """One optimizer over every parameter, built at the first training
+        step (and after each checkpoint load)."""
+        self.opt_cfg = (optimizer_config, scheduler_config)
+        self.opt = None
+
+    def _optimizers(self):
+        """The optimizer of :meth:`configure_optimizers`, with a loaded
+        checkpoint's state."""
+        if self.opt is not None:
+            return self.opt
+        named = self._named()
+        for t in named.values():
+            t.requires_grad_(True)
+        self.opt = make_optimizer(list(named.values()), *self.opt_cfg,
+                                  names=list(named))
+        if self._opt_named is not None:
+            self.opt.load_named(self._opt_named, "")
+            self._opt_named = None
+        return self.opt
 
     def train_step(self, draws=None) -> dict:
         raise NotImplementedError
+
+    # ``train/__main__.py`` runs the val step and then this every
+    # ``val_every_n_step`` steps; a stage whose visualisation is ported sets
+    # ``vis_ported``
+    vis_ported = False
+
+    def visualize_batch(self, save_path=None):
+        raise NotImplementedError(
+            "the visualisation after each val step (train/vis.py) is not "
+            "ported yet; ROADMAP 'Modules to port' item 4")
 
     def anneal(self, step: int | None = None) -> dict:
         """PE annealing weights at ``step``: none."""
@@ -239,6 +269,7 @@ class BaseTrainer:
     def val_func(self) -> dict:
         """The val step, its metrics printed."""
         metrics = self.val_step()
+        self.val_metrics = metrics
         if metrics:
             print(f"[val step {self.clock.step}] " + " ".join(
                 f"{k} {v:.6f}" for k, v in metrics.items()))

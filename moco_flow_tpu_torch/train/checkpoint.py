@@ -6,6 +6,8 @@ tree paths (``coarse_NeRF/trunk/0/w``) plus a JSON sidecar of non-array
 state, written atomically. A checkpoint written by either package loads in
 the other. ``params_from_jax`` / ``params_to_jax`` move a parameter tree
 between numpy (what the JAX package saves and accepts) and tensors.
+``transfer_pretrained_nerf`` / ``transfer_pretrained_nof`` hand the stage-1
+and stage-2 finals to stage 3.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import re
 
 import numpy as np
 import torch
+
+from ..nn.nerf import sigma_branch_params
 
 
 def _to_numpy(v) -> np.ndarray:
@@ -148,3 +152,52 @@ def find_latest_checkpoint(pattern: str) -> str | None:
     if not candidates:
         return None
     return max(candidates, key=ckpt_step)
+
+
+# -- the stage hand-over -----------------------------------------------------
+
+def _onto(cur, loaded, path: str):
+    """``loaded`` (a tree of arrays) as tensors on the device and dtype of
+    the tensor tree ``cur``, whose shapes it must have."""
+    flat_c = _flatten(cur, leaf=lambda t: t)
+    flat_l = _flatten(loaded)
+    if set(flat_c) != set(flat_l):
+        raise KeyError(f"{path}: the checkpoint holds {sorted(flat_l)}, the "
+                       f"model {sorted(flat_c)}")
+    out = {}
+    for k, t in flat_c.items():
+        if tuple(flat_l[k].shape) != tuple(t.shape):
+            raise ValueError(f"{path}/{k}: checkpoint shape "
+                             f"{tuple(flat_l[k].shape)}, model "
+                             f"{tuple(t.shape)}")
+        out[k] = torch.from_numpy(np.array(flat_l[k])).to(t.device, t.dtype)
+    return _unflatten(out)
+
+
+def transfer_pretrained_nerf(params: dict, ckpt_tree: dict) -> dict:
+    """The stage-1 checkpoint's *fine* NeRF sigma branch (trunk, sigma head,
+    ``final``) into both stage-3 NeRFs; ``extra`` / ``rgb`` keep their fresh
+    init."""
+    src = ckpt_tree.get("params", ckpt_tree).get("fine_NeRF")
+    if src is None:
+        raise KeyError("checkpoint has no fine_NeRF parameters")
+    branch = sigma_branch_params(src)
+    out = dict(params)
+    for name in ("coarse_NeRF", "fine_NeRF"):
+        if name in out:
+            tgt = dict(out[name])
+            for k, v in branch.items():
+                tgt[k] = _onto(tgt[k], v, f"{name}/{k}")
+            out[name] = tgt
+    return out
+
+
+def transfer_pretrained_nof(params: dict, ckpt_tree: dict) -> dict:
+    """``bw_NoF`` / ``fw_NoF`` of a stage-2 checkpoint, where the stage-3
+    model has them."""
+    src = ckpt_tree.get("params", ckpt_tree)
+    out = dict(params)
+    for name in ("bw_NoF", "fw_NoF"):
+        if name in out and name in src:
+            out[name] = _onto(out[name], src[name], name)
+    return out

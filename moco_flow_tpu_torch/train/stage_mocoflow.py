@@ -14,6 +14,11 @@ training step in every phase of the NoF-supervision schedule (``phase``):
   the first such step (the c2f start itself still freezes the density);
 - ``msk``: ``none`` plus the alpha-mask BCE.
 
+``build_model`` starts from the stage-1 NeRF's sigma branch
+(``pretrained_nerf``) and the stage-2 NoFs (``pretrained_nof``) when the
+config names them, as ``c2f.yaml`` does. Under ``mlp_impl: pallas`` every
+step and the val step take the per-op route (kernels #8 / #9).
+
 The datasets, checkpoints, chunked rendering, sequence evaluation and the
 val step (a val frame with the chains off and ``perturb = 0``) are
 ``train/base.py``'s.
@@ -33,7 +38,8 @@ from ..nn.nerf import nerf_sigma
 from ..parallel.mesh import FRAME_SAMPLING_POLICIES, sample_frame
 from ..render.volume import encode_nerf_xyz, render_rays
 from .base import BaseTrainer
-from .checkpoint import load_checkpoint, merge_into
+from .checkpoint import (load_checkpoint, merge_into,
+                         transfer_pretrained_nerf, transfer_pretrained_nof)
 from .factory import build_statics, init_params, render_config
 from .optim import make_optimizer, zero_grads_where
 from .stage_nof import nof_points
@@ -77,11 +83,16 @@ class MoCoFlowTrainer(BaseTrainer):
         self.params = init_params(gen, self.statics, with_nerf=True,
                                   with_nof=True, with_fw_nof=with_fw,
                                   device=self.device)
-        if model_config.get("pretrained_nerf") or \
-                model_config.get("pretrained_nof"):
-            raise NotImplementedError(
-                "pretrained-weight surgery is a training step; load a "
-                "stage-3 checkpoint with -r instead")
+        # the hand-over from stages 1-2, then a stage-3 checkpoint, in
+        # JAX's order
+        if model_config.get("pretrained_nerf"):
+            tree, _ = load_checkpoint(model_config["pretrained_nerf"])
+            self.params = transfer_pretrained_nerf(self.params, tree)
+            print("loaded the pretrained NeRF's sigma branch (fine -> both)")
+        if model_config.get("pretrained_nof"):
+            tree, _ = load_checkpoint(model_config["pretrained_nof"])
+            self.params = transfer_pretrained_nof(self.params, tree)
+            print("loaded the pretrained NoFs")
         if model_config.get("pretrained_path"):
             tree, _ = load_checkpoint(model_config["pretrained_path"])
             self.params = merge_into(self.params, tree.get("params", tree))

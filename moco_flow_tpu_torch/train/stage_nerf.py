@@ -22,7 +22,6 @@ from ..render.volume import render_rays
 from .base import BaseTrainer
 from .checkpoint import load_checkpoint, merge_into
 from .factory import build_statics, init_params, render_config
-from .optim import make_optimizer
 
 
 class NeRFTrainer(BaseTrainer):
@@ -43,27 +42,6 @@ class NeRFTrainer(BaseTrainer):
         if model_config.get("pretrained_path"):
             tree, _ = load_checkpoint(model_config["pretrained_path"])
             self.params = merge_into(self.params, tree.get("params", tree))
-
-    def configure_optimizers(self, optimizer_config: dict,
-                             scheduler_config: dict | None):
-        """One optimizer over every parameter, built at the first training
-        step (and after each checkpoint load)."""
-        self.opt_cfg = (optimizer_config, scheduler_config)
-        self.opt = None
-
-    def _optimizers(self):
-        """The optimizer, with a loaded checkpoint's state."""
-        if self.opt is not None:
-            return self.opt
-        named = self._named()
-        for t in named.values():
-            t.requires_grad_(True)
-        self.opt = make_optimizer(list(named.values()), *self.opt_cfg,
-                                  names=list(named))
-        if self._opt_named is not None:
-            self.opt.load_named(self._opt_named, "")
-            self._opt_named = None
-        return self.opt
 
     def draw(self, step: int) -> Draws:
         """Every random input of ``step`` (frame drawn uniformly, pixels,

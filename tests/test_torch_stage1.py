@@ -18,6 +18,9 @@ of the port against the JAX package.
   and a val step; the port replays them with JAX's draws, resumes JAX's
   checkpoint, and JAX resumes the port's.
 - The CLI's dispatch on ``model.type`` and ``render_config``'s routes.
+- The stage-3 training render under ``pallas`` against the fused route's,
+  and its refusals (the parity with JAX is
+  ``tests/test_torch_pallas_train.py``).
 
 Tolerances (fp32): renders and gradients 1e-5 of each array's largest
 magnitude (both sides sum in fp32 in other orders); the optimizer 1e-6
@@ -56,6 +59,7 @@ from moco_flow_tpu_torch.train.checkpoint import (
 from moco_flow_tpu_torch.train.factory import render_config
 from moco_flow_tpu_torch.train.stage_mocoflow import MoCoFlowTrainer
 from moco_flow_tpu_torch.train.stage_nerf import NeRFTrainer
+from moco_flow_tpu_torch.train.stage_nof import NoFTrainer
 from scripts.make_torch_port_stage1_golden import (
     CKPT_AFTER, N_STEPS, SCENE, golden_arrays, jax_trainer, load,
     port_draws, port_replay, port_trainer, prefixed, stage1_config)
@@ -234,14 +238,27 @@ def test_stage3_test_render_matches_jax(stage3_params, share):
 
 
 def test_per_op_training_with_the_nof_raises(stage3_params):
-    """The stage-3 training step under pallas is not ported yet."""
+    """The stage-3 training render under pallas runs (its parity with JAX
+    is ``tests/test_torch_pallas_train.py``'s): with the bw warp only it
+    matches the fused route's training render of the same weights and
+    depths; and it still refuses what is not ported, sigma noise (ROADMAP
+    item 2) and the test-time fine budget / coarse probe."""
     rays, bg, _ = _rays(11)
-    rcfg = tvol.RenderConfig(n_samples=N_SAMPLES, use_nof=True,
-                             mlp_impl="pallas")
+    p = params_from_jax(stage3_params)
+    statics = _s3_statics(tvol, NeRFConfig, NoFConfig)
+    kw = dict(n_samples=N_SAMPLES, n_importance=N_IMPORTANCE, use_nof=True)
+    args = (p, statics, {}, torch.from_numpy(rays), torch.from_numpy(bg))
+    res = tvol.render_rays(*args, tvol.RenderConfig(mlp_impl="pallas", **kw))
+    fused = tvol.render_rays(*args, tvol.RenderConfig(mlp_impl="fused", **kw))
+    assert set(res) == set(fused)
+    for k, v in fused.items():
+        _close(res[k], v.numpy(), f"{k} vs the fused route")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvol.render_rays(params_from_jax(stage3_params),
-                         _s3_statics(tvol, NeRFConfig, NoFConfig), {},
-                         torch.from_numpy(rays), torch.from_numpy(bg), rcfg)
+        tvol.render_rays(*args, tvol.RenderConfig(mlp_impl="pallas",
+                                                  noise_std=1.0, **kw))
+    with pytest.raises(ValueError, match="fused test-time route"):
+        tvol.render_rays(*args, tvol.RenderConfig(mlp_impl="pallas",
+                                                  fine_budget=8, **kw))
 
 
 @pytest.mark.parametrize("impl,route", [("pallas", "pallas"),
@@ -498,8 +515,8 @@ def test_get_trainer_dispatches_on_model_type(stored):
     assert type(get_trainer(cfg, device="cpu")) is NeRFTrainer
     assert type(get_trainer(dict(cfg, model={"type": "moco_flow"}),
                             device="cpu")) is MoCoFlowTrainer
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_trainer(dict(cfg, model={"type": "nof"}))
+    assert type(get_trainer(dict(cfg, model={"type": "nof"}),
+                            device="cpu")) is NoFTrainer
     with pytest.raises(ValueError, match="not found"):
         get_trainer(dict(cfg, model={"type": "gan"}))
 

@@ -27,6 +27,8 @@ import torch
 from moco_flow_tpu.data.synthetic import make_synthetic_scene
 from moco_flow_tpu_torch.data.dataset import get_dataset
 from moco_flow_tpu_torch.data.draws import Draws
+from moco_flow_tpu_torch.data.synthetic import \
+    make_synthetic_scene as port_scene
 from moco_flow_tpu_torch.train.__main__ import parse_args, train
 from moco_flow_tpu_torch.train.checkpoint import (
     _unflatten, load_checkpoint, params_from_jax, save_checkpoint)
@@ -155,11 +157,22 @@ def test_other_phases_raise(stored, scene_dir, step, phase):
         tr.train_step()
 
 
-def test_val_every_n_step_raises(stored):
+def test_val_every_n_step_raises(stored, tmp_path):
+    """Stage 3's visualisation after a val step is not ported, so its
+    ``val_every_n_step > 0`` raises; stage 2 visualises nothing, so its
+    loop runs the val step every ``val_every_n_step`` steps."""
     cfg = json.loads(str(stored["config_json"]))
     cfg["trainer"]["val_every_n_step"] = 10
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(cfg, parse_args(["-c", "unused", "--device", "cpu"]))
+    from scripts.make_torch_port_stage2_golden import stage2_config
+    cfg2 = stage2_config(None, str(tmp_path / "log"))
+    cfg2["trainer"].update(num_iters=3, val_every_n_step=2)
+    tr = train(cfg2, parse_args(["-c", "unused", "-n", "job", "--device",
+                                 "cpu"]),
+               scene=port_scene(None, n_frames=2, size=16))
+    assert tr.clock.step == 3
+    assert set(tr.val_metrics) == {"val_nof_bw", "val_nof_fw"}
 
 
 def test_train_cli_resumes_and_saves(stored, scene_dir, tmp_path):
