@@ -110,9 +110,39 @@ happened; any failure raises and the script exits non-zero):
      then a few fused full steps through ``train(config, args)`` in which
      the NoFs and the rgb branch move, with each step's share of samples
      with alpha >= 0.01.
+  20. the published runs through the CLIs: a synthetic 8-frame scene written
+     as 1080x1080 RGBA PNGs (drawn at 135x135 and upsampled with the port's
+     bilinear resize, the meta's intrinsics scaled to match) and a
+     6890-vertex SMPL pickle under $SMPL_MODEL_DIR; the real
+     configs/people_snapshot/male-3-casual/{init_nerf,init_nof,c2f}.yaml
+     read with the port's loader, changed only in root_dir, save_dir,
+     num_iters, val_every_n_step (2), vis_mesh_video_every_n_val (1) and
+     c2f's pretrained_nerf / pretrained_nof (stage 1's and stage 2's
+     finals), written back and run through
+     ``moco_flow_tpu_torch.train.main`` twice each (the second call one
+     step more: its log.txt must hold the resume line); stage 1 starts from
+     a seeded checkpoint (-r) whose sigma biases put the canonical density
+     around visualize_mesh's threshold of 10, so its mesh is not empty.
+     That field is a fresh NeRF's, nearly flat: the meshes and the
+     marching-cubes time are of its level sets, not of a body.
+     Each run's layout, config.yaml, code snapshot, finite train/ and
+     valid/ records, and for stages 1 and 3 the frame strips, the 90-view
+     orbits and the meshes are checked. Then one spherical view and the
+     256^3 sigma grids (canonical, and frame 0 through #3) are timed, the
+     grids' 0.75 quantiles set the test meshes' thresholds, marching cubes
+     is timed, and ``moco_flow_tpu_torch.test.main`` runs every mode on the
+     stage-3 final at --reso 128 (training poses, spherical, bullet time,
+     the mesh canonical and of frame 0 at --N_grid 256, --render_frame 0
+     and -1, --eval_metrics), on the fused route ('xla') and under
+     mlp_impl: pallas. #3/#7/#8/#9 are held against their plain versions on
+     the first launch of each shape on these paths (fp32 and bf16), before
+     it runs.
+     Depth cuts: 1-2 training steps a call, so stages 1 and 3 visualise
+     three times each (step 0's val, the closing visualize_batch of each
+     call); the test modes at --reso 128.
 Phase 9 also holds #3/#4 at init_nof.yaml's NoF (0 xyz bands) at stage 2's
 shape. The last three lines are the card, the kernel JSON (launch counts
-from the main paths of phases 5, 8, 11, 14, 15, 17, 18 and 19) and the
+from the main paths of phases 5, 8, 11, 14, 15, 17, 18, 19 and 20) and the
 result JSON. Needs one CUDA card; imports neither JAX nor moco_flow_tpu.
 """
 
@@ -2206,64 +2236,101 @@ PALLAS_LAUNCHES = {"none": {"nerf_pallas": 2, "nof_pallas": 10},
 PALLAS_RUNS = ((4999, 2), (9999, 2))       # full, none; none, msk
 
 
-def _capture_launches(fm, captured: dict):
-    """Wrap #8 / #9's launches so that the first launch of each shape
-    leaves a copy of its arguments in ``captured``: (net, rows[, sigma
-    only]) -> (cfg, args). Returns the function that unwraps them."""
-    launch = {"nerf": fm._nerf_launch, "nof": fm._nof_launch}
+def _hold_launches(err: dict, tag: str, where: str, spent: list):
+    """Wrap #7's, #3's, #8's and #9's launches so that the first launch of
+    each shape is held against its plain version on its own arguments
+    before it runs, in fp32 and bf16: within TOL, bf16 also within the
+    plain version's bf16-vs-fp32 gap. These launches do not count; ``err``
+    keeps the largest |diff| a kernel, ``spent[0]`` the seconds the checks
+    took. Returns the function that unwraps."""
+    import dataclasses
+    from moco_flow_tpu_torch.ops import fused_mlp as fm
+    from moco_flow_tpu_torch.ops import nof_rays as nf
+    from moco_flow_tpu_torch.ops import render_pass as rpm
+    launch = {"pass": rpm._launch, "nof": nf._fwd_launch,
+              "nerf_mlp": fm._nerf_launch, "nof_mlp": fm._nof_launch}
+    seen = set()
 
-    def wrap(net):
-        def f(cfg, dt, *args):
-            key = (net, args[0].shape[0]) + ((args[2],) if net == "nerf"
-                                             else ())
-            if key not in captured:
-                captured[key] = (cfg, [
-                    a.detach().float().clone() if torch.is_tensor(a) else
-                    [w.detach().clone() for w in a]
-                    if isinstance(a, (list, tuple)) else a for a in args])
-            return launch[net](cfg, dt, *args)
-        return f
-
-    fm._nerf_launch, fm._nof_launch = wrap("nerf"), wrap("nof")
-
-    def unwrap():
-        fm._nerf_launch, fm._nof_launch = launch["nerf"], launch["nof"]
-    return unwrap
-
-
-def _check_captured(fm, captured: dict, tag: str) -> dict:
-    """#8 / #9 against their plain versions on the arguments of a training
-    step's launches (``_capture_launches``), fp32 and bf16, as phase 12:
-    within TOL, and bf16 also within the plain version's own bf16-vs-fp32
-    gap. These launches do not count. Returns the largest |diff| a kernel."""
-    counters = (fm.nerf_pallas, fm.nof_pallas)
-    saved = [f.launches for f in counters]
-    err = {"nerf_pallas": 0.0, "nof_pallas": 0.0}
-    for key, (cfg, args) in sorted(captured.items(), key=str):
-        net, what = key[0], (f"{key[0]} rows={key[1]}" + (
-            f" {'sigma-only' if key[2] else 'full'}" if key[0] == "nerf"
-            else ""))
-        kern, plain = ((fm.nerf_pallas, fm._nerf_pallas_ref) if net == "nerf"
-                       else (fm.nof_pallas, fm._nof_pallas_ref))
-        got = {}
-        for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
-            ko, ro = kern(cfg, dt, *args), plain(cfg, dt, *args)
-            torch.cuda.synchronize()
-            atol, rtol = TOL[dname]
-            e_max = check_close(f"{tag} {what} {dname}", ko, ro, atol, rtol)
-            err[f"{net}_pallas"] = max(err[f"{net}_pallas"], e_max)
-            got[dname] = (ro, e_max)
+    def hold(key, name, what, run):
+        """``run(dt)`` -> (kernel output, plain output), once a key."""
+        if key in seen:
+            return
+        seen.add(key)
+        t = time.time()
+        counters = _kernel_counters()
+        saved = {k: f.launches for k, f in counters.items()}
+        try:
+            got = {}
+            for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+                ko, po = run(dt)
+                torch.cuda.synchronize()
+                atol, rtol = TOL[dname]
+                e = check_close(f"{tag} {what} {dname}", ko, po, atol, rtol)
+                err[name] = max(err.get(name, 0.0), e)
+                got[dname] = (po, e)
+        finally:
+            for k, f in counters.items():
+                f.launches = saved[k]
         gap = (got["bf16"][0] - got["fp32"][0]).abs().max().item()
         if not got["bf16"][1] <= gap:
             raise AssertionError(
                 f"{tag} {what}: bf16 kernel vs plain {got['bf16'][1]:.3e} "
                 f"exceeds the plain version's bf16-vs-fp32 gap {gap:.3e}")
-        log(f"{tag} kernel vs plain at a step's {what}: max|d| fp32 "
+        log(f"{tag} kernel vs plain at {where} {what}: max|d| fp32 "
             f"{got['fp32'][1]:.3e}, bf16 {got['bf16'][1]:.3e} (the plain "
             f"version's bf16-vs-fp32 gap {gap:.3e})")
-    for f, n in zip(counters, saved):
-        f.launches = n
-    return err
+        spent[0] += time.time() - t
+
+    def pass_launch(op, rays_o, rays_d, z_vals):
+        def run(dt):
+            o = dataclasses.replace(op, dtype=dt or torch.float32)
+            ks, kr = launch["pass"](o, rays_o, rays_d, z_vals)
+            ps, pr = rpm._pass_ref(o, rays_o, rays_d, z_vals)
+            return ((ks, ps) if kr is None else
+                    (torch.cat([ks[None], kr]), torch.cat([ps[None], pr])))
+        n, s = z_vals.shape
+        sigma_only, nof = op.nerf.sigma_only, op.nof is not None
+        hold(("pass", n, s, sigma_only, nof), "render_pass",
+             f"render_pass N={n} S={s} {'sigma-only' if sigma_only else 'full'}"
+             f"{' nof' if nof else ''}", run)
+        return launch["pass"](op, rays_o, rays_d, z_vals)
+
+    def nof_launch(spec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw,
+                   entry="chain_fwd"):
+        if entry == "nof_fwd":
+            def run(d):
+                ko, = launch["nof"](spec, d, n_pe, xyz_t, parts, ws_bw,
+                                    None, entry="nof_fwd")
+                return ko, nf._nof_fwd_ref(spec.nof, d, xyz_t, parts, ws_bw)
+            hold(("nof",) + tuple(xyz_t.shape), "nof_fwd",
+                 f"nof_fwd N={xyz_t.shape[1]} S={xyz_t.shape[2]}", run)
+        return launch["nof"](spec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw,
+                             entry=entry)
+
+    def mlp_launch(net):
+        plain = fm._nerf_pallas_ref if net == "nerf" else fm._nof_pallas_ref
+
+        def f(cfg, dt, *args):
+            held = [a.detach().float() if torch.is_tensor(a) else a
+                    for a in args]
+            what = f"{net} rows={args[0].shape[0]}" + (
+                f" {'sigma-only' if args[2] else 'full'}" if net == "nerf"
+                else "")
+            hold((net, args[0].shape[0]) + ((args[2],) if net == "nerf"
+                                            else ()), f"{net}_pallas", what,
+                 lambda d: (launch[f"{net}_mlp"](cfg, d, *held),
+                            plain(cfg, d, *held)))
+            return launch[f"{net}_mlp"](cfg, dt, *args)
+        return f
+
+    rpm._launch, nf._fwd_launch = pass_launch, nof_launch
+    fm._nerf_launch, fm._nof_launch = mlp_launch("nerf"), mlp_launch("nof")
+
+    def unwrap():
+        rpm._launch, nf._fwd_launch = launch["pass"], launch["nof"]
+        fm._nerf_launch, fm._nof_launch = (launch["nerf_mlp"],
+                                           launch["nof_mlp"])
+    return unwrap
 
 
 def phase_pallas_steps(card: str) -> dict:
@@ -2299,11 +2366,15 @@ def phase_pallas_steps(card: str) -> dict:
 
     counts = {"nerf_pallas": 0, "nof_pallas": 0}
     result, err = {}, {"nerf_pallas": 0.0, "nof_pallas": 0.0}
+    spent = [0.0]
     MoCoFlowTrainer.train_func = counted
+    unwrap = None
     try:
         for dtype in ("bfloat16", "float32"):
-            captured = {}
-            unwrap = _capture_launches(fm, captured)
+            # #8 / #9 against their plain versions at the steps' own shapes
+            # and arguments (the first launch of each shape)
+            unwrap = _hold_launches(err, f"[18 pallas steps] {dtype}",
+                                    "a step's", spent)
             cfg = phases_config(dtype)
             cfg["save_dir"] += "_pallas"
             cfg["model"]["mlp_impl"] = "pallas"
@@ -2340,13 +2411,8 @@ def phase_pallas_steps(card: str) -> dict:
                     + ", ".join(f"{st} {m} #8/#9 {g['nerf_pallas']}/"
                                 f"{g['nof_pallas']}" for st, m, g in record)
                     + f"; last losses {json.dumps(losses)}")
-            # #8 / #9 against their plain versions at the steps' own shapes
-            # and arguments (the first launch of each shape)
             unwrap()
-            for k, e in _check_captured(fm, captured,
-                                        f"[18 pallas steps] {dtype}").items():
-                err[k] = max(err[k], e)
-            del captured
+            unwrap = None
             # step times on the msk run's trainer: each phase on the per-op
             # route, then on the fused route (the same weights and draws)
             times = {}
@@ -2393,9 +2459,12 @@ def phase_pallas_steps(card: str) -> dict:
             torch.cuda.empty_cache()
     finally:
         MoCoFlowTrainer.train_func = orig
-        unwrap()
+        if unwrap is not None:
+            unwrap()
     result["launches"] = counts
     result["err"] = err
+    log(f"[18 pallas steps] holding #8 / #9 against their plain versions "
+        f"took {spent[0]:.1f} s")
     return result
 
 
@@ -2532,6 +2601,334 @@ def phase_handover(card: str, nerf_final: str, nof_final: str) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the published runs through the CLIs
+# ---------------------------------------------------------------------------
+
+CONFIGS = os.path.join(HERE, "configs", "people_snapshot", "male-3-casual")
+# each stage's YAML and the steps of its first call (the second takes one
+# more)
+CLI_STAGES = (("init_nerf", 1), ("init_nof", 2), ("c2f", 1))
+CLI_SIZE = 1080          # the YAMLs' dataloader.size
+CLI_RENDER = 135         # the synthetic frames are drawn at 135^2, upsampled
+CLI_VAL_EVERY = 2
+CLI_RESO = 128
+CLI_GRID = 256
+CLI_DIR = os.path.join(HERE, "build", "chip_smoke_cli")
+
+
+def _kernel_counters() -> dict:
+    from moco_flow_tpu_torch.ops import fused_mlp as fm
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    from moco_flow_tpu_torch.ops import nof_chain as nc
+    from moco_flow_tpu_torch.ops import nof_rays as nf
+    return {f.__name__: f for f in (
+        render_pass, nr.nerf_fwd, nr.nerf_bwd, nf.nof_fwd, nf.nof_bwd,
+        nc.chain_fwd, nc.chain_bwd, fm.nerf_pallas, fm.nof_pallas)}
+
+
+def _count_launches(fn) -> tuple:
+    """(fn's result, the launches of every kernel during it)."""
+    counters = _kernel_counters()
+    saved = {k: f.launches for k, f in counters.items()}
+    for f in counters.values():
+        f.launches = 0
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: f.launches for k, f in counters.items()}
+    finally:
+        for k, f in counters.items():
+            f.launches = saved[k]
+    return out, got
+
+
+def _write_cli_scene(root: str, smpl) -> None:
+    """The synthetic 8-frame scene as files at the YAMLs' 1080^2: frames
+    drawn at CLI_RENDER^2 (the splat renderer's memory grows with the
+    pixels times the vertices), upsampled with the port's bilinear resize,
+    written with its PNG writer, and the JSON meta's intrinsics scaled to
+    match."""
+    from moco_flow_tpu_torch.utils.image import resize_bilinear, write_png
+    scene = make_synthetic_scene(None, n_frames=8, size=CLI_RENDER,
+                                 focal=300.0 * CLI_RENDER / 256, smpl=smpl)
+    k = CLI_SIZE / CLI_RENDER
+    meta = dict(scene.meta, image_height=CLI_SIZE, image_width=CLI_SIZE,
+                camera_focal=float(scene.meta["camera_focal"]) * k,
+                camera_c=[float(c) * k for c in scene.meta["camera_c"]])
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    for fr, im in zip(meta["frames"], scene.images):
+        write_png(os.path.join(root, "images", fr["file_path"]),
+                  resize_bilinear(im, (CLI_SIZE, CLI_SIZE)))
+
+    def plain(o):
+        if isinstance(o, np.ndarray):
+            return o.tolist()
+        if isinstance(o, (np.floating, np.integer)):
+            return o.item()
+        raise TypeError(type(o))
+    for name in ("train.json", "val.json"):
+        with open(os.path.join(root, name), "w") as f:
+            json.dump(meta, f, default=plain)
+
+
+def _seeded_stage1(cfg: dict, path: str) -> float:
+    """Stage 1's first checkpoint: the seeded init with both sigma heads'
+    biases moved by one offset, so that the canonical density field
+    straddles visualize_mesh's threshold of 10 (a fresh NeRF's field is far
+    below it, and its mesh would be empty). The field stays as flat as a
+    fresh NeRF's (a span of thousandths): sharpening the heads to a spread
+    of units scales them ~4000-fold, and the bf16 holds of #7 then see the
+    rounding of a ~100-unit dot product that the bias cancels. Returns the
+    offset."""
+    from moco_flow_tpu_torch.train import vis
+    from moco_flow_tpu_torch.train.stage_nerf import NeRFTrainer
+    tr = NeRFTrainer(cfg, device=DEVICE, seed=0)
+    tr.build_model(cfg["model"])
+    tr.num_frames = 8
+    grid = vis.sigma_grid(tr, -1, n_grid=64, clip_negative=False)
+    shift = 10.0 - float(np.median(grid))
+    for net in ("coarse_NeRF", "fine_NeRF"):
+        tr.params[net]["sigma"]["b"] += shift
+    save_checkpoint(path, {"params": tr.params}, extra={
+        "clock": {"epoch": 1, "minibatch": 0, "step": 0}})
+    return shift
+
+
+def _read_records(job: str) -> list:
+    with open(os.path.join(job, "log", "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _check_run(stage: str, tr, cfg: dict, steps: int, first: bool) -> dict:
+    """The layout, config.yaml, the code snapshot, the records (a first run
+    from step 0 has train/ and valid/ ones) and the visualisations of one
+    CLI run; returns counts of what it wrote."""
+    from moco_flow_tpu_torch.utils.config import load_yaml
+    from moco_flow_tpu_torch.utils.image import read_png
+    job = tr.job_dir
+    for rel in ("config.yaml", "ckpts/final.npz", "log/log.txt",
+                "log/metrics.jsonl", "code/moco_flow_tpu_torch/__init__.py",
+                "code/moco_flow_tpu_torch/ops/csrc/render_pass.cu"):
+        if not os.path.exists(os.path.join(job, rel)):
+            raise AssertionError(f"{stage}: {rel} missing under {job}")
+    if load_yaml(os.path.join(job, "config.yaml")) != cfg:
+        raise AssertionError(f"{stage}: config.yaml does not read back")
+    recs = _read_records(job)
+    train = [r for r in recs if any(k.startswith("train/") for k in r)]
+    valid = [r for r in recs if any(k.startswith("valid/") for k in r)]
+    vals = [v for r in train + valid for k, v in r.items()
+            if k.startswith(("train/", "valid/"))]
+    if tr.clock.step != steps or (first and not (train and valid)) or \
+            not all(np.isfinite(vals)):
+        raise AssertionError(f"{stage}: step {tr.clock.step}, "
+                             f"{len(train)} train and {len(valid)} valid "
+                             "records, or a non-finite value")
+    out = {"train_records": len(train), "valid_records": len(valid)}
+    if stage == "init_nof":
+        return out
+    log_dir = os.path.join(job, "log")
+    frames = [os.path.join(d, f) for d, _, fs in os.walk(log_dir)
+              if os.path.basename(d).startswith("images_epoch_")
+              for f in fs if f.endswith(".png")]
+    orbits = [d for d, _, _ in os.walk(log_dir)
+              if d.endswith("canonical_images")]
+    meshes = [os.path.join(d, f) for d, _, fs in os.walk(log_dir)
+              if os.path.basename(d).startswith("mesh_epoch_")
+              for f in fs if f.endswith(".obj")]
+    if not frames or not orbits or not meshes or any(
+            len(os.listdir(d)) != 90 for d in orbits):
+        raise AssertionError(f"{stage}: frames {frames}, orbits {orbits}, "
+                             f"meshes {meshes}")
+    h, w = cfg["dataloader"]["val_size"]
+    strip = read_png(frames[0])
+    if strip.shape[0] != h or strip.shape[1] % w:
+        raise AssertionError(f"{stage}: frame strip {strip.shape}")
+    out.update(frames=len(frames), orbits=len(orbits), meshes=len(meshes))
+    return out
+
+
+def _time_view(tr, card: str, what: str) -> float:
+    """One spherical view of the canonical space through train/vis.py, ms
+    (CUDA events, after a warm view)."""
+    from moco_flow_tpu_torch.train import vis
+    ds = tr.val_dataset
+
+    def view():
+        return vis._render_view(tr, ds, 0, c2w4=ds.spherical_poses[7],
+                                white_bkgd=True, use_nof=False)
+    ms = cuda_ms(view, reps=2)
+    n = int(ds.frame_mask(0, c2w4=ds.spherical_poses[7]).sum())
+    log(f"[20 cli] one spherical view of {what} at {ds.size[0]}x"
+        f"{ds.size[1]} (fp32, {n} rays in the hull): {ms:.1f} ms on {card}")
+    return ms
+
+
+def phase_cli(card: str) -> dict:
+    """The three published YAMLs through the CLIs, then every test.py mode
+    on the stage-3 final, on the fused route and under mlp_impl: pallas."""
+    from moco_flow_tpu_torch.geometry.smpl import (save_smpl_data,
+                                                   synthetic_smpl_data)
+    from moco_flow_tpu_torch.ops import mcubes
+    from moco_flow_tpu_torch.test import main as test_main
+    from moco_flow_tpu_torch.train import vis
+    from moco_flow_tpu_torch.train.__main__ import main as train_main
+    from moco_flow_tpu_torch.utils.config import dump_config, load_yaml
+    t_phase = time.time()
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    scene_dir = os.path.join(CLI_DIR, "scene")
+    smpl = synthetic_smpl_data(6890)
+    _write_cli_scene(scene_dir, smpl)
+    os.environ["SMPL_MODEL_DIR"] = os.path.dirname(
+        save_smpl_data(smpl, os.path.join(CLI_DIR, "smpl")))
+    log(f"[20 cli] scene: 8 RGBA frames of {CLI_SIZE}x{CLI_SIZE} PNG, a "
+        f"6890-vertex SMPL pickle; {time.time() - t_phase:.1f} s")
+    launches = {k: 0 for k in _kernel_counters()}
+    err, spent = {}, [0.0]
+    unwrap = _hold_launches(err, "[20 cli]", "a view's", spent)
+    finals, result, trainers = {}, {"walls": {}}, {}
+    try:
+        for stage, steps in CLI_STAGES:
+            cfg = load_yaml(os.path.join(CONFIGS, f"{stage}.yaml"))
+            cfg["dataloader"]["root_dir"] = scene_dir
+            cfg["save_dir"] = os.path.join(CLI_DIR, "log")
+            tcfg = cfg["trainer"]
+            tcfg.update(num_iters=steps, val_every_n_step=CLI_VAL_EVERY)
+            if "vis_mesh_video_every_n_val" in tcfg:
+                tcfg["vis_mesh_video_every_n_val"] = 1
+            if stage == "c2f":
+                cfg["model"].update(pretrained_nerf=finals["init_nerf"],
+                                    pretrained_nof=finals["init_nof"])
+            for run, n in (("run1", steps), ("run2", steps + 1)):
+                tcfg["num_iters"] = n
+                path = os.path.join(CLI_DIR, f"{stage}_{run}.yaml")
+                dump_config(cfg, path)
+                argv = ["-c", path, "-n", run, "-s", "0", "--device", DEVICE]
+                if stage == "init_nerf" and run == "run1":
+                    seed = os.path.join(CLI_DIR, "seed", "ckpts", "seeded")
+                    shift = _seeded_stage1(cfg, seed)
+                    log(f"[20 cli] init_nerf starts from the seeded init, "
+                        f"sigma biases moved by {shift:+.3f}")
+                    argv += ["-r", seed + ".npz"]
+                t = time.time()
+                tr, got = _count_launches(lambda: train_main(argv))
+                wall = time.time() - t
+                for k, v in got.items():
+                    launches[k] += v
+                info = _check_run(stage, tr, cfg, n, run == "run1")
+                if run == "run2":
+                    with open(os.path.join(tr.job_dir, "log",
+                                           "log.txt")) as f:
+                        text = f.read()
+                    first = os.path.join(CLI_DIR, "log", cfg["exp_name"],
+                                         "run1", "ckpts", "final")
+                    if f"loaded checkpoint {first}" not in text:
+                        raise AssertionError(f"{stage} run2: no resume line "
+                                             f"for {first} in log.txt")
+                    finals[stage] = os.path.join(tr.job_dir, "ckpts",
+                                                 "final.npz")
+                    trainers[stage] = tr
+                result["walls"][f"{stage} {run}"] = wall
+                ran = {k: v for k, v in got.items() if v}
+                losses = {k: float(v) for k, v in tr.losses.items()}
+                log(f"[20 cli] python -m moco_flow_tpu_torch.train -c "
+                    f"{os.path.relpath(path, HERE)} {' '.join(argv[2:])}: "
+                    f"{wall:.1f} s, step {tr.clock.step}, {json.dumps(info)}"
+                    f", launches {json.dumps(ran)}; last losses "
+                    f"{json.dumps(losses)} on {card}")
+            if stage != "init_nof":
+                result[f"view_ms {stage}"] = _time_view(
+                    tr, card, f"the {stage} final")
+        # the sigma grids of the stage-3 final: canonical and frame 0 (the
+        # warp through #3), their thresholds, and marching cubes
+        tr = trainers["c2f"]
+        grids, thr = {}, {}
+        for frame in (-1, 0):
+            t = time.time()
+            g, got = _count_launches(lambda: vis.sigma_grid(tr, frame,
+                                                            n_grid=CLI_GRID))
+            ms = (time.time() - t) * 1e3
+            for k, v in got.items():
+                launches[k] += v
+            grids[frame] = g
+            thr[frame] = float(np.quantile(g, 0.75))
+            if not g.min() < thr[frame] < g.max():
+                raise AssertionError(f"sigma grid {frame}: flat field")
+            result[f"grid_ms {frame}"] = ms
+            log(f"[20 cli] sigma_grid({frame}) at {CLI_GRID}^3: {ms:.1f} ms "
+                f"(host clock, fp32 nerf_sigma, #3 launches "
+                f"{got['nof_fwd']}); sigma in [{g.min():.3f}, {g.max():.3f}],"
+                f" threshold (0.75 quantile) {thr[frame]:.4f} on {card}")
+        t = time.time()
+        verts, tris = mcubes.marching_cubes(grids[-1], thr[-1])
+        result["mcubes_ms"] = (time.time() - t) * 1e3
+        log(f"[20 cli] marching_cubes at {CLI_GRID}^3: "
+            f"{result['mcubes_ms']:.1f} ms (host clock), {len(verts)} "
+            f"vertices, {len(tris)} triangles, on the host of {card}")
+        del trainers, tr
+        torch.cuda.empty_cache()
+        # every test.py mode on the stage-3 final, fused then pallas
+        c2f_cfg = load_yaml(os.path.join(CLI_DIR, "c2f_run2.yaml"))
+        for impl in ("xla", "pallas"):
+            cfg = dict(c2f_cfg, model=dict(c2f_cfg["model"], mlp_impl=impl))
+            path = os.path.join(CLI_DIR, f"test_{impl}.yaml")
+            dump_config(cfg, path)
+            out = os.path.join(CLI_DIR, f"test_{impl}")
+            common = ["-c", path, "--render_gt", "--reso", str(CLI_RESO),
+                      "-s", "0", "--device", DEVICE, "--out_dir", out,
+                      "--extract_mesh", "--N_grid", str(CLI_GRID)]
+            calls = (common + ["--render_training_poses",
+                               "--render_spherical_poses",
+                               "--render_bullet_time", "--mesh_frame", "-1",
+                               "--sigma_threshold", str(thr[-1]),
+                               "--render_frame", "0", "--eval_metrics"],
+                     common + ["--mesh_frame", "0", "--sigma_threshold",
+                               str(thr[0]), "--render_frame", "-1"])
+            for argv in calls:
+                t = time.time()
+                tt, got = _count_launches(lambda: test_main(argv))
+                wall = time.time() - t
+                for k, v in got.items():
+                    launches[k] += v
+                mesh = tt.mesh_path
+                v = np.array([[float(x) for x in line.split()[1:]]
+                              for line in open(mesh) if line.startswith("v ")])
+                if not len(v) or not np.isfinite(v).all():
+                    raise AssertionError(f"{impl}: mesh {mesh} empty or "
+                                         "non-finite")
+                if "--eval_metrics" in argv and not np.isfinite(
+                        tt.metrics["psnr"]):
+                    raise AssertionError(f"{impl}: metrics {tt.metrics}")
+                result["walls"][f"test {impl} {len(result['walls'])}"] = wall
+                log(f"[20 cli] python -m moco_flow_tpu_torch.test "
+                    f"{' '.join(argv[2:])} ({impl}): {wall:.1f} s, mesh "
+                    f"{len(v)} vertices, launches "
+                    f"{json.dumps({k: n for k, n in got.items() if n})}"
+                    + (f", metrics {json.dumps(tt.metrics)}"
+                       if "--eval_metrics" in argv else "") + f" on {card}")
+                del tt
+            counts = {}
+            for d, _, fs in os.walk(out):
+                n = len([f for f in fs if f.endswith((".png", ".obj"))])
+                if n:
+                    counts[os.path.relpath(d, out)] = n
+            want = {"videos": 8, "spherical": 90, "bullet": 120,
+                    "mesh": 2, "images": 2}
+            for prefix, n in want.items():
+                if sum(c for d, c in counts.items()
+                       if d.startswith(prefix)) != n:
+                    raise AssertionError(f"{impl}: files {counts}")
+            log(f"[20 cli] test modes ({impl}) wrote {json.dumps(counts)}")
+    finally:
+        unwrap()
+    result["err"] = err
+    result["launches"] = launches
+    log(f"[20 cli] launches on the CLI paths {json.dumps(launches)}; phase "
+        f"{time.time() - t_phase:.1f} s, of which {spent[0]:.1f} s held the "
+        f"kernels against their plain versions, on {card}")
+    return result
+
+
 def main():
     card = phase_card()
     dev = torch.device("cuda")
@@ -2570,6 +2967,8 @@ def main():
     torch.cuda.synchronize()
     ho = phase_handover(card, s1["float32"]["final"], s2["final"])
     torch.cuda.synchronize()
+    cli = phase_cli(card)
+    torch.cuda.synchronize()
     fine = k["times"]["fine S=256 N=4096 nof bf16"]
     n_fine = 4096 * 256
     rp_work = (2 * (NERF_MACS + NOF_MACS) * n_fine,
@@ -2578,16 +2977,19 @@ def main():
     log(f"[3 kernel vs plain] render_pass bound at fine S=256 N=4096 nof: "
         f"bf16 {rp_bound:.4f} ms, fp32 {bound_ms(*rp_work, 'fp32')[0]:.4f} ms "
         f"({rp_by}: {rp_work[0] / 1e12:.3f} TFLOP)")
+    cl, ce = cli["launches"], cli["err"]
     kernels = [{
         "name": "render_pass", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": k["max_abs_err"], "ms": fine[0], "plain_ms": fine[1],
+        "replaces": REPLACES, "launches": launches + cl["render_pass"],
+        "max_abs_err": max(k["max_abs_err"], ce.get("render_pass", 0.0)),
+        "ms": fine[0], "plain_ms": fine[1],
         "bound_ms": rp_bound, "bound_by": rp_by, "library_ms": None}]
     for name, src, rep in TRAIN_KERNELS:
         t = tk["times"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": tsl["launches"][name] + ho["launches"][name],
+            "launches": (tsl["launches"][name] + ho["launches"][name]
+                         + cl[name]),
             "max_abs_err": tk["err"][name], "ms": t[0], "plain_ms": t[1],
             "bound_ms": t[2], "bound_by": t[3], "library_ms": None})
     for name, src, rep in NOF_KERNELS:
@@ -2595,13 +2997,14 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": (psl["launches"][name] + s2["launches"][name]
-                         + ho["launches"][name]),
-            "max_abs_err": nk["err"][name], "ms": t[0], "plain_ms": t[1],
+                         + ho["launches"][name] + cl[name]),
+            "max_abs_err": max(nk["err"][name], ce.get(name, 0.0)),
+            "ms": t[0], "plain_ms": t[1],
             "bound_ms": t[2], "bound_by": t[3], "library_ms": None})
     # #8 runs on three main paths (the stage-1 steps and val steps of phase
     # 14, the pallas frames of phase 15, the pallas stage-3 steps and val
     # steps of phase 18), #9 on the last two
-    mlp_launches = {k: pf["launches"][k] + ps["launches"][k]
+    mlp_launches = {k: pf["launches"][k] + ps["launches"][k] + cl[k]
                     for k in ("nerf_pallas", "nof_pallas")}
     mlp_launches["nerf_pallas"] += s1["launches"]
     for name, rep in MLP_KERNELS:
@@ -2609,7 +3012,8 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": MLP_SOURCE,
             "replaces": rep, "launches": mlp_launches[name],
-            "max_abs_err": max(mk["err"][name], ps["err"][name]),
+            "max_abs_err": max(mk["err"][name], ps["err"][name],
+                               ce.get(name, 0.0)),
             "ms": t[0], "plain_ms": t[1],
             "bound_ms": t[2], "bound_by": t[3], "library_ms": None})
     for kern in kernels:

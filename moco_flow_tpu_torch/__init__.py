@@ -4,14 +4,22 @@ The port of ``moco_flow_tpu`` (JAX on a TPU). It keeps that package's layout:
 each module here sits under the same path, with the same function names, as
 the JAX module it replaces, and is held against it by ``tests/test_torch_*``.
 
-It covers the test-time render of a stage-3 model (``test.py``), the
-stage-3 training step in every NoF phase and stage 1's canonical NeRF
-(``train/``), on both of the JAX package's kernel routes: the whole-ray
+It covers the three training stages (``train/``: stage 1's canonical NeRF,
+stage 2's NoF pretraining, the stage 1/2 -> 3 hand-over and the stage-3
+step in every NoF phase), the run's surface (``utils/config.py``'s YAML
+reader and experiment layout, ``utils/logging.py``'s ``log.txt`` and
+``metrics.jsonl``), visualisation and mesh extraction (``train/vis.py``,
+``ops/mcubes.py``), LPIPS (``nn/lpips.py``) and every ``test.py`` mode but
+occupancy, on both of the JAX package's kernel routes: the whole-ray
 kernels (``mlp_impl`` ``fused``, ``xla`` or ``auto``) and the per-op MLPs
-(``pallas``). Each of the nine Pallas kernels is a hand-written CUDA
-kernel under ``ops/csrc/`` with its plain PyTorch version beside it.
-Stage 2 and the other CLI modes come in later slices (ROADMAP.md).
+(``pallas``). Each of the nine Pallas kernels is a hand-written CUDA kernel
+under ``ops/csrc/`` with its plain PyTorch version beside it. Occupancy,
+the packed stream, distillation, the hash grid and data parallelism come
+in later slices (ROADMAP.md).
 
-It never imports ``jax`` or ``moco_flow_tpu``. ``yaml`` and ``PIL`` are
-imported only inside the CLI functions that read a YAML file or a PNG.
+It never imports ``jax`` or ``moco_flow_tpu``, nor ``yaml``, ``PIL``,
+``cv2`` or ``imageio``: YAML, PNG and the JET colour table are its own
+(``utils/config.py``, ``utils/image.py``), so the CLIs take the published
+YAMLs on a machine without those packages. ``tensorboardX`` is used where
+it is importable.
 """

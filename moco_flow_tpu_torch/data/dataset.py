@@ -8,9 +8,10 @@ and for training the per-frame ``FrameTable`` with its padded valid-pixel
 table (the filled convex hull of the projected AABB) and
 ``sample_train_rays``, which picks a step's rays with the pixel slots and
 background of a ``Draws`` record, and the SMPL correspondence table of the
-train frames (NoF supervision, built at first use). ``NoFDataset`` is stage
-2's: the same frames without images. The spherical poses wait for a later
-slice.
+train frames (NoF supervision, built at first use), and in val mode the
+90 spherical novel-view poses. ``NoFDataset`` is stage 2's: the same frames
+without images. Frames are PNGs read and resized by ``utils/image.py`` (as
+Pillow's ``BILINEAR`` resizes them in JAX).
 
 Tensors live on the CPU; the trainer moves the table and the images to its
 device once, and each val frame's rays as it renders them.
@@ -27,7 +28,9 @@ import torch
 
 from ..geometry.camera import (Camera, aabb_corners, near_far_from_aabb,
                                rescale_aabb)
+from ..geometry.poses import create_spheric_poses
 from ..geometry.smpl import SMPLData, load_smpl_data, smpl_forward
+from ..utils.image import read_png, resize_bilinear
 from .correspondence import CorrespondenceTable, build_correspondence_table
 from .draws import Draws
 
@@ -106,8 +109,8 @@ class MoCoFlowDataset:
 
     ``meta`` / ``images`` ((F, H, W, C) uint8) take the place of the JSON
     file and the PNGs when the scene is held in memory; otherwise both are
-    read from ``root_dir`` (Pillow is imported for the PNGs). Without
-    ``load_images`` the dataset holds no images."""
+    read from ``root_dir``. Without ``load_images`` the dataset holds no
+    images."""
 
     def __init__(self, root_dir: str, imgs_dir: str, size, aabb, bkgd,
                  interval: int = 1, mode: str = "val",
@@ -137,6 +140,12 @@ class MoCoFlowDataset:
         if load_images:
             self._load_images(images)
         self._build_background()
+        if mode == "val":
+            fr0 = self.meta["frames"][0]
+            radius = float(np.sqrt(((np.asarray(fr0["camera_pose"])[:3, 3]
+                                     - np.asarray(fr0["transl"])) ** 2).sum()))
+            self.spherical_poses = create_spheric_poses(
+                radius=radius, center=[0, 0, 0], vec_up=[0, -1, 0])
 
     def _build_frames(self):
         frames = self.meta["frames"]
@@ -200,17 +209,16 @@ class MoCoFlowDataset:
     def _load_images(self, images: np.ndarray | None):
         h, w = self.size
         if images is None:
-            from PIL import Image
             imgs = []
             for fr in self.meta["frames"]:
                 path = osp.join(self.root_dir, self.imgs_dir, fr["file_path"])
                 if not osp.exists(path):
                     imgs = []
                     break
-                im = Image.open(path)
-                if im.size != (w, h):
-                    im = im.resize((w, h), Image.BILINEAR)
-                imgs.append(np.asarray(im))
+                im = read_png(path)
+                if im.shape[:2] != (h, w):
+                    im = resize_bilinear(im, (h, w))
+                imgs.append(im)
             images = np.stack(imgs) if imgs else None
         if images is not None:
             if tuple(images.shape[1:3]) != (h, w):
@@ -228,9 +236,8 @@ class MoCoFlowDataset:
         elif self.rand_bkgd:
             self.bkgd_img = torch.ones((h * w, 3))
         elif isinstance(self.bkgd, str):
-            from PIL import Image
-            im = Image.open(self.bkgd).resize((w, h), Image.BILINEAR)
-            arr = np.asarray(im, np.float32)[..., :3] / 255.0
+            im = resize_bilinear(read_png(self.bkgd), (h, w))
+            arr = im.astype(np.float32)[..., :3] / 255.0
             self.bkgd_img = torch.as_tensor(arr.reshape(h * w, 3))
         else:
             raise ValueError(f"background must be float, path or 'rand': "
@@ -254,6 +261,13 @@ class MoCoFlowDataset:
         pose = self.frame_c2w4(idx) if c2w4 is None else np.asarray(c2w4)
         norm_idx = idx * 2.0 / self.num_frames - 1.0
         return self.camera.make_rays(corners, pose, norm_idx)
+
+    def frame_mask(self, idx: int, c2w4: np.ndarray | None = None):
+        """(H*W,) bool: the pixels inside the projected AABB hull of one
+        frame (or of the novel view ``c2w4``), the mask that JAX's
+        ``frame_rays`` returns beside the rays."""
+        pose = self.frame_c2w4(idx) if c2w4 is None else np.asarray(c2w4)
+        return self.camera.valid_rays_mask(self.frame_aabb_corners(idx), pose)
 
     def frame_rgbs(self, idx: int, bkgd: torch.Tensor | None = None):
         """Composited (H*W, 3) target image of one frame, or None."""

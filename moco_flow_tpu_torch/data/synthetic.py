@@ -6,8 +6,8 @@ preprocessing (``train.json``/``val.json`` with gender, image size, focal,
 camera_c, D and per-frame file_path/camera_pose/pose/betas/transl).
 
 The scene is returned in memory (meta + uint8 RGBA images); PNG and JSON
-files are written only when a directory is given, and Pillow is then
-imported for the PNGs.
+files are written only when a directory is given (``utils/image.py``'s PNG
+writer).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..geometry.smpl import SMPLData, smpl_forward, synthetic_smpl_data
+from ..utils.image import write_png
 
 
 @dataclasses.dataclass
@@ -91,11 +92,9 @@ def make_synthetic_scene(root_dir: str | None = None, n_frames: int = 4,
             "D": np.zeros(5), "frames": frames}
     scene = SyntheticScene(smpl=smpl, meta=meta, images=np.stack(images))
     if root_dir is not None:
-        from PIL import Image
         os.makedirs(osp.join(root_dir, "images"), exist_ok=True)
         for fr, im in zip(frames, scene.images):
-            Image.fromarray(im, "RGBA").save(
-                osp.join(root_dir, "images", fr["file_path"]))
+            write_png(osp.join(root_dir, "images", fr["file_path"]), im)
         for name in ("train.json", "val.json"):
             with open(osp.join(root_dir, name), "w") as f:
                 json.dump(meta, f, cls=_NumpyEncoder)

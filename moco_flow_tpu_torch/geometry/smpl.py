@@ -74,6 +74,32 @@ def load_smpl_data(gender: str = "neutral", model_dir: str | None = None) -> SMP
     )
 
 
+def save_smpl_data(smpl: SMPLData, model_dir: str,
+                   gender: str = "neutral") -> str:
+    """Write ``smpl`` as the SMPL pickle that :func:`load_smpl_data` reads
+    (the basicmodel schema: float64 arrays, a scipy-sparse
+    ``J_regressor``, ``kintree_table`` with the root's parent 2^32 - 1);
+    returns its path."""
+    import scipy.sparse
+    kintree = np.zeros((2, NUM_JOINTS), np.uint32)
+    kintree[1] = np.arange(NUM_JOINTS)
+    kintree[0, 0] = 0xFFFFFFFF
+    kintree[0, 1:] = smpl.parents
+    m = {"v_template": smpl.v_template.astype(np.float64),
+         "shapedirs": smpl.shapedirs.astype(np.float64),
+         "posedirs": smpl.posedirs.astype(np.float64),
+         "J_regressor": scipy.sparse.csr_matrix(smpl.j_regressor),
+         "weights": smpl.lbs_weights.astype(np.float64),
+         "kintree_table": kintree,
+         "f": smpl.faces.astype(np.uint32)}
+    os.makedirs(model_dir, exist_ok=True)
+    path = os.path.join(model_dir,
+                        f"basicmodel_{gender}_lbs_10_207_0_v1.1.0.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(m, f)
+    return path
+
+
 def synthetic_smpl_data(num_vertices: int = 512, seed: int = 0) -> SMPLData:
     """A small random-but-valid SMPL-like body: vertices on a capsule, a
     chain kinematic tree, smooth LBS weights."""

@@ -1,16 +1,26 @@
 """Rendering / evaluation CLI of the port (counterpart of the root test.py).
 
-    python -m moco_flow_tpu_torch.test -c cfg.yaml [-r ckpt.npz] --render_gt \
-        --reso N [--eval_metrics [--eval_max_frames K]] [--render_frame F] \
-        [--device cuda|cpu]
+    python -m moco_flow_tpu_torch.test -c cfg.yaml [-r ckpt.npz] [--reso N] \
+        [--render_gt | --test_json path] [--render_training_poses] \
+        [--render_spherical_poses [--spherical_poses_frame F]] \
+        [--render_bullet_time [--bullet_time_frame F]] \
+        [--extract_mesh [--mesh_frame F] [--N_grid N] [--sigma_threshold T]] \
+        [--render_frame F] [--eval_metrics [--eval_max_frames K]] \
+        [--out_dir DIR] [--device cuda|cpu]
 
-Renders the validation sequence of a stage-3 checkpoint (a ``.npz`` written
-by either package) at test time. ``--eval_metrics`` prints mean PSNR / SSIM
-/ DSSIM as JSON; ``--render_frame F`` writes a GT | prediction | depth PNG
-(frame -1: the canonical space). ``test(config, args)`` takes the config as
-a dict, so callers can skip YAML. The config's ``model.mlp_impl`` picks the
-kernels (``train/factory.py::render_config``): ``pallas`` renders through
-the per-op MLPs #8/#9, where ``--fine_budget`` / ``--coarse_probe`` raise.
+JAX's ``test.py`` surface through ``get_trainer``, so a checkpoint of any
+rendering stage (``nerf``, ``moco_flow``) of either package renders: the
+training poses' video, the spherical orbit and the bullet-time track of a
+frame, the mesh (canonical or of a posed frame), one frame's strip
+(``train/vis.py``), and ``--eval_metrics``' mean PSNR / SSIM / DSSIM (and
+LPIPS with ``$LPIPS_WEIGHTS_NPZ``) as JSON. Frame -1 is the canonical space.
+Outputs go under ``--out_dir`` (default: the job's ``log`` directory). The
+checkpoint is ``-r`` or the experiment's newest. ``--test_json`` reads the
+sequence from that file's directory. ``model.mlp_impl`` picks the kernels
+(``train/factory.py::render_config``): ``pallas`` renders through the
+per-op MLPs #8/#9, where ``--fine_budget`` / ``--coarse_probe`` raise.
+``--occ_res`` (occupancy) raises: ROADMAP 'Modules to port' item 6.
+``test(config, args)`` takes the config as a dict or a ``Config``.
 """
 
 from __future__ import annotations
@@ -20,51 +30,19 @@ import json
 import os
 import os.path as osp
 
-import numpy as np
-
+from .train import get_trainer
+from .train.__main__ import as_config, require_device
+from .train.base import BaseTrainer
 from .train.checkpoint import find_latest_checkpoint
-from .train.stage_mocoflow import MoCoFlowTrainer
+from .train.vis import (visualize_bullet_time, visualize_frame,
+                        visualize_mesh, visualize_spherical, visualize_video)
+from .utils.config import Config
 
 # test.py modes of the JAX package that wait for a later slice
-_NOT_PORTED = {
-    "render_training_poses": "ROADMAP 'Modules to port' item 4",
-    "render_spherical_poses": "ROADMAP 'Modules to port' item 4",
-    "render_bullet_time": "ROADMAP 'Modules to port' item 4",
-    "extract_mesh": "ROADMAP 'Modules to port' item 4 (needs ops/mcubes)",
-    "test_json": "ROADMAP 'Modules to port' item 4",
-    "occ_res": "ROADMAP 'Modules to port' item 6",
-}
+_NOT_PORTED = {"occ_res": "ROADMAP 'Modules to port' item 6"}
 
 
-def render_frame(trainer: MoCoFlowTrainer, frame_idx: int,
-                 save_path: str) -> np.ndarray:
-    """GT | pred | depth strip of one val frame as a PNG; frame -1 renders
-    the canonical space (no NoF warp) from frame 0's camera. The depth panel
-    is min-max normalized gray."""
-    ds = trainer.val_dataset
-    idx = frame_idx if frame_idx != -1 else 0
-    rcfg = trainer.rcfg_test if frame_idx != -1 else trainer.rcfg_test_cano
-    res = trainer.render_rays_chunked(ds.frame_rays(idx), ds.bkgd_img, rcfg,
-                                      anneal=trainer.anneal())
-    typ = "fine" if "rgb_fine" in res else "coarse"
-    h, w = ds.size
-    img = res[f"rgb_{typ}"].reshape(h, w, 3).float().cpu().numpy()
-    depth = res[f"depth_{typ}"].reshape(h, w).float().cpu().numpy()
-    depth = (depth - depth.min()) / (depth.max() - depth.min() + 1e-8)
-    panels = [img, np.repeat(depth[..., None], 3, axis=-1)]
-    gt = ds.frame_rgbs(idx)
-    if gt is not None:
-        panels.insert(0, gt.reshape(h, w, 3).numpy())
-    strip = np.concatenate(panels, axis=1)
-    from PIL import Image
-    name = f"frame_{frame_idx}" if frame_idx != -1 else "canonical"
-    out = osp.join(save_path, f"images_step_{trainer.step}", f"{name}.png")
-    os.makedirs(osp.dirname(out), exist_ok=True)
-    Image.fromarray((np.clip(strip, 0, 1) * 255).astype(np.uint8)).save(out)
-    return strip
-
-
-def test(config: dict, args, smpl_data=None, scene=None) -> MoCoFlowTrainer:
+def test(config, args, smpl_data=None, scene=None) -> BaseTrainer:
     """Build the model, load the checkpoint and run the requested modes.
 
     ``scene``: an in-memory ``SyntheticScene`` in place of the files under
@@ -72,31 +50,49 @@ def test(config: dict, args, smpl_data=None, scene=None) -> MoCoFlowTrainer:
     for mode, item in _NOT_PORTED.items():
         if getattr(args, mode, None):
             raise NotImplementedError(f"--{mode} is not ported yet ({item})")
-    if not args.render_gt:
-        raise ValueError("provide --render_gt (--test_json is not ported)")
-    config["dataloader"]["val_size"] = [args.reso, args.reso]
-    config["model"]["pretrained_nerf"] = None
-    config["model"]["pretrained_nof"] = None
-    config["dataloader"]["bkgd"] = 1.0
+    device = getattr(args, "device", "cuda")
+    require_device(device)
+    config = as_config(config, args, "test")
+    trainer = get_trainer(config, device=device, seed=config.seed or 0,
+                          smpl_data=smpl_data, scene=scene)
+    config.raw["dataloader"]["val_size"] = [args.reso, args.reso]
+    config.raw["model"]["pretrained_nerf"] = None
+    config.raw["model"]["pretrained_nof"] = None
+    config.raw["dataloader"]["bkgd"] = 1.0
     if getattr(args, "fine_budget", None) is not None:
-        config["model"]["fine_budget"] = args.fine_budget
+        config.raw["model"]["fine_budget"] = args.fine_budget
     if getattr(args, "coarse_probe", None) is not None:
-        config["model"]["coarse_probe"] = args.coarse_probe
-    seed = int(args.seed) if getattr(args, "seed", None) is not None else 0
-    trainer = MoCoFlowTrainer(config, device=getattr(args, "device", "cuda"),
-                              seed=seed, smpl_data=smpl_data, scene=scene)
+        config.raw["model"]["coarse_probe"] = args.coarse_probe
     trainer.build_model(config["model"])
-    ckpt = args.resume or find_latest_checkpoint(osp.join(
-        config.get("save_dir", "./log"), config.get("exp_name", "exp"), "*",
-        "ckpts", "*.npz"))
+    ckpt = config.resume or find_latest_checkpoint(osp.join(
+        config.save_dir, config.exp_name, "*", "ckpts", "*.npz"))
     if ckpt:
         trainer.load_ckpt(ckpt)
-    trainer.prepare_dataloader(config["dataloader"])
 
-    out_dir = args.out_dir or osp.join(config.get("save_dir", "./log"),
-                                       config.get("exp_name", "exp"), "test")
+    out_dir = getattr(args, "out_dir", None)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    if not args.render_gt:
+        if not getattr(args, "test_json", None):
+            raise ValueError("provide --test_json or --render_gt")
+        config.raw["dataloader"]["root_dir"] = osp.dirname(args.test_json)
+    trainer.prepare_dataloader(config["dataloader"])
+    trainer.num_frames = trainer.val_dataset.num_frames
+
+    if getattr(args, "render_training_poses", False):
+        visualize_video(trainer, vis_novel_view=False, save_path=out_dir)
+    if getattr(args, "render_spherical_poses", False):
+        visualize_spherical(trainer, args.spherical_poses_frame,
+                            save_path=out_dir)
+    if getattr(args, "render_bullet_time", False):
+        visualize_bullet_time(trainer, args.bullet_time_frame,
+                              save_path=out_dir)
+    if getattr(args, "extract_mesh", False):
+        trainer.mesh_path = visualize_mesh(
+            trainer, args.mesh_frame, n_grid=args.N_grid,
+            sigma_threshold=args.sigma_threshold, save_path=out_dir)
     if args.render_frame is not None:
-        render_frame(trainer, args.render_frame, out_dir)
+        visualize_frame(trainer, args.render_frame, save_path=out_dir)
     if args.eval_metrics:
         trainer.metrics = trainer.evaluate_sequence(
             max_frames=args.eval_max_frames)
@@ -106,45 +102,45 @@ def test(config: dict, args, smpl_data=None, scene=None) -> MoCoFlowTrainer:
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="test-time rendering (port)")
+    p.add_argument("-m", "--mode", default="test", type=str)
     p.add_argument("-c", "--config", required=True, type=str)
     p.add_argument("-r", "--resume", default=None, type=str)
+    p.add_argument("-n", "--job_name", default=None, type=str)
     p.add_argument("-s", "--seed", default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (the kernels) or cpu (the plain versions)")
     p.add_argument("--out_dir", default=None, type=str)
     p.add_argument("--reso", default=512, type=int)
     p.add_argument("--render_gt", action="store_true")
+    p.add_argument("--test_json", default=None, type=str)
+    p.add_argument("--render_training_poses", action="store_true")
+    p.add_argument("--render_spherical_poses", action="store_true")
+    p.add_argument("--spherical_poses_frame", default=-1, type=int)
+    p.add_argument("--render_bullet_time", action="store_true")
+    p.add_argument("--bullet_time_frame", default=0, type=int)
+    p.add_argument("--extract_mesh", action="store_true")
+    p.add_argument("--mesh_frame", default=-1, type=int)
+    p.add_argument("--N_grid", default=512, type=int)
+    p.add_argument("--sigma_threshold", default=10, type=float)
     p.add_argument("--render_frame", default=None, type=int)
-    p.add_argument("--eval_metrics", action="store_true")
-    p.add_argument("--eval_max_frames", default=None, type=int)
     p.add_argument("--fine_budget", default=None, type=int,
                    help="fine samples kept per ray (0/absent = all, exact)")
     p.add_argument("--coarse_probe", default=None, type=int,
                    help="strided coarse probe size, must divide N_samples "
                         "(0/absent = exact)")
-    for mode in ("render_training_poses", "render_spherical_poses",
-                 "render_bullet_time", "extract_mesh"):
-        p.add_argument(f"--{mode}", action="store_true",
-                       help=f"not ported yet ({_NOT_PORTED[mode]})")
-    p.add_argument("--test_json", default=None, type=str,
-                   help=f"not ported yet ({_NOT_PORTED['test_json']})")
     p.add_argument("--occ_res", default=None, type=int,
                    help=f"not ported yet ({_NOT_PORTED['occ_res']})")
+    p.add_argument("--eval_metrics", action="store_true",
+                   help="mean PSNR / SSIM / DSSIM (and LPIPS with "
+                        "$LPIPS_WEIGHTS_NPZ) over the val sequence")
+    p.add_argument("--eval_max_frames", default=None, type=int)
     return p.parse_args(argv)
 
 
-def main(argv=None):
+def main(argv=None) -> BaseTrainer:
     args = parse_args(argv)
-    import yaml
-    path = args.config
-    if args.resume:
-        # as the JAX CLI: the config saved beside the checkpoint's run wins
-        saved = osp.join(osp.dirname(osp.dirname(args.resume)), "config.yaml")
-        if osp.exists(saved):
-            path = saved
-    with open(path) as f:
-        config = yaml.safe_load(f)
-    test(config, args)
+    require_device(args.device)
+    return test(Config.from_args(args, mode="test"), args)
 
 
 if __name__ == "__main__":

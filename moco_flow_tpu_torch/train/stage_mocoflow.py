@@ -21,7 +21,8 @@ step and the val step take the per-op route (kernels #8 / #9).
 
 The datasets, checkpoints, chunked rendering, sequence evaluation and the
 val step (a val frame with the chains off and ``perturb = 0``) are
-``train/base.py``'s.
+``train/base.py``'s; ``visualize_batch`` (the canonical frame, orbit and
+mesh) is ``train/vis.py``'s.
 """
 
 from __future__ import annotations
@@ -88,11 +89,15 @@ class MoCoFlowTrainer(BaseTrainer):
         if model_config.get("pretrained_nerf"):
             tree, _ = load_checkpoint(model_config["pretrained_nerf"])
             self.params = transfer_pretrained_nerf(self.params, tree)
-            print("loaded the pretrained NeRF's sigma branch (fine -> both)")
+            self.record_str("loaded pretrained NeRF sigma branch (fine->both)")
+        else:
+            self.record_str("NOT loading pretrained NeRF !!!")
         if model_config.get("pretrained_nof"):
             tree, _ = load_checkpoint(model_config["pretrained_nof"])
             self.params = transfer_pretrained_nof(self.params, tree)
-            print("loaded the pretrained NoFs")
+            self.record_str("loaded pretrained NoFs")
+        else:
+            self.record_str("NOT loading pretrained NoF !!!")
         if model_config.get("pretrained_path"):
             tree, _ = load_checkpoint(model_config["pretrained_path"])
             self.params = merge_into(self.params, tree.get("params", tree))
@@ -312,3 +317,25 @@ class MoCoFlowTrainer(BaseTrainer):
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["train_psnr"] = train_psnr
         return metrics
+
+    def step_records(self, step: int) -> dict:
+        """JAX's step adds ``state/nerf`` (0 while the density is frozen)
+        to its metrics and, on log steps, records the PE-annealing weights
+        as histograms."""
+        if self.logger is not None and self._log_step(step):
+            for name, w in self.anneal(step).items():
+                self.logger.histogram(f"weights/{name}", w.cpu(), step)
+        return {"state/nerf": 0.0 if self.phase(step)[1] else 1.0}
+
+    def visualize_batch(self, save_path=None):
+        """After a val step: the canonical frame strip every
+        ``vis_img_every_n_val`` vals, the canonical orbit and mesh every
+        ``vis_mesh_video_every_n_val``."""
+        from .vis import visualize_frame, visualize_mesh, visualize_spherical
+        tcfg = self.config["trainer"]
+        n_val = self.clock.step // max(tcfg.get("val_every_n_step", 1), 1)
+        if n_val % tcfg.get("vis_img_every_n_val", 1) == 0:
+            visualize_frame(self, -1, use_nof=False, save_path=save_path)
+        if n_val % tcfg.get("vis_mesh_video_every_n_val", 5) == 0:
+            visualize_spherical(self, -1, use_nof=False, save_path=save_path)
+            visualize_mesh(self, -1, save_path=save_path)

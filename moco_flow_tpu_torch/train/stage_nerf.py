@@ -6,8 +6,8 @@ uniformly drawn frame, with the image loss of both passes and the
 optimizer of the config (``radam`` with ``steplr`` there). Under
 ``mlp_impl: pallas`` each step's coarse and fine passes each run kernel #8
 (``ops/fused_mlp.py``) once. The val step, checkpoints and chunked
-rendering are ``train/base.py``'s; ``visualize_batch`` is not ported
-(``train/__main__.py`` refuses ``val_every_n_step > 0``).
+rendering are ``train/base.py``'s; ``visualize_batch`` (a val frame, the
+canonical mesh and orbit) is ``train/vis.py``'s.
 """
 
 from __future__ import annotations
@@ -75,3 +75,18 @@ class NeRFTrainer(BaseTrainer):
         loss.backward()
         opt.step()
         return {"img_loss": loss.detach(), "train_psnr": train_psnr}
+
+    def visualize_batch(self, save_path=None):
+        """After a val step: a frame drawn by ``val_rng`` every
+        ``vis_img_every_n_val`` vals, the canonical mesh and orbit every
+        ``vis_mesh_video_every_n_val``."""
+        from .vis import visualize_frame, visualize_mesh, visualize_spherical
+        tcfg = self.config["trainer"]
+        n_val = self.clock.step // max(tcfg.get("val_every_n_step", 1), 1)
+        if n_val % tcfg.get("vis_img_every_n_val", 1) == 0:
+            idx = int(self.val_rng().integers(self.val_dataset.num_frames))
+            visualize_frame(self, idx, use_nof=False, save_path=save_path)
+        if n_val % tcfg.get("vis_mesh_video_every_n_val", 5) == 0:
+            visualize_mesh(self, frame_idx=-1, save_path=save_path)
+            visualize_spherical(self, frame_idx=-1, use_nof=False,
+                                save_path=save_path)

@@ -6,7 +6,7 @@ sampled point, inside and outside the body (``N_sampled`` cube points plus
 ``N_sampled`` near-surface points a step, at thickness 0.1), with the
 optimizer of the config (``adam`` with ``steplr`` in ``init_nof.yaml``).
 The val step scores a fresh 10,000-point set; ``visualize_batch`` does
-nothing, as in JAX, so ``val_every_n_step`` runs.
+nothing, as in JAX.
 
 The render config is JAX's ``RenderConfig(use_nof=True)``: fp32 and no
 jitter whatever the YAML's ``compute_dtype``. Each NoF evaluation of a
@@ -44,8 +44,6 @@ def nof_points(params_nof: dict, statics, anneal: dict, pts: torch.Tensor,
 
 class NoFTrainer(BaseTrainer):
     """The stage-2 model: the bw and fw NoFs and one optimizer."""
-
-    vis_ported = True       # JAX's stage 2 visualises nothing
 
     def prepare_dataloader(self, data_config: dict):
         """The train dataset (no images); the val step draws fresh points
@@ -137,6 +135,3 @@ class NoFTrainer(BaseTrainer):
             losses = self._loss(self.params, self._points(draws),
                                 self._norm_idx[draws.frame])
         return {f"val_{k}": float(v) for k, v in losses.items()}
-
-    def visualize_batch(self, save_path=None):
-        pass

@@ -158,13 +158,26 @@ def test_other_phases_raise(stored, scene_dir, step, phase):
 
 
 def test_val_every_n_step_raises(stored, tmp_path):
-    """Stage 3's visualisation after a val step is not ported, so its
-    ``val_every_n_step > 0`` raises; stage 2 visualises nothing, so its
-    loop runs the val step every ``val_every_n_step`` steps."""
+    """``val_every_n_step > 0`` no longer raises: stage 3 runs the val step
+    and then ``visualize_batch`` (train/vis.py: the canonical frame strip
+    after every val, the orbit and the mesh after the first), once more
+    after the last step; stage 2 visualises nothing, so its loop runs the
+    val step alone."""
     cfg = json.loads(str(stored["config_json"]))
-    cfg["trainer"]["val_every_n_step"] = 10
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(cfg, parse_args(["-c", "unused", "--device", "cpu"]))
+    cfg["save_dir"] = str(tmp_path / "log3")
+    cfg["trainer"].update(num_iters=2, val_every_n_step=1)
+    tr = train(cfg, parse_args(["-c", "unused", "-n", "job", "--device",
+                                "cpu"]), scene=port_scene(None, **SCENE))
+    assert tr.clock.step == 2
+    assert set(tr.val_metrics) == {"val_psnr", "ssim"}
+    log_dir = os.path.join(tr.job_dir, "log")
+    # two frames an epoch: the closing strip is epoch 2's
+    for epoch, step in ((1, 0), (1, 1), (2, 2)):
+        assert os.path.exists(os.path.join(
+            log_dir, f"images_epoch_{epoch}_step_{step}", "canonical.png"))
+    orbit = os.path.join(log_dir, "spherical_videos_epoch_1_step_0",
+                         "canonical_images")
+    assert len(os.listdir(orbit)) == 90
     from scripts.make_torch_port_stage2_golden import stage2_config
     cfg2 = stage2_config(None, str(tmp_path / "log"))
     cfg2["trainer"].update(num_iters=3, val_every_n_step=2)
