@@ -140,10 +140,27 @@ happened; any failure raises and the script exits non-zero):
      Depth cuts: 1-2 training steps a call, so stages 1 and 3 visualise
      three times each (step 0's val, the closing visualize_batch of each
      call); the test modes at --reso 128.
+  21. occupancy skipping and the packed stream: phase 5's c2f model on a
+     256x256 scene with a 6890-vertex body, fp32 on the fused route as
+     c2f.yaml runs it, its fine NeRF fitted (400 Adam steps, scaffolding)
+     to sigma 150 within 0.15 of the body's vertices and -20 elsewhere and
+     copied into the coarse one; the grids at 192^3 x supersample 2
+     (canonical, frame 0 direct and warp) timed with CUDA events, a view's
+     tighten (empty_frac, range_ratio), a 256x256 frame exact and with
+     occupancy (both times, the PSNR between them), with occ_tighten 0 the
+     kept rays equal to the exact render's bits, a 16-view orbit packed
+     against a view at a time (equal bits, ms a view each), a 1024x1024
+     frame_rays_scaled view, and 4 orbit views packed against a view at a
+     time under mlp_impl: pallas (equal bits); #3/#7/#8/#9 held on each
+     first shape in fp32, #7/#8/#9 beside their fp64 plain versions where
+     the fitted field's gain lifts fp32's own rounding above TOL
+     (_hold_exact, which must also reject two wrong kernels). Then
+     test.main --occ_res 64 on phase 20's stage-3 final (--render_frame 0,
+     --eval_metrics) on both routes, #3/#7/#8/#9 held as in phase 20.
 Phase 9 also holds #3/#4 at init_nof.yaml's NoF (0 xyz bands) at stage 2's
 shape. The last three lines are the card, the kernel JSON (launch counts
-from the main paths of phases 5, 8, 11, 14, 15, 17, 18, 19 and 20) and the
-result JSON. Needs one CUDA card; imports neither JAX nor moco_flow_tpu.
+from the main paths of phases 5, 8, 11, 14, 15, 17, 18, 19, 20 and 21) and
+the result JSON. Needs one CUDA card; imports neither JAX nor moco_flow_tpu.
 """
 
 from __future__ import annotations
@@ -2236,13 +2253,106 @@ PALLAS_LAUNCHES = {"none": {"nerf_pallas": 2, "nof_pallas": 10},
 PALLAS_RUNS = ((4999, 2), (9999, 2))       # full, none; none, msk
 
 
-def _hold_launches(err: dict, tag: str, where: str, spent: list):
+# The fitted field of phase 21 (sigma swings by ~170 over a fraction of a
+# cell, through the top PE band) lifts fp32's own rounding above TOL, in
+# sigma and in rgb. There an fp32 kernel's output is held against the
+# exact function (the plain version in fp64) instead: each element within
+# EXACT_FACTOR times the plain fp32 version's largest distance from it in
+# the launch (sigma, rgb and warped points each their own), plus TOL. The
+# factor comes from phase 21's readings, which _hold_exact logs (PERF.md
+# §6); an element's own fp32 distance is no scale, as fp32 lands on the
+# exact value by chance.
+EXACT_FACTOR = 4.0
+
+
+def _window_max(x: torch.Tensor, h: int) -> torch.Tensor:
+    """The largest of x over the ``h`` elements on either side along the
+    last axis (the samples of a ray), ``h`` None: over the whole axis."""
+    if h is None:
+        return x.amax(dim=-1, keepdim=True).expand_as(x)
+    flat = x.reshape(-1, 1, x.shape[-1])
+    return torch.nn.functional.max_pool1d(flat, 2 * h + 1, 1,
+                                          h).reshape(x.shape)
+
+
+def _hold_exact(name: str, parts: dict, atol: float, rtol: float) -> float:
+    """fp32 hold of one launch; ``parts``: {part: (kernel, plain fp32,
+    plain fp64)}, the samples along the last axis. Each element within TOL
+    of the plain fp32 version, or within EXACT_FACTOR x that part's largest
+    distance of the plain fp32 version from the fp64 one, plus TOL, of the
+    fp64 one. Logs, where TOL does not hold, the factor that the check
+    would need with the plain version's distance taken at the element,
+    over +-2 and +-8 samples, over the ray and over the launch. Raises
+    after every part is checked; returns the largest |kernel - plain|."""
+    worst, faults = 0.0, []
+    for part, (ko, po, p64) in parts.items():
+        if not torch.isfinite(ko).all():
+            faults.append(f"{part}: non-finite kernel output")
+            continue
+        err = (ko - po).abs()
+        worst = max(worst, err.max().item())
+        out = err > atol + rtol * po.abs()
+        if not out.any():
+            continue
+        k64 = (ko.double() - p64).abs()
+        p32 = (po.double() - p64).abs()
+        tol = atol + rtol * p64.abs()
+        over = out & (k64 > tol)
+        need = {}
+        for h, what in ((0, "element"), (2, "+-2"), (8, "+-8"),
+                        (None, "ray")):
+            ref = _window_max(p32, h)
+            need[what] = torch.where(over, (k64 - tol) / ref,
+                                     torch.zeros_like(ref)).max().item()
+        need["launch"] = (((k64 - tol) * over).max() / p32.max()).item()
+        log(f"{name} {part}: {int(out.sum())} of {out.numel()} elements "
+            f"outside TOL of the plain fp32 version (max |d| "
+            f"{err.max().item():.3e}); from fp64: kernel "
+            f"{k64.max().item():.3e}, plain fp32 {p32.max().item():.3e}; "
+            f"factor needed with the plain distance over "
+            f"{json.dumps({k: round(v, 3) for k, v in need.items()})} "
+            f"(held: {EXACT_FACTOR:g} over the launch)")
+        bad = over & (k64 > EXACT_FACTOR * p32.max() + tol)
+        if bad.any():
+            faults.append(f"{part}: {int(bad.sum())} elements outside both "
+                          f"TOL and {EXACT_FACTOR:g} x the plain fp32 "
+                          f"version's distance from the fp64 one + TOL")
+    if faults:
+        raise AssertionError(f"{name}: " + "; ".join(faults))
+    return worst
+
+
+def _pass_ref64(op, rays_o, rays_d, z_vals):
+    """#7's plain version in fp64 (operands, products and sums)."""
+    import dataclasses
+    from moco_flow_tpu_torch.ops import render_pass as rpm
+
+    def d64(x):
+        return None if x is None else x.double()
+    op64 = dataclasses.replace(
+        op, dtype=torch.float64, nerf_ws=[d64(w) for w in op.nerf_ws],
+        nof_ws=[d64(w) for w in op.nof_ws],
+        partials=[d64(p) for p in op.partials], p_extra=d64(op.p_extra))
+    mm = rpm.matmul
+    rpm.matmul = lambda x, w, dt=None: x.double() @ w.double()
+    try:
+        return rpm._pass_ref(op64, rays_o.double(), rays_d.double(),
+                             z_vals.double())
+    finally:
+        rpm.matmul = mm
+
+
+def _hold_launches(err: dict, tag: str, where: str, spent: list,
+                   exact: bool = False):
     """Wrap #7's, #3's, #8's and #9's launches so that the first launch of
     each shape is held against its plain version on its own arguments
     before it runs, in fp32 and bf16: within TOL, bf16 also within the
-    plain version's bf16-vs-fp32 gap. These launches do not count; ``err``
-    keeps the largest |diff| a kernel, ``spent[0]`` the seconds the checks
-    took. Returns the function that unwraps."""
+    plain version's bf16-vs-fp32 gap. ``exact``: in fp32 only (the path's
+    dtype), #7, #8 and #9 with the fp64 plain version beside them
+    (``_hold_exact``), and on the first full #7 shape two wrong kernels
+    that the hold must reject. These launches do not count; ``err`` keeps
+    the largest |diff| a kernel, ``spent[0]`` the seconds the checks took.
+    Returns the function that unwraps."""
     import dataclasses
     from moco_flow_tpu_torch.ops import fused_mlp as fm
     from moco_flow_tpu_torch.ops import nof_rays as nf
@@ -2251,8 +2361,14 @@ def _hold_launches(err: dict, tag: str, where: str, spent: list):
               "nerf_mlp": fm._nerf_launch, "nof_mlp": fm._nof_launch}
     seen = set()
 
-    def hold(key, name, what, run):
-        """``run(dt)`` -> (kernel output, plain output), once a key."""
+    dtypes = (("fp32", None),) if exact else (("fp32", None),
+                                               ("bf16", torch.bfloat16))
+
+    def hold(key, name, what, run, run64=None, parts=None, mutants=()):
+        """``run(dt)`` -> (kernel output, plain output), once a key;
+        ``run64()`` -> the plain version in fp64, ``parts(x)`` -> {part:
+        x's part, samples last} for ``_hold_exact``; ``mutants``: (what,
+        run(dt)) of wrong kernels that the exact hold must reject."""
         if key in seen:
             return
         seen.add(key)
@@ -2261,16 +2377,42 @@ def _hold_launches(err: dict, tag: str, where: str, spent: list):
         saved = {k: f.launches for k, f in counters.items()}
         try:
             got = {}
-            for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+            for dname, dt in dtypes:
                 ko, po = run(dt)
                 torch.cuda.synchronize()
                 atol, rtol = TOL[dname]
-                e = check_close(f"{tag} {what} {dname}", ko, po, atol, rtol)
+                if exact and run64 is not None:
+                    p64 = parts(run64())
+
+                    def held(k, p):
+                        return {n: (k[n], p[n], p64[n]) for n in p64}
+                    e = _hold_exact(f"{tag} {what} {dname}",
+                                    held(parts(ko), parts(po)), atol, rtol)
+                    for wrong, run_wrong in mutants:
+                        try:
+                            _hold_exact(f"{tag} {what} {dname} ({wrong})",
+                                        held(parts(run_wrong(dt)),
+                                             parts(po)), atol, rtol)
+                        except AssertionError as ex:
+                            log(f"{tag} the exact hold rejects a kernel "
+                                f"with {wrong}: {ex}")
+                        else:
+                            raise AssertionError(
+                                f"{tag} {what}: the exact hold passed a "
+                                f"kernel with {wrong}")
+                else:
+                    e = check_close(f"{tag} {what} {dname}", ko, po, atol,
+                                    rtol)
                 err[name] = max(err.get(name, 0.0), e)
                 got[dname] = (po, e)
         finally:
             for k, f in counters.items():
                 f.launches = saved[k]
+        spent[0] += time.time() - t
+        if exact:
+            log(f"{tag} kernel vs plain at {where} {what}: max|d| fp32 "
+                f"{got['fp32'][1]:.3e}")
+            return
         gap = (got["bf16"][0] - got["fp32"][0]).abs().max().item()
         if not got["bf16"][1] <= gap:
             raise AssertionError(
@@ -2279,20 +2421,52 @@ def _hold_launches(err: dict, tag: str, where: str, spent: list):
         log(f"{tag} kernel vs plain at {where} {what}: max|d| fp32 "
             f"{got['fp32'][1]:.3e}, bf16 {got['bf16'][1]:.3e} (the plain "
             f"version's bf16-vs-fp32 gap {gap:.3e})")
-        spent[0] += time.time() - t
+
+    def pass_parts(x):
+        return {"sigma": x[0]} if x.shape[0] == 1 else {"sigma": x[0],
+                                                        "rgb": x[1:]}
 
     def pass_launch(op, rays_o, rays_d, z_vals):
         def run(dt):
             o = dataclasses.replace(op, dtype=dt or torch.float32)
             ks, kr = launch["pass"](o, rays_o, rays_d, z_vals)
             ps, pr = rpm._pass_ref(o, rays_o, rays_d, z_vals)
-            return ((ks, ps) if kr is None else
+            return ((ks[None], ps[None]) if kr is None else
                     (torch.cat([ks[None], kr]), torch.cat([ps[None], pr])))
+
+        def run64():
+            s64, r64 = _pass_ref64(op, rays_o, rays_d, z_vals)
+            return s64[None] if r64 is None else torch.cat([s64[None], r64])
+
+        def wrong(changes):
+            ws = list(op.nerf_ws)
+            for i, f in changes.items():
+                ws[i] = f(ws[i])
+
+            def k(dt):
+                o = dataclasses.replace(op, nerf_ws=ws,
+                                        dtype=dt or torch.float32)
+                ks, kr = launch["pass"](o, rays_o, rays_d, z_vals)
+                return torch.cat([ks[None], kr])
+            return k
         n, s = z_vals.shape
         sigma_only, nof = op.nerf.sigma_only, op.nof is not None
-        hold(("pass", n, s, sigma_only, nof), "render_pass",
+        key = ("pass", n, s, sigma_only, nof)
+        mutants = ()
+        if exact and not sigma_only and "mutants" not in seen \
+                and key not in seen:
+            # once: the second trunk layer's weights off by 1e-3 of
+            # themselves; the rgb head's red and green swapped
+            seen.add("mutants")
+            swap = [1, 0, 2]
+            mutants = (("trunk layer 1's weights x (1 + 1e-3)",
+                        wrong({2: lambda w: w * (1 + 1e-3)})),
+                       ("the rgb head's red and green swapped",
+                        wrong({-2: lambda w: w[:, swap],
+                               -1: lambda b: b[:, swap]})))
+        hold(key, "render_pass",
              f"render_pass N={n} S={s} {'sigma-only' if sigma_only else 'full'}"
-             f"{' nof' if nof else ''}", run)
+             f"{' nof' if nof else ''}", run, run64, pass_parts, mutants)
         return launch["pass"](op, rays_o, rays_d, z_vals)
 
     def nof_launch(spec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw,
@@ -2307,19 +2481,38 @@ def _hold_launches(err: dict, tag: str, where: str, spent: list):
         return launch["nof"](spec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw,
                              entry=entry)
 
+    def mlp_parts(net):
+        def f(x):
+            if net == "nof":
+                return {"warp": x.T}
+            if x.shape[1] == 1:
+                return {"sigma": x.T}
+            return {"sigma": x[:, 3:].T, "rgb": x[:, :3].T}
+        return f
+
     def mlp_launch(net):
         plain = fm._nerf_pallas_ref if net == "nerf" else fm._nof_pallas_ref
 
         def f(cfg, dt, *args):
             held = [a.detach().float() if torch.is_tensor(a) else a
                     for a in args]
+
+            def run64():
+                mm = fm.matmul
+                fm.matmul = lambda x, w, dt=None: x.double() @ w.double()
+                try:
+                    return plain(cfg, None, *[
+                        a.double() if torch.is_tensor(a) else a
+                        for a in held]).double()
+                finally:
+                    fm.matmul = mm
             what = f"{net} rows={args[0].shape[0]}" + (
                 f" {'sigma-only' if args[2] else 'full'}" if net == "nerf"
                 else "")
             hold((net, args[0].shape[0]) + ((args[2],) if net == "nerf"
                                             else ()), f"{net}_pallas", what,
                  lambda d: (launch[f"{net}_mlp"](cfg, d, *held),
-                            plain(cfg, d, *held)))
+                            plain(cfg, d, *held)), run64, mlp_parts(net))
             return launch[f"{net}_mlp"](cfg, dt, *args)
         return f
 
@@ -2896,9 +3089,10 @@ def phase_cli(card: str) -> dict:
                 if not len(v) or not np.isfinite(v).all():
                     raise AssertionError(f"{impl}: mesh {mesh} empty or "
                                          "non-finite")
-                if "--eval_metrics" in argv and not np.isfinite(
-                        tt.metrics["psnr"]):
-                    raise AssertionError(f"{impl}: metrics {tt.metrics}")
+                if "--eval_metrics" in argv:
+                    if not np.isfinite(tt.metrics["psnr"]):
+                        raise AssertionError(f"{impl}: metrics {tt.metrics}")
+                    result.setdefault("metrics", {})[impl] = tt.metrics
                 result["walls"][f"test {impl} {len(result['walls'])}"] = wall
                 log(f"[20 cli] python -m moco_flow_tpu_torch.test "
                     f"{' '.join(argv[2:])} ({impl}): {wall:.1f} s, mesh "
@@ -2927,6 +3121,340 @@ def phase_cli(card: str) -> dict:
         f"{time.time() - t_phase:.1f} s, of which {spent[0]:.1f} s held the "
         f"kernels against their plain versions, on {card}")
     return result
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: occupancy-grid skipping and the packed stream of views
+# ---------------------------------------------------------------------------
+
+OCC_RES, OCC_SUPERSAMPLE, OCC_THRESHOLD = 192, 2, 5.0   # bench.py's grid
+OCC_VIEWS = 16
+OCC_PALLAS_VIEWS = 4     # of the orbit, packed vs a view at a time on #8/#9
+OCC_SCALE = 4            # frame_rays_scaled: 1024^2 from the 256^2 camera
+OCC_CLI_RES = 64
+# scripts/bench_occupancy.py's distill_sharp_field target and schedule
+FIT = {"steps": 400, "lr": 3e-3, "sigma_in": 150.0, "sigma_out": -20.0,
+       "shell": 0.15}
+
+
+def occupancy_config() -> dict:
+    """Phase 5's stage-3 model as c2f.yaml runs it (fp32, 'xla': the fused
+    route), with occupancy skipping at bench.py's grid."""
+    cfg = slice_config()
+    cfg["model"].update(compute_dtype="float32", mlp_impl="xla",
+                        occ_res=OCC_RES, occ_supersample=OCC_SUPERSAMPLE,
+                        occ_threshold=OCC_THRESHOLD)
+    return cfg
+
+
+def fit_body_field(tr, verts: torch.Tensor, steps: int, lr: float,
+                   sigma_in: float, sigma_out: float, shell: float) -> float:
+    """Scaffolding, not a feature of the package: the fine NeRF regressed
+    to a body-shaped field, then copied into the coarse one
+    (scripts/bench_occupancy.py's distill_sharp_field in plain torch): raw
+    sigma ``sigma_in`` within ``shell`` of the body's vertices and
+    ``sigma_out`` elsewhere, rgb the position colormap; each step's 16384
+    points a third uniform in the cube, a third around the vertices
+    (sigma 0.3), a third in the shell; Adam; c2f annealing off, so the
+    renders evaluate the function that was fitted. A fresh NeRF's field is
+    near flat and has no empty space to skip. Returns the last loss."""
+    import copy
+    from moco_flow_tpu_torch.nn.nerf import nerf_apply
+    from moco_flow_tpu_torch.train.checkpoint import _flatten
+    tr.c2f = False
+    statics, dev = tr.statics, tr.device
+    cfg = statics.fine
+    net = tr.params["fine_NeRF"]
+    leaves = list(_flatten(net, leaf=lambda t: t).values())
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.Adam(leaves, lr=lr)
+    lo, hi = verts.min(0).values, verts.max(0).values
+    ind = embed_padded(torch.zeros((1, 1), device=dev), statics.nerf_ind,
+                       cfg.extra_feat_dim)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def pick(n):
+        return verts[torch.randint(0, verts.shape[0], (n,), device=dev,
+                                   generator=gen)]
+    for _ in range(steps):
+        x = torch.cat([
+            torch.rand((5462, 3), device=dev, generator=gen) * 3.0 - 1.5,
+            torch.randn((5462, 3), device=dev, generator=gen) * 0.3
+            + pick(5462),
+            torch.randn((5460, 3), device=dev, generator=gen) * (shell / 3)
+            + pick(5460)])
+        out = nerf_apply(net, embed_padded(x, statics.nerf_xyz,
+                                           cfg.in_channels_xyz),
+                         ind.expand(x.shape[0], -1), cfg)
+        near = torch.cdist(x, verts).min(dim=1).values < shell
+        t_sig = torch.where(near, sigma_in, sigma_out)
+        t_rgb = ((x - lo) / (hi - lo + 1e-6)).clamp(0.0, 1.0)
+        loss = (((out[:, 3] - t_sig) / 50.0) ** 2).mean() \
+            + ((out[:, :3] - t_rgb) ** 2).mean()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    for t in leaves:
+        t.requires_grad_(False)
+    tr.params["coarse_NeRF"] = copy.deepcopy(net)
+    return float(loss.detach())
+
+
+def _event_ms(fn) -> tuple:
+    """(fn's result, its ms between two CUDA events)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def _same_bits(tag: str, got: list, want: list) -> None:
+    for i, (a, b) in enumerate(zip(got, want)):
+        if set(a) != set(b):
+            raise AssertionError(f"{tag}: view {i} keys {set(a)} {set(b)}")
+        for k in a:
+            if not torch.equal(a[k], b[k]):
+                d = (a[k] - b[k]).abs().max().item()
+                raise AssertionError(f"{tag}: view {i} {k} differs, max "
+                                     f"|d| {d:.3e}")
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} views, {len(want)} wanted")
+
+
+def _psnr(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(-10.0 * torch.log10(((a - b) ** 2).mean()))
+
+
+def phase_occupancy(card: str) -> dict:
+    """Occupancy skipping on a body-shaped field at c2f.yaml's widths: the
+    grids' build times (canonical, frame 0 direct and warp), a view's
+    tighten, a 256^2 frame exact and with occupancy (and with occ_tighten 0
+    its kept rays equal to the exact render's bits), a 16-view orbit packed
+    against a view at a time (equal bits), a 1024^2 frame_rays_scaled view;
+    4 of the orbit's views packed against a view at a time under
+    mlp_impl: pallas (equal bits); #3/#7/#8/#9 held against their plain
+    versions on each first shape."""
+    import dataclasses
+    from moco_flow_tpu_torch.geometry.smpl import synthetic_smpl_data
+    from moco_flow_tpu_torch.render.occupancy import build_occupancy_grid
+    from moco_flow_tpu_torch.train.stage_mocoflow import MoCoFlowTrainer
+    t_phase = time.time()
+    smpl = synthetic_smpl_data(6890)
+    scene = make_synthetic_scene(None, n_frames=8, size=256, focal=300.0,
+                                 smpl=smpl)
+    cfg = occupancy_config()
+    tr = MoCoFlowTrainer(cfg, device=DEVICE, seed=0, scene=scene)
+    tr.build_model(cfg["model"])
+    tr.prepare_dataloader(cfg["dataloader"])
+    ds = tr.val_dataset
+    verts = torch.as_tensor(ds._verts[0], dtype=torch.float32,
+                            device=DEVICE)
+    t = time.time()
+    loss = fit_body_field(tr, verts, **FIT)
+    torch.cuda.synchronize()
+    log(f"[21 occupancy] body field: c2f widths, fine NeRF fitted to sigma "
+        f"{FIT['sigma_in']:g} within {FIT['shell']} of the {len(verts)} "
+        f"vertices, {FIT['sigma_out']:g} elsewhere, {FIT['steps']} Adam "
+        f"steps at lr {FIT['lr']:g}: loss {loss:.4f}, "
+        f"{time.time() - t:.1f} s (scaffolding)")
+    out = {}
+    rcfg, anneal = tr.rcfg_test, tr.anneal()
+    rays = ds.frame_rays(0)
+    n, side = rays.shape[0], ds.size[0]
+    white = torch.ones((n, 3), device=DEVICE)
+    extent = tr._occ_auto_extent(0)
+    occ_kw = dict(resolution=OCC_RES, supersample=OCC_SUPERSAMPLE,
+                  threshold=OCC_THRESHOLD, extent=extent)
+    err, spent = {}, [0.0]
+    unwrap = _hold_launches(err, "[21 occupancy]", "the occupancy path's",
+                            spent, exact=True)
+
+    def body():
+        # the grids: warm at 16^3 (every launch shape), then timed
+        small = dict(occ_kw, resolution=16)
+        cano16 = build_occupancy_grid(tr, -1, **small)
+        build_occupancy_grid(tr, 0, **small)
+        build_occupancy_grid(tr, 0, builder="warp", cano_grid=cano16,
+                             **small)
+        cano, ms_c = _event_ms(lambda: build_occupancy_grid(tr, -1,
+                                                            **occ_kw))
+        direct, ms_d = _event_ms(lambda: build_occupancy_grid(tr, 0,
+                                                              **occ_kw))
+        warp, ms_w = _event_ms(lambda: build_occupancy_grid(
+            tr, 0, builder="warp", cano_grid=cano, **occ_kw))
+        fr = {k: g.occupancy_fraction for k, g in
+              (("canonical", cano), ("direct", direct), ("warp", warp))}
+        if not all(0 < f < 1 for f in fr.values()):
+            raise AssertionError(f"occupied fractions {fr}")
+        # the pullback's lattice-empirical gap: direct cells it misses
+        gap = int((direct.occ & ~warp.occ).sum())
+        out.update(grid_ms={"canonical": ms_c, "direct": ms_d,
+                            "warp": ms_w}, occupied=fr, warp_misses=gap)
+        log(f"[21 occupancy] grids at {OCC_RES}^3 (supersample "
+            f"{OCC_SUPERSAMPLE}, extent {extent:.4f}): canonical "
+            f"{ms_c:.1f} ms, frame 0 direct {ms_d:.1f} ms, frame 0 warp "
+            f"{ms_w:.1f} ms (CUDA events); occupied {json.dumps(fr)}; "
+            f"{gap} cells occupied in the direct grid but not in the warp "
+            f"grid, on {card}")
+        tr._occ_grids.update({-1: cano, 0: direct})
+        # a view's tighten
+        tr.tighten_rays(rays, 0)
+        _, ms_t = _event_ms(lambda: tr.tighten_rays(rays, 0))
+        st = tr._occ_stats
+        out.update(tighten_ms=ms_t, empty_frac=float(st["empty_frac"]),
+                   range_ratio=float(st["range_ratio"]),
+                   kept=int(st["kept_count"]))
+        log(f"[21 occupancy] tighten of a {side}^2 view: {ms_t:.2f} ms, "
+            f"coarse {st['coarse']}, n_probe {st['n_probe']}, empty_frac "
+            f"{out['empty_frac']:.4f}, range_ratio {out['range_ratio']:.4f}"
+            f", {out['kept']} rays kept, on {card}")
+        if not 0 < out["empty_frac"] < 1:
+            raise AssertionError(f"empty_frac {out['empty_frac']}")
+        # a 256^2 frame, exact and with occupancy
+        exact_fn = lambda: tr.render_rays_chunked(  # noqa: E731
+            rays, white, rcfg, anneal=anneal)
+        occ_fn = lambda: tr.commit_view(  # noqa: E731
+            tr.prepare_view(rays, 0), white, rcfg, anneal=anneal)
+        exact_fn()
+        exact, ms_e = _event_ms(exact_fn)
+        occ_fn()
+        frame, ms_o = _event_ms(occ_fn)
+        psnr = _psnr(frame["rgb_fine"], exact["rgb_fine"])
+        out.update(frame_exact_ms=ms_e, frame_occ_ms=ms_o, psnr=psnr)
+        log(f"[21 occupancy] {side}^2 frame ({n} rays, {rcfg.n_samples}+"
+            f"{rcfg.n_importance}, fp32): "
+            f"exact {ms_e:.1f} ms, with occupancy {ms_o:.1f} ms; PSNR of "
+            f"the occupancy frame against the exact one {psnr:.2f} dB, on "
+            f"{card}")
+        if not psnr >= 30.0:   # inf where the frames are equal
+            raise AssertionError(f"occupancy frame PSNR {psnr} dB")
+        # occ_tighten 0: every kept ray renders the exact render's bits
+        tr.config["model"]["occ_tighten"] = 0
+        try:
+            same = occ_fn()
+            keep = tr.occ_keep_mask()
+        finally:
+            tr.config["model"]["occ_tighten"] = 1
+        for k in ("rgb_fine", "opacity_fine"):
+            if not torch.equal(same[k][keep], exact[k][keep]):
+                raise AssertionError(f"occ_tighten 0: kept rays' {k} differ "
+                                     "from the exact render")
+        log(f"[21 occupancy] occ_tighten 0: the {int(keep.sum())} kept "
+            "rays' rgb and opacity equal the exact render's bits")
+        # a 16-view orbit of frame 0: packed against a view at a time
+        poses = ds.spherical_poses[::len(ds.spherical_poses) // OCC_VIEWS]
+        jobs = [(ds.frame_rays(0, c2w4=p), 0, white,
+                 ds.frame_mask(0, c2w4=p)) for p in poses[:OCC_VIEWS]]
+
+        def packed(views):
+            return list(tr.render_views_pipelined(views, rcfg,
+                                                  anneal=anneal))
+
+        def per_view(views):
+            return [tr.commit_view(tr.prepare_view(r, f, extra_mask=m), bg,
+                                   rcfg, anneal=anneal)
+                    for r, f, bg, m in views]
+        packed(jobs[:2])   # warm
+        per_view(jobs[:2])
+        got, ms_p = _event_ms(lambda: packed(jobs))
+        want, ms_v = _event_ms(lambda: per_view(jobs))
+        _same_bits("packed vs a view at a time", got, want)
+        kept = sum(int(tr.prepare_view(r, f, extra_mask=m)[3])
+                   for r, f, _, m in jobs)
+        out.update(packed_ms_a_view=ms_p / len(jobs),
+                   per_view_ms_a_view=ms_v / len(jobs), orbit_kept=kept)
+        log(f"[21 occupancy] {len(jobs)}-view orbit of frame 0 at {side}^2 "
+            f"({kept} kept rays in all): packed {ms_p / len(jobs):.1f} ms a "
+            f"view, a view at a time {ms_v / len(jobs):.1f} ms a view; "
+            f"equal to the bit, on {card}")
+        # the same under mlp_impl: pallas (#8 / #9 a packed segment)
+        rp = dataclasses.replace(rcfg, mlp_impl="pallas")
+        few = jobs[:OCC_PALLAS_VIEWS]
+        packed_p = lambda: list(tr.render_views_pipelined(  # noqa: E731
+            few, rp, anneal=anneal))
+        per_view_p = lambda: [tr.commit_view(  # noqa: E731
+            tr.prepare_view(r, f, extra_mask=m), bg, rp, anneal=anneal)
+            for r, f, bg, m in few]
+        _same_bits("pallas: packed vs a view at a time", packed_p(),
+                   per_view_p())   # the first launch of each shape held
+        _, ms_pp = _event_ms(packed_p)
+        _, ms_pv = _event_ms(per_view_p)
+        out.update(pallas_packed_ms_a_view=ms_pp / len(few),
+                   pallas_per_view_ms_a_view=ms_pv / len(few))
+        log(f"[21 occupancy] mlp_impl pallas, {len(few)} of the orbit's "
+            f"views: packed {ms_pp / len(few):.1f} ms a view, a view at a "
+            f"time {ms_pv / len(few):.1f} ms a view; equal to "
+            f"the bit, on {card}")
+        # one 1024^2 view of frame_rays_scaled
+        big = ds.frame_rays_scaled(0, OCC_SCALE)
+        mask = ds.frame_mask(0, scale=OCC_SCALE)
+        res, ms_s = _event_ms(lambda: tr.commit_view(
+            tr.prepare_view(big, 0, extra_mask=mask), torch.ones(
+                (big.shape[0], 3), device=DEVICE), rcfg, anneal=anneal))
+        rgb = res["rgb_fine"]
+        if rgb.shape != (big.shape[0], 3) or not torch.isfinite(rgb).all():
+            raise AssertionError(f"scaled view: {tuple(rgb.shape)}")
+        out.update(scaled_ms=ms_s,
+                   scaled_kept=int(tr._occ_keep.sum()))
+        log(f"[21 occupancy] one {side * OCC_SCALE}^2 frame_rays_scaled view "
+            f"with occupancy: {ms_s:.1f} ms, {int(mask.sum())} rays in the "
+            f"hull, {out['scaled_kept']} kept by the grid, on {card}")
+
+    try:
+        _, launches = _count_launches(body)
+    finally:
+        unwrap()
+    out.update(err=err, launches=launches)
+    log(f"[21 occupancy] launches {json.dumps(launches)}; phase "
+        f"{time.time() - t_phase:.1f} s, of which {spent[0]:.1f} s held the "
+        f"kernels against their plain versions, on {card}")
+    return out
+
+
+def phase_occ_cli(card: str, cli: dict) -> dict:
+    """``moco_flow_tpu_torch.test.main --occ_res`` on phase 20's stage-3
+    final, --render_frame 0 and --eval_metrics, on both routes."""
+    from moco_flow_tpu_torch.test import main as test_main
+    t_phase = time.time()
+    launches = {k: 0 for k in _kernel_counters()}
+    err, spent = {}, [0.0]
+    unwrap = _hold_launches(err, "[21 occupancy cli]", "a view's", spent)
+    try:
+        for impl in ("xla", "pallas"):
+            out = os.path.join(CLI_DIR, f"occ_{impl}")
+            argv = ["-c", os.path.join(CLI_DIR, f"test_{impl}.yaml"),
+                    "--render_gt", "--reso", str(CLI_RESO), "-s", "0",
+                    "--device", DEVICE, "--out_dir", out, "--occ_res",
+                    str(OCC_CLI_RES), "--render_frame", "0",
+                    "--eval_metrics"]
+            t = time.time()
+            tt, got = _count_launches(lambda: test_main(argv))
+            wall = time.time() - t
+            for k, v in got.items():
+                launches[k] += v
+            m = tt.metrics
+            files = [f for _, _, fs in os.walk(out) for f in fs]
+            if not np.isfinite(m["psnr"]) or files != ["frame_0.png"] or \
+                    tt._occ_stats is None:
+                raise AssertionError(f"occ {impl}: metrics {m}, files "
+                                     f"{files}")
+            log(f"[21 occupancy cli] python -m moco_flow_tpu_torch.test "
+                f"{' '.join(argv[2:])} ({impl}): {wall:.1f} s, metrics "
+                f"{json.dumps(m)} (without --occ_res "
+                f"{json.dumps(cli['metrics'][impl])}), empty_frac of the "
+                f"last frame {float(tt._occ_stats['empty_frac']):.4f}, "
+                f"launches {json.dumps({k: v for k, v in got.items() if v})}"
+                f" on {card}")
+            del tt
+    finally:
+        unwrap()
+    log(f"[21 occupancy cli] phase {time.time() - t_phase:.1f} s, of which "
+        f"{spent[0]:.1f} s held the kernels")
+    return {"err": err, "launches": launches}
 
 
 def main():
@@ -2969,6 +3497,10 @@ def main():
     torch.cuda.synchronize()
     cli = phase_cli(card)
     torch.cuda.synchronize()
+    occ = phase_occupancy(card)
+    torch.cuda.synchronize()
+    occ_cli = phase_occ_cli(card, cli)
+    torch.cuda.synchronize()
     fine = k["times"]["fine S=256 N=4096 nof bf16"]
     n_fine = 4096 * 256
     rp_work = (2 * (NERF_MACS + NOF_MACS) * n_fine,
@@ -2977,7 +3509,12 @@ def main():
     log(f"[3 kernel vs plain] render_pass bound at fine S=256 N=4096 nof: "
         f"bf16 {rp_bound:.4f} ms, fp32 {bound_ms(*rp_work, 'fp32')[0]:.4f} ms "
         f"({rp_by}: {rp_work[0] / 1e12:.3f} TFLOP)")
-    cl, ce = cli["launches"], cli["err"]
+    # the CLI paths of phases 20 and 21 and phase 21's occupancy path
+    cl = {k: cli["launches"][k] + occ["launches"][k]
+          + occ_cli["launches"][k] for k in cli["launches"]}
+    ce = {k: max(d.get(k, 0.0) for d in (cli["err"], occ["err"],
+                                         occ_cli["err"]))
+          for k in cl}
     kernels = [{
         "name": "render_pass", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": launches + cl["render_pass"],

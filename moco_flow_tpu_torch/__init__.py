@@ -9,13 +9,14 @@ stage 2's NoF pretraining, the stage 1/2 -> 3 hand-over and the stage-3
 step in every NoF phase), the run's surface (``utils/config.py``'s YAML
 reader and experiment layout, ``utils/logging.py``'s ``log.txt`` and
 ``metrics.jsonl``), visualisation and mesh extraction (``train/vis.py``,
-``ops/mcubes.py``), LPIPS (``nn/lpips.py``) and every ``test.py`` mode but
-occupancy, on both of the JAX package's kernel routes: the whole-ray
-kernels (``mlp_impl`` ``fused``, ``xla`` or ``auto``) and the per-op MLPs
-(``pallas``). Each of the nine Pallas kernels is a hand-written CUDA kernel
-under ``ops/csrc/`` with its plain PyTorch version beside it. Occupancy,
-the packed stream, distillation, the hash grid and data parallelism come
-in later slices (ROADMAP.md).
+``ops/mcubes.py``), LPIPS (``nn/lpips.py``), occupancy-grid empty-space
+skipping and the packed stream of views (``render/occupancy.py``,
+``render/packed.py``) and every ``test.py`` mode, on both of the JAX
+package's kernel routes: the whole-ray kernels (``mlp_impl`` ``fused``,
+``xla`` or ``auto``) and the per-op MLPs (``pallas``). Each of the nine
+Pallas kernels is a hand-written CUDA kernel under ``ops/csrc/`` with its
+plain PyTorch version beside it. Distillation, the hash grid and data
+parallelism come in later slices (ROADMAP.md).
 
 It never imports ``jax`` or ``moco_flow_tpu``, nor ``yaml``, ``PIL``,
 ``cv2`` or ``imageio``: YAML, PNG and the JET colour table are its own

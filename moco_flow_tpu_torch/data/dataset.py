@@ -262,12 +262,40 @@ class MoCoFlowDataset:
         norm_idx = idx * 2.0 / self.num_frames - 1.0
         return self.camera.make_rays(corners, pose, norm_idx)
 
-    def frame_mask(self, idx: int, c2w4: np.ndarray | None = None):
+    def frame_mask(self, idx: int, c2w4: np.ndarray | None = None,
+                   scale: int = 1):
         """(H*W,) bool: the pixels inside the projected AABB hull of one
         frame (or of the novel view ``c2w4``), the mask that JAX's
-        ``frame_rays`` returns beside the rays."""
+        ``frame_rays`` returns beside the rays; at ``scale`` x the size,
+        that of ``frame_rays_scaled``."""
         pose = self.frame_c2w4(idx) if c2w4 is None else np.asarray(c2w4)
-        return self.camera.valid_rays_mask(self.frame_aabb_corners(idx), pose)
+        return self._camera(scale).valid_rays_mask(
+            self.frame_aabb_corners(idx), pose)
+
+    def _camera(self, scale: int) -> Camera:
+        """The camera at ``scale`` x the dataset size (intrinsics scaled),
+        one a scale."""
+        if scale == 1:
+            return self.camera
+        cams = self.__dict__.setdefault("_scaled_cams", {})
+        if scale not in cams:
+            k = np.asarray(self.camera.K, np.float64).copy()
+            k[0, :] *= scale
+            k[1, :] *= scale
+            cams[scale] = Camera((self.size[0] * scale,
+                                  self.size[1] * scale), k)
+        return cams[scale]
+
+    def frame_rays_scaled(self, idx: int, scale: int,
+                          c2w4: np.ndarray | None = None) -> torch.Tensor:
+        """:meth:`frame_rays` at ``scale`` x the dataset size, from the same
+        camera with its intrinsics scaled: production frame sizes without
+        decoding images (no GT pairs with them). The mask is
+        ``frame_mask(idx, c2w4, scale)``."""
+        pose = self.frame_c2w4(idx) if c2w4 is None else np.asarray(c2w4)
+        return self._camera(scale).make_rays(
+            self.frame_aabb_corners(idx), pose,
+            idx * 2.0 / self.num_frames - 1.0)
 
     def frame_rgbs(self, idx: int, bkgd: torch.Tensor | None = None):
         """Composited (H*W, 3) target image of one frame, or None."""

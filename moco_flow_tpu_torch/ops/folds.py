@@ -5,7 +5,10 @@ Port of the folds of ``moco_flow_tpu/ops/megakernel.py``:
 - ``_nerf_fold`` / ``_nof_fold`` fold the PE annealing weights into the
   first-layer and skip-layer weight rows (packed as one ``(3+2kc, W)``
   matrix against the ``[x; sin; cos]`` embedding) and apply the per-ray
-  features (frame-index embeddings) at ray rank as fp32 "partials".
+  features (frame-index embeddings) at ray rank as fp32 "partials",
+  in GEMMs of one shape (``_rows_matmul``), so that a ray's bits do not
+  depend on the other rays of the call (the packed stream of views and
+  ``occ_tighten: 0`` rest on it).
   Both are plain differentiable torch code: the gradients to the model's
   parameters and to the embeddings come from autograd through them, as
   JAX's come through its folds.
@@ -23,12 +26,12 @@ import numpy as np
 import torch
 
 from ..nn.embedding import freq_bands
-from ..nn.mlp import matmul
 from ..nn.nerf import NeRFConfig
 from ..nn.nof import NoFConfig
 
 _MAX_LAYERS = 16   # csrc/render_pass.cu kMaxLayers
 _MAX_WIDTH = 256   # csrc/pass_tile.cuh kMaxWidth
+ROW_TILE = 4096    # rows of every GEMM of the per-ray partials
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +87,20 @@ def _pe_rows(w: torch.Tensor, kc: int, w_rep):
     return torch.cat([wx, wsin, wcos], dim=0)
 
 
+def _rows_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in fp32 as GEMMs of one shape, ``ROW_TILE`` rows each (the
+    last padded with zeros), so a row's bits do not depend on how many rows
+    the call has: a BLAS picks its kernel, and with it the order of the
+    sum, from the shape."""
+    n = x.shape[0]
+    x, w = x.float(), w.float()
+    if n == 0:
+        return x.new_zeros((0, w.shape[1]))
+    xp = torch.cat([x, x.new_zeros((-n % ROW_TILE, x.shape[1]))])
+    return torch.cat([xp[i:i + ROW_TILE] @ w
+                      for i in range(0, xp.shape[0], ROW_TILE)])[:n]
+
+
 def _nerf_fold(params: dict, cfg: NeRFConfig, n_freqs: int,
                anneal: torch.Tensor | None, extra_emb: torch.Tensor | None,
                sigma_only: bool):
@@ -108,7 +125,7 @@ def _nerf_fold(params: dict, cfg: NeRFConfig, n_freqs: int,
         we, be = params["extra"]["w"], params["extra"]["b"]
         if extra_emb is not None:
             ws += [we[:cfg.width], be[None]]
-            p_extra = matmul(extra_emb, we[cfg.width:])          # (N, W/2)
+            p_extra = _rows_matmul(extra_emb, we[cfg.width:])  # (N, W/2)
         else:
             ws += [we, be[None]]
         ws += [params["rgb"]["w"], params["rgb"]["b"][None]]
@@ -127,10 +144,10 @@ def _nof_fold(params: dict, cfg: NoFConfig, n_freqs: int,
         w, b = layer["w"], layer["b"]
         if i == 0:
             ws += [_pe_rows(w[:cx], kc, w_rep), b[None]]
-            partials.append(matmul(ind_emb, w[cx:cx + ce]))
+            partials.append(_rows_matmul(ind_emb, w[cx:cx + ce]))
         elif i in cfg.skips:
             ws += [_pe_rows(w[:cx], kc, w_rep), w[cx + ce:], b[None]]
-            partials.append(matmul(ind_emb, w[cx:cx + ce]))
+            partials.append(_rows_matmul(ind_emb, w[cx:cx + ce]))
         else:
             ws += [w, b[None]]
     ws += [params["head"]["w"], params["head"]["b"][None]]

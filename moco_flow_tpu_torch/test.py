@@ -6,7 +6,7 @@
         [--render_bullet_time [--bullet_time_frame F]] \
         [--extract_mesh [--mesh_frame F] [--N_grid N] [--sigma_threshold T]] \
         [--render_frame F] [--eval_metrics [--eval_max_frames K]] \
-        [--out_dir DIR] [--device cuda|cpu]
+        [--occ_res N] [--out_dir DIR] [--device cuda|cpu]
 
 JAX's ``test.py`` surface through ``get_trainer``, so a checkpoint of any
 rendering stage (``nerf``, ``moco_flow``) of either package renders: the
@@ -19,7 +19,9 @@ checkpoint is ``-r`` or the experiment's newest. ``--test_json`` reads the
 sequence from that file's directory. ``model.mlp_impl`` picks the kernels
 (``train/factory.py::render_config``): ``pallas`` renders through the
 per-op MLPs #8/#9, where ``--fine_budget`` / ``--coarse_probe`` raise.
-``--occ_res`` (occupancy) raises: ROADMAP 'Modules to port' item 6.
+``--occ_res N`` sets ``model.occ_res``: every mode's views, and the frames
+of ``--eval_metrics``, render through the per-frame occupancy grid
+(``render/occupancy.py``; 0 = off; a softplus NeRF raises).
 ``test(config, args)`` takes the config as a dict or a ``Config``.
 """
 
@@ -38,18 +40,11 @@ from .train.vis import (visualize_bullet_time, visualize_frame,
                         visualize_mesh, visualize_spherical, visualize_video)
 from .utils.config import Config
 
-# test.py modes of the JAX package that wait for a later slice
-_NOT_PORTED = {"occ_res": "ROADMAP 'Modules to port' item 6"}
-
-
 def test(config, args, smpl_data=None, scene=None) -> BaseTrainer:
     """Build the model, load the checkpoint and run the requested modes.
 
     ``scene``: an in-memory ``SyntheticScene`` in place of the files under
     ``dataloader.root_dir``."""
-    for mode, item in _NOT_PORTED.items():
-        if getattr(args, mode, None):
-            raise NotImplementedError(f"--{mode} is not ported yet ({item})")
     device = getattr(args, "device", "cuda")
     require_device(device)
     config = as_config(config, args, "test")
@@ -63,6 +58,8 @@ def test(config, args, smpl_data=None, scene=None) -> BaseTrainer:
         config.raw["model"]["fine_budget"] = args.fine_budget
     if getattr(args, "coarse_probe", None) is not None:
         config.raw["model"]["coarse_probe"] = args.coarse_probe
+    if getattr(args, "occ_res", None) is not None:
+        config.raw["model"]["occ_res"] = args.occ_res
     trainer.build_model(config["model"])
     ckpt = config.resume or find_latest_checkpoint(osp.join(
         config.save_dir, config.exp_name, "*", "ckpts", "*.npz"))
@@ -129,7 +126,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="strided coarse probe size, must divide N_samples "
                         "(0/absent = exact)")
     p.add_argument("--occ_res", default=None, type=int,
-                   help=f"not ported yet ({_NOT_PORTED['occ_res']})")
+                   help="occupancy grid resolution: skip the rays it proves "
+                        "empty and tighten the others (0/absent = off)")
     p.add_argument("--eval_metrics", action="store_true",
                    help="mean PSNR / SSIM / DSSIM (and LPIPS with "
                         "$LPIPS_WEIGHTS_NPZ) over the val sequence")

@@ -67,10 +67,6 @@ def render_config(model_cfg: dict, use_nof: bool = False,
                   chain_local: bool = False, chain_global: bool = False,
                   test_time: bool = False, perturb=None,
                   compute_dtype: str | None = None) -> RenderConfig:
-    if int(model_cfg.get("occ_res", 0)) > 0:
-        raise NotImplementedError(
-            "occupancy-grid skipping (occ_res > 0) is not ported yet "
-            "(ROADMAP 'Modules to port' item 6); set occ_res: 0")
     impl = model_cfg.get("mlp_impl", "auto")
     if impl in ("fused_nof", "fused_nerf"):
         raise NotImplementedError(

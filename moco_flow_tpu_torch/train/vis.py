@@ -4,9 +4,12 @@ Port of ``moco_flow_tpu/train/vis.py`` (its views, ``sigma_grid`` and
 ``visualize_mesh``): GT | pred | depth frame strips (with a novel view),
 spherical-orbit, per-frame and bullet-time views, and sigma-grid
 marching-cubes meshes, canonical or warped into a posed frame by the bw NoF
-(kernel #3 on the card). Views render through the trainer's
+(kernel #3 on the card), and the occupancy grids' sigma lattices
+(``grid_sig_device``, ``outer_bound_device``, ``warp_grid_device``, built on
+the device for ``render/occupancy.py``). Views render through the trainer's
 ``render_views_pipelined``, as in JAX: only the rays inside the projected
-AABB hull, the background elsewhere. Frames are PNGs (``utils/image.py``);
+AABB hull (and with occupancy, those its grid keeps), the background
+elsewhere. Frames are PNGs (``utils/image.py``);
 the port has no mp4 encoder, so a video is its directory of PNGs, which
 ``log.txt`` says once a run.
 """
@@ -235,6 +238,208 @@ def sigma_grid(trainer, frame_idx: int, n_grid: int = 256,
     if clip_negative:
         sig = np.maximum(sig, 0)
     return sig.reshape(n_grid, n_grid, n_grid)
+
+
+def _norm_idx(trainer, frame_idx: int) -> torch.Tensor:
+    return torch.tensor(
+        frame_idx * 2.0 / max(getattr(trainer, "num_frames", 1), 1) - 1.0,
+        dtype=torch.float32, device=trainer.device)
+
+
+def _lattice(n: int, extent: float, chunk: int, dev, tile_fn):
+    """(n, n, n) values of ``tile_fn`` over the lattice of [-extent,
+    extent]^3 in (x, y, z) order, built on ``dev`` from the flat cell index
+    in tiles of ``chunk`` points (the last one repeating the final
+    point)."""
+    ext = torch.tensor(extent, dtype=torch.float32, device=dev)
+    step = 2.0 * ext / (n - 1)
+    tiles = -(-n ** 3 // chunk)
+    out = torch.empty(tiles * chunk, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for t in range(tiles):
+            f = torch.clamp(t * chunk + torch.arange(chunk, device=dev),
+                            max=n ** 3 - 1)
+            ijk = torch.stack([f // (n * n), (f // n) % n, f % n], dim=-1)
+            out[t * chunk:(t + 1) * chunk] = tile_fn(
+                ijk.to(torch.float32) * step - ext)
+    return out[:n ** 3].reshape(n, n, n)
+
+
+def _max_dilate(sig: torch.Tensor, steps: int) -> torch.Tensor:
+    """``steps`` 3^3 max filters, padded with -inf (JAX's reduce_window)."""
+    for _ in range(steps):
+        sig = torch.nn.functional.max_pool3d(sig[None, None], 3, 1, 1)[0, 0]
+    return sig
+
+
+def _pool(sig: torch.Tensor, r: int, s: int) -> torch.Tensor:
+    if s > 1:
+        sig = sig.reshape(r, s, r, s, r, s).amax(dim=(1, 3, 5))
+    return sig
+
+
+def _outside(sig: torch.Tensor, extent: float,
+             outer_extent: float) -> torch.Tensor:
+    """Max of an (r, r, r) lattice over the outer cube without the points
+    inside [-extent, extent]^3, as one 0-d tensor."""
+    r = sig.shape[0]
+    c = torch.from_numpy(np.abs(np.linspace(
+        -outer_extent, outer_extent, r, dtype=np.float32))).to(sig.device)
+    inside = ((c[:, None, None] <= extent) & (c[None, :, None] <= extent)
+              & (c[None, None, :] <= extent))
+    return torch.where(inside, torch.full_like(sig, -float("inf")),
+                       sig).max()
+
+
+def _grid_builders(trainer, frame_idx: int, resolution: int,
+                   supersample: int, activation: str, dilate: int,
+                   chunk: int):
+    """The occupancy grid's sigma lattice, built on the trainer's device:
+    the lattice from the flat cell index, the warp through
+    ``stage_nof.nof_points`` (kernel #3 on the card, one launch a tile), the
+    fp32 ``nerf_sigma`` of the fine NeRF (plain GEMMs, as ``sigma_grid``),
+    then max-pool, activation and dilation. Nothing is read back.
+
+    Returns ``(grid_fn, outer_fn)``:
+      grid_fn(norm_idx, extent) -> (r, r, r) float32 in (x, y, z) order,
+        the pooled, activated, dilated upper bound;
+      outer_fn(norm_idx, extent, outer_extent) -> 0-d: the largest
+        activated, dilated sigma outside [-extent, extent]^3 on an r^3
+        lattice over the outer cube.
+    """
+    params, statics = trainer.params, trainer.statics
+    anneal = trainer.anneal()
+    use_fine = "fine_NeRF" in params
+    nerf_name = "fine_NeRF" if use_fine else "coarse_NeRF"
+    nerf_cfg = statics.fine if use_fine and statics.fine else statics.coarse
+    warp = frame_idx != -1 and "bw_NoF" in params
+    dev = trainer.device
+    rcfg = RenderConfig(use_nof=True)
+
+    def raw_lattice(norm_idx, extent, n):
+        def tile(pts):
+            if warp:
+                pts = nof_points(params["bw_NoF"], statics, anneal, pts,
+                                 norm_idx, rcfg)
+            emb = encode_nerf_xyz(params[nerf_name], nerf_cfg, statics, pts,
+                                  anneal)
+            return nerf_sigma(params[nerf_name], emb, nerf_cfg)[:, 0]
+        return _lattice(n, extent, chunk, dev, tile)
+
+    def activate_dilate(sig, n_dilate):
+        sig = (torch.logaddexp(sig, torch.zeros_like(sig))
+               if activation == "softplus" else torch.clamp(sig, min=0.0))
+        return _max_dilate(sig, n_dilate)
+
+    def grid_fn(norm_idx, extent):
+        sig = raw_lattice(norm_idx, extent, resolution * supersample)
+        return activate_dilate(_pool(sig, resolution, supersample), dilate)
+
+    def outer_fn(norm_idx, extent, outer_extent):
+        sig = activate_dilate(raw_lattice(norm_idx, outer_extent,
+                                          resolution), 1)
+        return _outside(sig, extent, outer_extent)
+
+    return grid_fn, outer_fn
+
+
+def _warp_grid_builders(trainer, resolution: int, supersample: int,
+                        dilate: int, chunk: int):
+    """The warp-pullback grid (``occ_builder: warp``): a frame's bound is
+    the canonical grid's bound at the bw-warped lattice point,
+    ``sig_obs(x) = C_sig[cell(bw(x, frame))]``, one NoF evaluation and one
+    gather a point in place of the trunk. Points that warp outside the
+    canonical cube read its measured outer bound (within its shell) or
+    +inf.
+
+    Returns ``(grid_fn, outer_fn)``:
+      grid_fn(norm_idx, extent, cano) -> (r, r, r) float32
+      outer_fn(norm_idx, extent, outer_extent, cano) -> 0-d
+    with ``cano`` the canonical grid (an ``OccupancyGrid`` or
+    ``DeviceOccupancyGrid``).
+    """
+    params, statics = trainer.params, trainer.statics
+    anneal = trainer.anneal()
+    dev = trainer.device
+    rcfg = RenderConfig(use_nof=True)
+
+    def lookup_cano(y, c_sig, cano):
+        """The three-zone canonical bound (the tightener's zones)."""
+        c_r = c_sig.shape[0]
+        c_ext = torch.tensor(cano.extent, dtype=torch.float32, device=dev)
+        cell = 2.0 * c_ext / c_r
+        ids = torch.floor((y + c_ext) / cell).to(torch.int64)
+        inb = ((ids >= 0) & (ids < c_r)).all(dim=-1)
+        ids = ids.clamp(0, c_r - 1)
+        vals = c_sig.reshape(-1)[(ids[..., 0] * c_r + ids[..., 1]) * c_r
+                                 + ids[..., 2]]
+        in_shell = (y.abs() <= cano.outer_extent).all(dim=-1)
+        inf = torch.full_like(vals, float("inf"))
+        return torch.where(inb, vals, torch.where(
+            in_shell, cano.outer_sig_tensor(dev), inf))
+
+    def pullback_lattice(norm_idx, extent, n, cano):
+        c_sig = getattr(cano, "sig_dev", None)
+        if c_sig is None:
+            c_sig = torch.from_numpy(np.asarray(cano.sig, np.float32)).to(dev)
+        return _lattice(n, extent, chunk, dev, lambda pts: lookup_cano(
+            nof_points(params["bw_NoF"], statics, anneal, pts, norm_idx,
+                       rcfg), c_sig, cano))
+
+    def grid_fn(norm_idx, extent, cano):
+        sig = pullback_lattice(norm_idx, extent, resolution * supersample,
+                               cano)
+        # the canonical bound is already activated
+        return _max_dilate(_pool(sig, resolution, supersample), dilate)
+
+    def outer_fn(norm_idx, extent, outer_extent, cano):
+        sig = _max_dilate(pullback_lattice(norm_idx, outer_extent,
+                                           resolution, cano), 1)
+        return _outside(sig, extent, outer_extent)
+
+    return grid_fn, outer_fn
+
+
+def warp_grid_device(trainer, frame_idx: int, resolution: int, cano_grid,
+                     supersample: int = 2, extent: float = 1.5,
+                     dilate: int = 1, chunk: int = 131072,
+                     outer_extent: float | None = None):
+    """The warp-pullback grid of a frame (see :func:`_warp_grid_builders`):
+    ``(sig (r, r, r), outer_sig 0-d | None)`` on the device."""
+    grid_fn, outer_fn = _warp_grid_builders(trainer, resolution, supersample,
+                                            dilate, chunk)
+    norm_idx = _norm_idx(trainer, frame_idx)
+    sig = grid_fn(norm_idx, extent, cano_grid)
+    outer_sig = None
+    if outer_extent is not None:
+        outer_sig = outer_fn(norm_idx, extent, outer_extent, cano_grid)
+    return sig, outer_sig
+
+
+def grid_sig_device(trainer, frame_idx: int, resolution: int,
+                    supersample: int = 2, extent: float = 1.5,
+                    activation: str = "relu", dilate: int = 1,
+                    chunk: int = 131072, fetch: bool = True):
+    """The occupancy sigma lattice on the device (see
+    :func:`_grid_builders`); ``fetch=False`` returns the (r, r, r) device
+    tensor, ``fetch=True`` a numpy array."""
+    grid_fn, _ = _grid_builders(trainer, frame_idx, resolution, supersample,
+                                activation, dilate, chunk)
+    sig = grid_fn(_norm_idx(trainer, frame_idx), extent)
+    return sig if not fetch else sig.cpu().numpy()
+
+
+def outer_bound_device(trainer, frame_idx: int, resolution: int,
+                       extent: float, outer_extent: float,
+                       activation: str = "relu", chunk: int = 131072,
+                       fetch: bool = True):
+    """The largest activated density outside the grid cube: a 0-d device
+    tensor with ``fetch=False``, else a float."""
+    _, outer_fn = _grid_builders(trainer, frame_idx, resolution,
+                                 supersample=1, activation=activation,
+                                 dilate=1, chunk=chunk)
+    out = outer_fn(_norm_idx(trainer, frame_idx), extent, outer_extent)
+    return out if not fetch else float(out)
 
 
 def visualize_mesh(trainer, frame_idx: int, n_grid: int = 256,

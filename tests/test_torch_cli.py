@@ -18,8 +18,8 @@ and ``log_freq: 1``; everything else stays as written. Then:
   scene (JAX writes an mp4 only where imageio has ffmpeg, absent here);
   ``--test_json`` reads its file's directory; ``--profile`` writes a
   ``torch.profiler`` trace;
-- ``--occ_res`` raises naming its ROADMAP item, ``--device cuda`` without
-  a card fails;
+- ``--occ_res`` writes the same files as without it, ``--device cuda``
+  without a card fails;
 - no module of the port imports jax, moco_flow_tpu or the host packages.
 """
 
@@ -293,10 +293,23 @@ def test_profile_writes_a_trace(runs):
 
 
 def test_occupancy_and_a_missing_card_raise(runs):
+    """``--occ_res 8`` runs (the views and the metrics through the frame's
+    occupancy grid) and writes the same files as the same modes without
+    it; ``--device cuda`` without a card raises."""
     path = runs["paths"]["c2f"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port_test_main(["-c", path, "--render_gt", "--occ_res", "64",
-                   "--device", "cpu"])
+    trees = {}
+    for occ in ([], ["--occ_res", "8"]):
+        out = osp.join(runs["tmp"], f"occ_{len(occ)}")
+        with blocked_host_packages():
+            pt = port_test_main(
+                ["-c", path, "-r", runs["finals"]["c2f"], "--render_gt",
+                 "--reso", "24", "--out_dir", out, "--render_frame", "0",
+                 "--render_spherical_poses", "--eval_metrics",
+                 "--eval_max_frames", "1", "--device", "cpu"] + occ)
+        trees[len(occ)] = _tree(out)
+        assert np.isfinite(pt.metrics["psnr"])
+    assert pt.occ_cfg["resolution"] == 8 and pt._occ_stats["n_probe"] >= 8
+    assert len(trees[0]) == 91 and trees[2] == trees[0]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_test_main(["-c", path, "--render_gt"])
