@@ -157,9 +157,31 @@ happened; any failure raises and the script exits non-zero):
      (_hold_exact, which must also reject two wrong kernels). Then
      test.main --occ_res 64 on phase 20's stage-3 final (--render_frame 0,
      --eval_metrics) on both routes, #3/#7/#8/#9 held as in phase 20.
+  22. the training options and the render-time models:
+     (a) phase 21's fitted field distilled into a 4x128 student
+     (render/distill.py's distill_with_restarts: bench.py's 3000 steps of
+     16384 points, up to 3 seeds), ms a distill step, the 256^2 frame exact
+     in fp32 and bf16 for the teacher and the student (#7 at 4x128 skip
+     2; PSNR against the teacher's fp32 frame), the occupancy grid rebuilt
+     on the student and its frame with occupancy, train_step refused after
+     the swap; #7 / #8 at the student's widths held on a seeded init in
+     fp32 and bf16, and on the fitted field's launches in fp32
+     (_hold_exact); (b) stage 1 with scripts/bench_hashgrid.py's hash NeRF
+     (L 8, F 2, T 2^16, res 16-256, 2x64, dir 27, lr 1e-2) through train()
+     on a 128^2 scene, 1024 rays x (64 + 64), 3 steps and a val step in
+     fp32 and bf16 beside the 8x256 PE NeRF in the same cell, and one
+     stage-3 full step with a hash NeRF under auto (-> fused_nof); (c)
+     phase 18's cell on one trainer a dtype: msk / full / none steps under
+     fused_nof, fused_nerf, fused and pallas (2 warm, 3 timed), and a 256^2
+     test frame under each hybrid; (d) a stage-3 full step per optimizer
+     (sgd with momentum, adam with weight decay, adamw with warmup,
+     ranger, radam with weight decay) x schedule (explr, cosine, poly), and
+     one with noise_std 1.0: finite losses, moving parameters, the
+     opt_named round trip. #3 / #8 / #9 held on the first launch of each
+     shape of (b) and (c).
 Phase 9 also holds #3/#4 at init_nof.yaml's NoF (0 xyz bands) at stage 2's
 shape. The last three lines are the card, the kernel JSON (launch counts
-from the main paths of phases 5, 8, 11, 14, 15, 17, 18, 19, 20 and 21) and
+from the main paths of phases 5, 8, 11, 14, 15, 17, 18, 19, 20, 21 and 22) and
 the result JSON. Needs one CUDA card; imports neither JAX nor moco_flow_tpu.
 """
 
@@ -1474,6 +1496,22 @@ PHASE_RUNS = ((4996, 6), (9998, 4))   # (resume step, steps)
 VAL_SIZE = 108
 
 
+_SCENES = {}
+
+
+def body_scene(size: int = 256, focal: float = 300.0):
+    """The synthetic 8-frame scene of the 6890-vertex body at ``size``,
+    made once a size and shared by every phase on the body (the host
+    renders it in ~40-60 s; the same seed gives the same scene)."""
+    from moco_flow_tpu_torch.geometry.smpl import synthetic_smpl_data
+    if "body" not in _SCENES:
+        _SCENES["body"] = synthetic_smpl_data(6890)
+    if (size, focal) not in _SCENES:
+        _SCENES[(size, focal)] = make_synthetic_scene(
+            None, n_frames=8, size=size, focal=focal, smpl=_SCENES["body"])
+    return _SCENES[(size, focal)]
+
+
 def phases_config(dtype: str) -> dict:
     """train_config() with c2f.yaml's NoF supervision: N_sampled 1000, nof
     10 x L1, msk 10 x BCE, the nof Adam."""
@@ -1503,7 +1541,6 @@ def phase_phases_slice(card: str) -> dict:
     """The msk / full phases through train(config, args) at full width,
     then step and val times."""
     from moco_flow_tpu_torch.data.dataset import get_dataset
-    from moco_flow_tpu_torch.geometry.smpl import synthetic_smpl_data
     from moco_flow_tpu_torch.ops import nerf_rays as nr
     from moco_flow_tpu_torch.ops import nof_chain as nc
     from moco_flow_tpu_torch.ops import nof_rays as nf
@@ -1512,11 +1549,9 @@ def phase_phases_slice(card: str) -> dict:
     from moco_flow_tpu_torch.train.stage_mocoflow import MoCoFlowTrainer
     counters = (nf.nof_fwd, nf.nof_bwd, nr.nerf_fwd, nr.nerf_bwd,
                 nc.chain_fwd, nc.chain_bwd)
-    smpl = synthetic_smpl_data(6890)
-    scene = make_synthetic_scene(None, n_frames=8, size=256, focal=300.0,
-                                 smpl=smpl)
-    val_scene = make_synthetic_scene(None, n_frames=8, size=VAL_SIZE,
-                                     focal=300.0 * VAL_SIZE / 256, smpl=smpl)
+    scene = body_scene()
+    val_scene = body_scene(VAL_SIZE, 300.0 * VAL_SIZE / 256)
+    smpl = scene.smpl
     log(f"[11 phases slice] scene 256x256 x 8 frames, val {VAL_SIZE}x"
         f"{VAL_SIZE}, body of {smpl.num_vertices} vertices")
     counts = {"nof_fwd": 0, "nof_bwd": 0}
@@ -2255,13 +2290,15 @@ PALLAS_RUNS = ((4999, 2), (9999, 2))       # full, none; none, msk
 
 # The fitted field of phase 21 (sigma swings by ~170 over a fraction of a
 # cell, through the top PE band) lifts fp32's own rounding above TOL, in
-# sigma and in rgb. There an fp32 kernel's output is held against the
-# exact function (the plain version in fp64) instead: each element within
-# EXACT_FACTOR times the plain fp32 version's largest distance from it in
-# the launch (sigma, rgb and warped points each their own), plus TOL. The
-# factor comes from phase 21's readings, which _hold_exact logs (PERF.md
-# §6); an element's own fp32 distance is no scale, as fp32 lands on the
-# exact value by chance.
+# sigma and in rgb, and bf16's above its gap. There a kernel's output is
+# held against the exact function (the plain version in fp64) instead: each
+# element within EXACT_FACTOR times the plain version's largest distance
+# from it in the launch (sigma, rgb and warped points each their own), plus
+# TOL; in bf16 the kernel's largest distance also within EXACT_FACTOR times
+# the plain bf16 version's (the gap's counterpart). The factor comes from
+# the readings that _hold_exact logs, of sound kernels and of the wrong
+# kernels that the fp32 hold must reject (PERF.md §6); an element's own
+# distance is no scale, as fp32 lands on the exact value by chance.
 EXACT_FACTOR = 4.0
 
 
@@ -2275,15 +2312,19 @@ def _window_max(x: torch.Tensor, h: int) -> torch.Tensor:
                                           h).reshape(x.shape)
 
 
-def _hold_exact(name: str, parts: dict, atol: float, rtol: float) -> float:
-    """fp32 hold of one launch; ``parts``: {part: (kernel, plain fp32,
-    plain fp64)}, the samples along the last axis. Each element within TOL
-    of the plain fp32 version, or within EXACT_FACTOR x that part's largest
-    distance of the plain fp32 version from the fp64 one, plus TOL, of the
-    fp64 one. Logs, where TOL does not hold, the factor that the check
-    would need with the plain version's distance taken at the element,
-    over +-2 and +-8 samples, over the ray and over the launch. Raises
-    after every part is checked; returns the largest |kernel - plain|."""
+def _hold_exact(name: str, parts: dict, atol: float, rtol: float,
+                bf16: bool = False) -> float:
+    """Hold of one launch against the exact function; ``parts``: {part:
+    (kernel, plain version in the kernel's dtype, plain version in fp64)},
+    the samples along the last axis. Each element within TOL of the plain
+    version, or within EXACT_FACTOR x that part's largest distance of the
+    plain version from the fp64 one, plus TOL, of the fp64 one; ``bf16``:
+    also the part's largest distance from fp64 within EXACT_FACTOR x the
+    plain version's. Logs, where TOL does not hold, the factor that the
+    check would need with the plain version's distance taken at the
+    element, over +-2 and +-8 samples, over the ray and over the launch,
+    and the element that needs the most over the launch. Raises after every
+    part is checked; returns the largest |kernel - plain|."""
     worst, faults = 0.0, []
     for part, (ko, po, p64) in parts.items():
         if not torch.isfinite(ko).all():
@@ -2291,11 +2332,19 @@ def _hold_exact(name: str, parts: dict, atol: float, rtol: float) -> float:
             continue
         err = (ko - po).abs()
         worst = max(worst, err.max().item())
+        k64 = (ko.double() - p64).abs()
+        p32 = (po.double() - p64).abs()
+        if bf16:
+            need = k64.max().item() / max(p32.max().item(), 1e-300)
+            log(f"{name} {part}: from fp64: kernel {k64.max().item():.3e}, "
+                f"plain {p32.max().item():.3e} (factor {need:.3f}; held: "
+                f"{EXACT_FACTOR:g})")
+            if need > EXACT_FACTOR:
+                faults.append(f"{part}: the kernel's largest distance from "
+                              f"fp64 is {need:.3f} x the plain version's")
         out = err > atol + rtol * po.abs()
         if not out.any():
             continue
-        k64 = (ko.double() - p64).abs()
-        p32 = (po.double() - p64).abs()
         tol = atol + rtol * p64.abs()
         over = out & (k64 > tol)
         need = {}
@@ -2304,18 +2353,26 @@ def _hold_exact(name: str, parts: dict, atol: float, rtol: float) -> float:
             ref = _window_max(p32, h)
             need[what] = torch.where(over, (k64 - tol) / ref,
                                      torch.zeros_like(ref)).max().item()
-        need["launch"] = (((k64 - tol) * over).max() / p32.max()).item()
+        lead = (k64 - tol) * over
+        need["launch"] = (lead.max() / p32.max()).item()
+        i = int(lead.argmax())
+        at = json.dumps({k: float(f"{v.flatten()[i].item():.6e}")
+                         for k, v in (("exact", p64), ("kernel", ko),
+                                      ("plain", po), ("plain from exact", p32),
+                                      ("plain from exact +-8",
+                                       _window_max(p32, 8)))})
         log(f"{name} {part}: {int(out.sum())} of {out.numel()} elements "
-            f"outside TOL of the plain fp32 version (max |d| "
+            f"outside TOL of the plain version (max |d| "
             f"{err.max().item():.3e}); from fp64: kernel "
-            f"{k64.max().item():.3e}, plain fp32 {p32.max().item():.3e}; "
+            f"{k64.max().item():.3e}, plain {p32.max().item():.3e}; "
             f"factor needed with the plain distance over "
             f"{json.dumps({k: round(v, 3) for k, v in need.items()})} "
-            f"(held: {EXACT_FACTOR:g} over the launch)")
+            f"(held: {EXACT_FACTOR:g} over the launch); the element that "
+            f"needs the most: {at}")
         bad = over & (k64 > EXACT_FACTOR * p32.max() + tol)
         if bad.any():
             faults.append(f"{part}: {int(bad.sum())} elements outside both "
-                          f"TOL and {EXACT_FACTOR:g} x the plain fp32 "
+                          f"TOL and {EXACT_FACTOR:g} x the plain "
                           f"version's distance from the fp64 one + TOL")
     if faults:
         raise AssertionError(f"{name}: " + "; ".join(faults))
@@ -2347,12 +2404,14 @@ def _hold_launches(err: dict, tag: str, where: str, spent: list,
     """Wrap #7's, #3's, #8's and #9's launches so that the first launch of
     each shape is held against its plain version on its own arguments
     before it runs, in fp32 and bf16: within TOL, bf16 also within the
-    plain version's bf16-vs-fp32 gap. ``exact``: in fp32 only (the path's
-    dtype), #7, #8 and #9 with the fp64 plain version beside them
-    (``_hold_exact``), and on the first full #7 shape two wrong kernels
-    that the hold must reject. These launches do not count; ``err`` keeps
-    the largest |diff| a kernel, ``spent[0]`` the seconds the checks took.
-    Returns the function that unwraps."""
+    plain version's bf16-vs-fp32 gap (a bf16 #7 / #8 / #9 launch that
+    misses either is held against the fp64 plain version by
+    ``_hold_exact``). ``exact``: #7, #8 and #9 against the fp64 plain
+    version in both dtypes, and on the first full #7 and #8 shapes two
+    wrong kernels that the fp32 hold must reject. These
+    launches do not count; ``err`` keeps the largest |diff| a kernel,
+    ``spent[0]`` the seconds the checks took. Returns the function that
+    unwraps."""
     import dataclasses
     from moco_flow_tpu_torch.ops import fused_mlp as fm
     from moco_flow_tpu_torch.ops import nof_rays as nf
@@ -2360,37 +2419,39 @@ def _hold_launches(err: dict, tag: str, where: str, spent: list,
     launch = {"pass": rpm._launch, "nof": nf._fwd_launch,
               "nerf_mlp": fm._nerf_launch, "nof_mlp": fm._nof_launch}
     seen = set()
-
-    dtypes = (("fp32", None),) if exact else (("fp32", None),
-                                               ("bf16", torch.bfloat16))
+    dtypes = (("fp32", None), ("bf16", torch.bfloat16))
 
     def hold(key, name, what, run, run64=None, parts=None, mutants=()):
         """``run(dt)`` -> (kernel output, plain output), once a key;
         ``run64()`` -> the plain version in fp64, ``parts(x)`` -> {part:
         x's part, samples last} for ``_hold_exact``; ``mutants``: (what,
-        run(dt)) of wrong kernels that the exact hold must reject."""
+        run(dt)) of wrong kernels that the exact fp32 hold must reject."""
         if key in seen:
             return
         seen.add(key)
         t = time.time()
         counters = _kernel_counters()
         saved = {k: f.launches for k, f in counters.items()}
+        exact_here = exact and run64 is not None
+        p64 = []
+
+        def held(k, p):
+            if not p64:
+                p64.append(parts(run64()))
+            return {n: (k[n], p[n], p64[0][n]) for n in p64[0]}
         try:
             got = {}
             for dname, dt in dtypes:
                 ko, po = run(dt)
                 torch.cuda.synchronize()
                 atol, rtol = TOL[dname]
-                if exact and run64 is not None:
-                    p64 = parts(run64())
-
-                    def held(k, p):
-                        return {n: (k[n], p[n], p64[n]) for n in p64}
-                    e = _hold_exact(f"{tag} {what} {dname}",
-                                    held(parts(ko), parts(po)), atol, rtol)
-                    for wrong, run_wrong in mutants:
+                label, bf16 = f"{tag} {what} {dname}", dt is not None
+                if exact_here:
+                    e = _hold_exact(label, held(parts(ko), parts(po)), atol,
+                                    rtol, bf16=bf16)
+                    for wrong, run_wrong in () if bf16 else mutants:
                         try:
-                            _hold_exact(f"{tag} {what} {dname} ({wrong})",
+                            _hold_exact(f"{label} ({wrong})",
                                         held(parts(run_wrong(dt)),
                                              parts(po)), atol, rtol)
                         except AssertionError as ex:
@@ -2401,26 +2462,58 @@ def _hold_launches(err: dict, tag: str, where: str, spent: list,
                                 f"{tag} {what}: the exact hold passed a "
                                 f"kernel with {wrong}")
                 else:
-                    e = check_close(f"{tag} {what} {dname}", ko, po, atol,
-                                    rtol)
+                    try:
+                        e = check_close(label, ko, po, atol, rtol)
+                        gap = (po - got["fp32"][0]).abs().max().item() \
+                            if bf16 else e
+                        if not e <= gap:
+                            raise AssertionError(
+                                f"{label}: kernel vs plain {e:.3e} exceeds "
+                                f"the plain version's bf16-vs-fp32 gap "
+                                f"{gap:.3e}")
+                    except AssertionError as ex:
+                        # bf16 is held against fp64 where its gap or TOL
+                        # is no scale (PERF.md §6)
+                        if not bf16 or run64 is None:
+                            raise
+                        log(f"{ex}; held against the fp64 plain version")
+                        e = _hold_exact(label, held(parts(ko), parts(po)),
+                                        atol, rtol, bf16=True)
                 err[name] = max(err.get(name, 0.0), e)
                 got[dname] = (po, e)
         finally:
             for k, f in counters.items():
                 f.launches = saved[k]
         spent[0] += time.time() - t
-        if exact:
-            log(f"{tag} kernel vs plain at {where} {what}: max|d| fp32 "
-                f"{got['fp32'][1]:.3e}")
-            return
         gap = (got["bf16"][0] - got["fp32"][0]).abs().max().item()
-        if not got["bf16"][1] <= gap:
-            raise AssertionError(
-                f"{tag} {what}: bf16 kernel vs plain {got['bf16'][1]:.3e} "
-                f"exceeds the plain version's bf16-vs-fp32 gap {gap:.3e}")
         log(f"{tag} kernel vs plain at {where} {what}: max|d| fp32 "
             f"{got['fp32'][1]:.3e}, bf16 {got['bf16'][1]:.3e} (the plain "
             f"version's bf16-vs-fp32 gap {gap:.3e})")
+
+    def wrong_weights(ws, run):
+        """(what, run(dt)) of the two wrong kernels on the flat NeRF
+        weights ``ws``: the second trunk layer's weights off by 1e-3 of
+        themselves; the rgb head's red and green swapped."""
+        swap = [1, 0, 2]
+
+        def changed(changes):
+            out = list(ws)
+            for i, f in changes.items():
+                out[i] = f(out[i])
+            return lambda dt: run(out, dt)
+        return (("trunk layer 1's weights x (1 + 1e-3)",
+                 changed({2: lambda w: w * (1 + 1e-3)})),
+                ("the rgb head's red and green swapped",
+                 changed({-2: lambda w: w[:, swap],
+                          -1: lambda b: b[..., swap]})))
+
+    def first_full(kind, key, sigma_only):
+        """Whether this launch is the wrapper's first full one of ``kind``
+        under ``exact`` (the one that runs the wrong kernels)."""
+        if exact and not sigma_only and kind not in seen and key not in seen:
+            seen.add(kind)
+            return True
+        return False
 
     def pass_parts(x):
         return {"sigma": x[0]} if x.shape[0] == 1 else {"sigma": x[0],
@@ -2438,35 +2531,19 @@ def _hold_launches(err: dict, tag: str, where: str, spent: list,
             s64, r64 = _pass_ref64(op, rays_o, rays_d, z_vals)
             return s64[None] if r64 is None else torch.cat([s64[None], r64])
 
-        def wrong(changes):
-            ws = list(op.nerf_ws)
-            for i, f in changes.items():
-                ws[i] = f(ws[i])
-
-            def k(dt):
-                o = dataclasses.replace(op, nerf_ws=ws,
-                                        dtype=dt or torch.float32)
-                ks, kr = launch["pass"](o, rays_o, rays_d, z_vals)
-                return torch.cat([ks[None], kr])
-            return k
+        def wrong(ws, dt):
+            o = dataclasses.replace(op, nerf_ws=ws,
+                                    dtype=dt or torch.float32)
+            ks, kr = launch["pass"](o, rays_o, rays_d, z_vals)
+            return torch.cat([ks[None], kr])
         n, s = z_vals.shape
         sigma_only, nof = op.nerf.sigma_only, op.nof is not None
-        key = ("pass", n, s, sigma_only, nof)
-        mutants = ()
-        if exact and not sigma_only and "mutants" not in seen \
-                and key not in seen:
-            # once: the second trunk layer's weights off by 1e-3 of
-            # themselves; the rgb head's red and green swapped
-            seen.add("mutants")
-            swap = [1, 0, 2]
-            mutants = (("trunk layer 1's weights x (1 + 1e-3)",
-                        wrong({2: lambda w: w * (1 + 1e-3)})),
-                       ("the rgb head's red and green swapped",
-                        wrong({-2: lambda w: w[:, swap],
-                               -1: lambda b: b[:, swap]})))
+        key = ("pass", n, s, sigma_only, nof, op.nerf.depth, op.nerf.width)
+        wrongs = wrong_weights(op.nerf_ws, wrong) if first_full(
+            "pass mutants", key, sigma_only) else ()
         hold(key, "render_pass",
              f"render_pass N={n} S={s} {'sigma-only' if sigma_only else 'full'}"
-             f"{' nof' if nof else ''}", run, run64, pass_parts, mutants)
+             f"{' nof' if nof else ''}", run, run64, pass_parts, wrongs)
         return launch["pass"](op, rays_o, rays_d, z_vals)
 
     def nof_launch(spec, dt, n_pe, xyz_t, parts, ws_bw, ws_fw,
@@ -2509,10 +2586,17 @@ def _hold_launches(err: dict, tag: str, where: str, spent: list,
             what = f"{net} rows={args[0].shape[0]}" + (
                 f" {'sigma-only' if args[2] else 'full'}" if net == "nerf"
                 else "")
-            hold((net, args[0].shape[0]) + ((args[2],) if net == "nerf"
-                                            else ()), f"{net}_pallas", what,
+            what += f" {cfg.depth}x{cfg.width} in {args[0].shape[1]}"
+            key = (net, cfg, args[0].shape[0]) + (
+                (args[2],) if net == "nerf" else ())
+            wrongs = ()
+            if net == "nerf" and first_full("nerf mutants", key, args[2]):
+                wrongs = wrong_weights(held[3], lambda ws, d: launch[
+                    "nerf_mlp"](cfg, d, *held[:3], ws))
+            hold(key, f"{net}_pallas", what,
                  lambda d: (launch[f"{net}_mlp"](cfg, d, *held),
-                            plain(cfg, d, *held)), run64, mlp_parts(net))
+                            plain(cfg, d, *held)), run64, mlp_parts(net),
+                 wrongs)
             return launch[f"{net}_mlp"](cfg, dt, *args)
         return f
 
@@ -2535,17 +2619,13 @@ def phase_pallas_steps(card: str) -> dict:
     trainer, and the val step."""
     import dataclasses
     from moco_flow_tpu_torch.data.dataset import get_dataset
-    from moco_flow_tpu_torch.geometry.smpl import synthetic_smpl_data
     from moco_flow_tpu_torch.ops import fused_mlp as fm
     from moco_flow_tpu_torch.train.__main__ import parse_args as train_args
     from moco_flow_tpu_torch.train.__main__ import train
     from moco_flow_tpu_torch.train.stage_mocoflow import MoCoFlowTrainer
     counters = (fm.nerf_pallas, fm.nof_pallas)
-    smpl = synthetic_smpl_data(6890)
-    scene = make_synthetic_scene(None, n_frames=8, size=256, focal=300.0,
-                                 smpl=smpl)
-    val_scene = make_synthetic_scene(None, n_frames=8, size=VAL_SIZE,
-                                     focal=300.0 * VAL_SIZE / 256, smpl=smpl)
+    scene = body_scene()
+    val_scene = body_scene(VAL_SIZE, 300.0 * VAL_SIZE / 256)
     orig = MoCoFlowTrainer.train_func
     record = []
 
@@ -2683,7 +2763,6 @@ def phase_handover(card: str, nerf_final: str, nof_final: str) -> dict:
     from moco_flow_tpu_torch.train import stage_mocoflow as sm
     from moco_flow_tpu_torch.train.checkpoint import _flatten, load_checkpoint
     from moco_flow_tpu_torch.train.stage_mocoflow import MoCoFlowTrainer
-    from moco_flow_tpu_torch.geometry.smpl import synthetic_smpl_data
     cfg = phases_config("float32")
     cfg["save_dir"] = os.path.join(HERE, "build", "chip_smoke_handover")
     shutil.rmtree(cfg["save_dir"], ignore_errors=True)
@@ -2706,9 +2785,7 @@ def phase_handover(card: str, nerf_final: str, nof_final: str) -> dict:
             raise AssertionError(f"hand-over {k}: not the expected tensor")
         moved += net.endswith("NoF") or from_s1
     del tr
-    smpl = synthetic_smpl_data(6890)
-    scene = make_synthetic_scene(None, n_frames=8, size=256, focal=300.0,
-                                 smpl=smpl)
+    scene = body_scene()
     counters = (nr.nerf_fwd, nr.nerf_bwd, nc.chain_fwd, nc.chain_bwd,
                 nf.nof_fwd, nf.nof_bwd)
     # each step's render also runs, without gradients, on the per-op route,
@@ -3239,13 +3316,10 @@ def phase_occupancy(card: str) -> dict:
     mlp_impl: pallas (equal bits); #3/#7/#8/#9 held against their plain
     versions on each first shape."""
     import dataclasses
-    from moco_flow_tpu_torch.geometry.smpl import synthetic_smpl_data
     from moco_flow_tpu_torch.render.occupancy import build_occupancy_grid
     from moco_flow_tpu_torch.train.stage_mocoflow import MoCoFlowTrainer
     t_phase = time.time()
-    smpl = synthetic_smpl_data(6890)
-    scene = make_synthetic_scene(None, n_frames=8, size=256, focal=300.0,
-                                 smpl=smpl)
+    scene = body_scene()
     cfg = occupancy_config()
     tr = MoCoFlowTrainer(cfg, device=DEVICE, seed=0, scene=scene)
     tr.build_model(cfg["model"])
@@ -3408,7 +3482,7 @@ def phase_occupancy(card: str) -> dict:
         _, launches = _count_launches(body)
     finally:
         unwrap()
-    out.update(err=err, launches=launches)
+    out.update(err=err, launches=launches, trainer=tr)
     log(f"[21 occupancy] launches {json.dumps(launches)}; phase "
         f"{time.time() - t_phase:.1f} s, of which {spent[0]:.1f} s held the "
         f"kernels against their plain versions, on {card}")
@@ -3457,6 +3531,433 @@ def phase_occ_cli(card: str, cli: dict) -> dict:
     return {"err": err, "launches": launches}
 
 
+# -- phase 22: the training options and the render-time models -------------
+
+DISTILL = {"depth": 4, "width": 128, "steps": 3000, "batch": 16384}
+# scripts/bench_hashgrid.py's hash config and its 2x64 MLP
+HASH_GRID = {"n_levels": 8, "n_features": 2, "log2_table_size": 16,
+             "base_res": 16, "max_res": 256, "extent": 1.5}
+HASH_NERF = {"type": "NeRF", "D": 2, "W": 64, "skips": [],
+             "extra_feat_type": "dir", "extra_feat_dim": 27,
+             "encoding": "hashgrid", "hash": HASH_GRID}
+HASH_SIZE, HASH_RAYS, HASH_SAMPLES, HASH_STEPS = 128, 1024, 64, 3
+HYBRIDS = ("fused_nof", "fused_nerf", "fused", "pallas")
+OPTIONS = [({"type": "sgd", "lr": 1e-4, "momentum": 0.9},),
+           ({"type": "adam", "lr": 1e-4, "weight_decay": 1e-4},),
+           ({"type": "adamw", "lr": 1e-4, "weight_decay": 1e-4,
+             "warmup": 100},),
+           ({"type": "ranger", "lr": 1e-4},),
+           ({"type": "radam", "lr": 1e-4, "weight_decay": 1e-4},)]
+SCHEDULES = ({"type": "explr", "lr_decay": 0.99999},
+             {"type": "cosine", "num_epochs": 2200000},
+             {"type": "poly", "num_epochs": 2200000, "poly_exp": 0.9})
+
+
+def _hold_new_shapes(dev, card: str, tag: str, err: dict) -> None:
+    """#7 and #8 at the student's widths (4x128, skip 2) on a seeded init,
+    the way phase 3 holds #7 at the published widths: fp32 and bf16 within
+    TOL, bf16 also within the plain version's bf16-vs-fp32 gap (the fitted
+    field's frames are held in fp32 by _hold_exact as they run)."""
+    from moco_flow_tpu_torch.ops import fused_mlp as fm
+    from moco_flow_tpu_torch.render.distill import student_config
+    gen = torch.Generator().manual_seed(22)
+    scfg = student_config(NeRFConfig(extra_feat_type="ind",
+                                     extra_feat_dim=5), **{
+        k: DISTILL[k] for k in ("depth", "width")})
+    fcfg = NoFConfig()
+    params = {"coarse_NeRF": init_nerf(gen, scfg, dev),
+              "bw_NoF": init_nof(gen, fcfg, dev)}
+    an_n = anneal_weights(505000, 10, 5000, 1005000).to(dev)
+    an_f = anneal_weights(505000, 5, 5000, 1005000).to(dev)
+
+    def held(what, run):
+        out = {}
+        for dname, dt in (("fp32", None), ("bf16", torch.bfloat16)):
+            k, p = run(True, dt), run(False, dt)
+            torch.cuda.synchronize()
+            atol, rtol = TOL[dname]
+            out[dname] = (check_close(f"{tag} {what} {dname}", k, p, atol,
+                                      rtol), p)
+        gap = (out["bf16"][1] - out["fp32"][1]).abs().max().item()
+        if not out["bf16"][0] <= gap:
+            raise AssertionError(f"{tag} {what}: bf16 kernel vs plain "
+                                 f"{out['bf16'][0]:.3e} > gap {gap:.3e}")
+        log(f"{tag} {what}: max|d| fp32 {out['fp32'][0]:.3e}, bf16 "
+            f"{out['bf16'][0]:.3e} (plain bf16-vs-fp32 gap {gap:.3e}) on "
+            f"{card}")
+        return max(out["fp32"][0], out["bf16"][0])
+
+    for s, sigma_only in ((128, True), (256, False)):
+        o, d, z, ind = _full_width_inputs(4096, s, dev, seed=22 + s)
+        extra = embed_padded(ind, EmbeddingSpec(2, in_channels=1), 5)
+        ind_emb = embed_padded(ind, EmbeddingSpec(16, in_channels=1), 33)
+
+        def run(kernel, dt):
+            args = (params, "coarse_NeRF", scfg, fcfg, 10, 5, True, True,
+                    an_n, an_f, o, d, z, None if sigma_only else extra,
+                    ind_emb, True, sigma_only, dt)
+            ks, kr = (render_pass if kernel else render_pass_ref)(*args)
+            return ks[None] if kr is None else torch.cat([ks[None], kr])
+        e = held(f"render_pass {scfg.depth}x{scfg.width} N=4096 S={s} "
+                 f"{'sigma-only' if sigma_only else 'full'} nof", run)
+        err["render_pass"] = max(err.get("render_pass", 0.0), e)
+    x = torch.rand(16384, scfg.in_channels_xyz, generator=gen).to(dev)
+    ex = torch.rand(16384, 5, generator=gen).to(dev)
+    ws = fm._nerf_weights_flat(params["coarse_NeRF"], False)
+    e = held(f"nerf_pallas {scfg.depth}x{scfg.width} rows=16384 full",
+             lambda kernel, dt: (fm.nerf_pallas if kernel
+                                 else fm._nerf_pallas_ref)(
+                 scfg, dt, x, ex, False, ws))
+    err["nerf_pallas"] = max(err.get("nerf_pallas", 0.0), e)
+
+
+def phase_student(card: str, occ: dict) -> dict:
+    """22a: phase 21's body-fitted c2f field distilled into a 4x128
+    student (distill_with_restarts: 3000 Adam steps of 16384 points), its
+    256^2 frame exact in fp32 and bf16 beside the teacher's (PSNR against
+    the teacher's fp32 frame), the occupancy grid rebuilt on the student
+    and its frame with occupancy; #7 / #8 held on every first shape."""
+    import dataclasses
+    from moco_flow_tpu_torch.render.distill import (distill_student,
+                                                    distill_with_restarts,
+                                                    render_psnr_vs_teacher)
+    t_phase = time.time()
+    tr = occ["trainer"]
+    dev = tr.device
+    ds = tr.val_dataset
+    rays = ds.frame_rays(0)
+    white = torch.ones((rays.shape[0], 3), device=DEVICE)
+    anneal = tr.anneal()
+    rcfg = {"fp32": tr.rcfg_test,
+            "bf16": dataclasses.replace(tr.rcfg_test,
+                                        compute_dtype="bfloat16")}
+    err, spent, out = {}, [0.0], {}
+    _hold_new_shapes(dev, card, "[22a student]", err)
+
+    def frame(rc):
+        f = lambda: tr.render_rays_chunked(rays, white, rc,  # noqa: E731
+                                           anneal=anneal)
+        f()
+        return _event_ms(f)
+
+    def body():
+        t_cfg = tr.statics.fine
+        teacher = {k: frame(rc) for k, rc in rcfg.items()}
+        unwrap = _hold_launches(err, "[22a student]",
+                                "the distillation's and the student's",
+                                spent, exact=True)
+        try:
+            # one step first, outside the timed run: the holds of the
+            # teacher's and the student's first #8 launches
+            distill_student(tr, **dict(DISTILL, steps=1), swap=False)
+            (_, scfg, loss, seed), ms = _event_ms(lambda: (
+                distill_with_restarts(tr, **DISTILL)))
+            ran = (seed + 1) * DISTILL["steps"]
+            try:
+                tr.train_step()
+            except RuntimeError as ex:
+                log(f"[22a student] train_step after the swap raises: {ex}")
+            else:
+                raise AssertionError("train_step ran after swap_render_nerf")
+            student = {k: frame(rc) for k, rc in rcfg.items()}
+        finally:
+            unwrap()
+        ref = teacher["fp32"][0]["rgb_fine"]
+        psnr = {k: _psnr(v[0]["rgb_fine"], ref) for k, v in student.items()}
+        psnr_t = render_psnr_vs_teacher(
+            student["fp32"][0]["rgb_fine"].cpu().numpy(), ref.cpu().numpy())
+        grid, ms_g = _event_ms(lambda: tr.occupancy_grid(0))
+        f_occ = lambda: tr.commit_view(  # noqa: E731
+            tr.prepare_view(rays, 0), white, rcfg["fp32"], anneal=anneal)
+        f_occ()
+        occ_frame, ms_o = _event_ms(f_occ)
+        p_occ = _psnr(occ_frame["rgb_fine"], student["fp32"][0]["rgb_fine"])
+        out.update(loss=loss, seed=seed, distill_ms_a_step=ms / ran,
+                   teacher_ms={k: v[1] for k, v in teacher.items()},
+                   student_ms={k: v[1] for k, v in student.items()},
+                   psnr=psnr, grid_ms=ms_g, occ_frame_ms=ms_o,
+                   occ_psnr=p_occ,
+                   occupied=float(grid.occupancy_fraction))
+        log(f"[22a student] distilled {scfg.depth}x{scfg.width} (skips "
+            f"{list(scfg.skips)}) from the fitted {t_cfg.depth}x"
+            f"{t_cfg.width} teacher: "
+            f"{DISTILL['steps']} steps of {DISTILL['batch']} points, loss "
+            f"{loss:.5f} at seed {seed}, {ms / ran:.3f} ms a step (CUDA "
+            f"events over the {ran} steps of every seed tried) on {card}")
+        log(f"[22a student] {ds.size[0]}^2 frame exact: teacher fp32 "
+            f"{teacher['fp32'][1]:.1f} ms, bf16 {teacher['bf16'][1]:.1f} "
+            f"ms; student fp32 {student['fp32'][1]:.1f} ms, bf16 "
+            f"{student['bf16'][1]:.1f} ms; PSNR against the teacher's fp32 "
+            f"frame fp32 {psnr['fp32']:.2f} dB ({psnr_t} by "
+            f"render_psnr_vs_teacher), bf16 {psnr['bf16']:.2f} dB on {card}")
+        log(f"[22a student] occupancy on the student: frame 0's grid "
+            f"{ms_g:.1f} ms (occupied {out['occupied']:.4f}), the frame with "
+            f"occupancy {ms_o:.1f} ms, {p_occ:.2f} dB against the student's "
+            f"exact frame on {card}")
+        if loss >= 0.1:
+            log(f"[22a student] no seed of {DISTILL} reached a loss below "
+                "0.1 (bench.py's restart bound)")
+        if not (np.isfinite(loss) and p_occ >= 30.0
+                and min(psnr.values()) > 15.0):
+            raise AssertionError(f"student: loss {loss}, PSNR {psnr}, "
+                                 f"occupancy PSNR {p_occ}")
+
+    _, launches = _count_launches(body)
+    out.update(err=err, launches=launches)
+    log(f"[22a student] launches {json.dumps(launches)}; phase "
+        f"{time.time() - t_phase:.1f} s ({spent[0]:.1f} s of holds) on "
+        f"{card}")
+    return out
+
+
+def hash_config(dtype: str, encoding: str) -> dict:
+    """scripts/bench_hashgrid.py's stage-1 config: init_nerf.yaml's run on
+    a 128^2 scene, 1024 rays x (64 + 64), the hash NeRF (or the 8x256 PE
+    one), radam at 1e-2 (1e-3 for PE)."""
+    cfg = stage1_config(dtype, impl="auto" if encoding == "hash" else "xla")
+    cfg["save_dir"] = os.path.join(HERE, "build", "chip_smoke_hash",
+                                   f"{encoding}_{dtype}")
+    cfg["dataloader"].update(size=[HASH_SIZE] * 2, val_size=[HASH_SIZE] * 2)
+    cfg["model"].update(N_rand=HASH_RAYS, N_samples=HASH_SAMPLES,
+                        N_importance=HASH_SAMPLES)
+    if encoding == "hash":
+        cfg["model"].update(coarse_NeRF=dict(HASH_NERF),
+                            fine_NeRF=dict(HASH_NERF))
+        cfg["optimizer"]["lr"] = 1e-2
+    cfg["trainer"]["num_iters"] = HASH_STEPS
+    return cfg
+
+
+def phase_hashgrid(card: str) -> dict:
+    """22b: stage 1 with the hash-grid NeRF through train() in fp32 and
+    bf16 (3 steps and a val step; auto -> fused_nof: the encode in PyTorch,
+    the NeRF on #8), beside the PE NeRF in the same cell; then one stage-3
+    full step with a hash NeRF under auto; #8 held at the hash shapes."""
+    from moco_flow_tpu_torch.train.__main__ import parse_args as train_args
+    from moco_flow_tpu_torch.train.__main__ import train
+    from moco_flow_tpu_torch.train.checkpoint import _flatten
+    t_phase = time.time()
+    scene = make_synthetic_scene(None, n_frames=8, size=HASH_SIZE,
+                                 focal=300.0 * HASH_SIZE / 256)
+    err, spent, out = {}, [0.0], {}
+    unwrap = _hold_launches(err, "[22b hash grid]", "the hash steps'", spent)
+
+    def body():
+        for dtype in ("float32", "bfloat16"):
+            for enc in ("hash", "pe"):
+                cfg = hash_config(dtype, enc)
+                shutil.rmtree(cfg["save_dir"], ignore_errors=True)
+                tr = train(cfg, train_args(["-c", "(dict)", "-n", "smoke",
+                                            "--device", DEVICE]),
+                           scene=scene)
+                if enc == "hash" and tr.rcfg_train.mlp_impl != "fused_nof":
+                    raise AssertionError(tr.rcfg_train.mlp_impl)
+                p0 = {k: v.clone() for k, v in _flatten(
+                    tr.params, leaf=lambda t: t.detach()).items()}
+                ms = _timed_steps(tr, warm=1, steps=HASH_STEPS)
+                moved = {k: float((v.detach() - p0[k]).abs().max())
+                         for k, v in _flatten(tr.params,
+                                              leaf=lambda t: t).items()}
+                val = tr.val_func()
+                losses = {k: float(v) for k, v in tr.losses.items()}
+                key = "fine_NeRF/hash" if enc == "hash" else None
+                if not (all(np.isfinite(v) for v in losses.values())
+                        and all(np.isfinite(v) for v in val.values())
+                        and (moved[key] if key else max(moved.values()))
+                        > 0):
+                    raise AssertionError(f"{enc} {dtype}: {losses} {val} "
+                                         f"{moved}")
+                out[(enc, dtype)] = ms
+                log(f"[22b hash grid] stage 1 {enc} {dtype} "
+                    f"({tr.rcfg_train.mlp_impl}): {HASH_RAYS} rays x "
+                    f"({HASH_SAMPLES}+{HASH_SAMPLES}) at {HASH_SIZE}^2, step "
+                    f"{ms:.2f} ms = {HASH_RAYS / ms * 1e3:.0f} rays/s, last "
+                    f"losses {json.dumps(losses)}, val {json.dumps(val)}"
+                    + (f", the table moved {moved['fine_NeRF/hash']:.2e}"
+                       if enc == "hash" else "") + f" on {card}")
+                del tr
+        # stage 3, full phase, a hash NeRF under auto
+        hnerf = dict(HASH_NERF, extra_feat_type="ind", extra_feat_dim=5)
+        tr = _stage3_trainer("hash", 4000, coarse_NeRF=dict(hnerf),
+                             fine_NeRF=dict(hnerf), mlp_impl="auto")
+        losses = {k: float(v) for k, v in tr.losses.items()}
+        if tr.rcfg_train.mlp_impl != "fused_nof" or "nof_bw" not in losses \
+                or not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"hash stage 3: {tr.rcfg_train.mlp_impl} "
+                                 f"{losses}")
+        ms = _timed_steps(tr, warm=0, steps=1)
+        out["stage3_full_ms"] = ms
+        log(f"[22b hash grid] stage 3 full step with a hash NeRF (2x64, "
+            f"ind extra) under auto -> fused_nof, c2f's NoFs, 1024 rays x "
+            f"(128+128): {ms:.1f} ms, losses {json.dumps(losses)} on {card}")
+
+    try:
+        _, launches = _count_launches(body)
+    finally:
+        unwrap()
+    out.update(err=err, launches=launches)
+    log(f"[22b hash grid] launches {json.dumps(launches)}; phase "
+        f"{time.time() - t_phase:.1f} s ({spent[0]:.1f} s of holds) on "
+        f"{card}")
+    return out
+
+
+def _stage3_trainer(tag: str, start: int, **model):
+    """Phase 18's cell in fp32 (c2f's model at its widths, the phases
+    config; ``model`` overrides keys of its model block), a seeded init
+    with sigma biases + 1 trained one step through train() from
+    ``start``."""
+    from moco_flow_tpu_torch.train.__main__ import parse_args as train_args
+    from moco_flow_tpu_torch.train.__main__ import train
+    cfg = phases_config("float32")
+    cfg["save_dir"] += f"_{tag}"
+    cfg["model"].update(model)
+    cfg["trainer"]["num_iters"] = start + 1
+    params = init_params(torch.Generator().manual_seed(0),
+                         build_statics(cfg["model"]), with_nof=True,
+                         with_fw_nof=True)
+    for net in ("coarse_NeRF", "fine_NeRF"):
+        params[net]["sigma"]["b"] += 1.0
+    seed = os.path.join(cfg["save_dir"], f"seeded{start}")
+    save_checkpoint(seed, {"params": params}, extra={
+        "clock": {"epoch": 1, "minibatch": 0, "step": start}})
+    return train(cfg, train_args(["-c", "(dict)", "-r", seed + ".npz", "-n",
+                                  f"smoke{start}", "--device", DEVICE]),
+                 scene=body_scene())
+
+
+def phase_hybrids(card: str) -> dict:
+    """22c: phase 18's cell on one trainer: the msk / full / none steps in
+    bf16 and fp32 under fused_nof and fused_nerf beside fused and pallas (2
+    warm and 3 timed steps each), and a 256^2 fp32 test frame under each
+    hybrid; #3 / #7 / #8 / #9 held on their first shapes. Returns the
+    trainer too (phase_options steps it)."""
+    import dataclasses
+    t_phase = time.time()
+    err, spent, out = {}, [0.0], {}
+    unwrap = _hold_launches(err, "[22c hybrids]",
+                            "the hybrid steps' and frames'", spent)
+
+    tr = _stage3_trainer("hybrids", 9999)
+    rcfg, rtest = tr.rcfg_train, tr.rcfg_test
+
+    def body():
+        for dtype in ("bfloat16", "float32"):
+            times = {}
+            for route in HYBRIDS:
+                tr.rcfg_train = dataclasses.replace(rcfg, mlp_impl=route,
+                                                    compute_dtype=dtype)
+                for mode, step, deleted in (("msk", 10000, True),
+                                            ("full", 4000, False),
+                                            ("none", 6000, True)):
+                    tr.clock.step = step
+                    tr.nof_opt_deleted, tr.opt = deleted, None
+                    m = tr.train_step()
+                    if not all(torch.isfinite(v) for v in m.values()):
+                        raise AssertionError(f"{route} {mode} {dtype}: {m}")
+                    times[(mode, route)] = _timed_steps(tr, warm=1, steps=3)
+            tr.rcfg_train = rcfg
+            out[dtype] = times
+            log(f"[22c hybrids] {dtype}, ms a step (phase 18's cell), "
+                + "; ".join(f"{m}: " + ", ".join(
+                    f"{r} {times[(m, r)]:.1f}" for r in HYBRIDS)
+                    for m in ("msk", "full", "none")) + f" on {card}")
+            if dtype == "float32":
+                ds = tr.val_dataset
+                rays = ds.frame_rays(0)
+                white = torch.ones((rays.shape[0], 3), device=DEVICE)
+                frames = {}
+                for route in ("fused_nof", "fused_nerf", "fused"):
+                    rc = dataclasses.replace(rtest, mlp_impl=route)
+
+                    @torch.no_grad()
+                    def f():
+                        return tr.render_rays_chunked(rays, white, rc,
+                                                      anneal=tr.anneal())
+                    f()
+                    frames[route] = _event_ms(f)
+                ref = frames["fused"][0]["rgb_fine"]
+                out["frame_ms"] = {k: v[1] for k, v in frames.items()}
+                for route in ("fused_nof", "fused_nerf"):
+                    d = (frames[route][0]["rgb_fine"] - ref).abs().max()
+                    if not d < 1e-3:
+                        raise AssertionError(f"{route} frame vs fused {d}")
+                log(f"[22c hybrids] 256^2 test frame fp32: " + ", ".join(
+                    f"{k} {v:.1f} ms" for k, v in out["frame_ms"].items())
+                    + f" (the hybrids' rgb within 1e-3 of fused) on {card}")
+
+    try:
+        _, launches = _count_launches(body)
+    finally:
+        unwrap()
+    out.update(err=err, launches=launches, trainer=tr)
+    log(f"[22c hybrids] launches {json.dumps(launches)}; phase "
+        f"{time.time() - t_phase:.1f} s ({spent[0]:.1f} s of holds) on "
+        f"{card}")
+    return out
+
+
+def phase_options(card: str, tr) -> dict:
+    """22d: one stage-3 full step (both optimizers) per optimizer x
+    schedule, and one with noise_std 1.0, on phase 18's cell (phase 22c's
+    trainer) in fp32: finite losses, moving parameters, the optimizers'
+    opt_named round trip."""
+    import dataclasses
+    from moco_flow_tpu_torch.train.optim import make_optimizer
+    t_phase = time.time()
+    out = {}
+
+    def body():
+        named = tr._named()
+        for (ocfg,) in OPTIONS:
+            for sched in SCHEDULES:
+                tr.configure_optimizers({"moco": ocfg, "nof": ocfg}, sched)
+                tr.clock.step, tr.nof_opt_deleted = 4000, False
+                p0 = {k: t.detach().clone() for k, t in named.items()}
+                losses = tr.train_step()
+                moved = max(float((t.detach() - p0[k]).abs().max())
+                            for k, t in named.items())
+                st = tr._opt_state_named()
+                back = make_optimizer(list(named.values()), ocfg, sched,
+                                      names=list(named))
+                back.load_named(st, "['moco']")
+                rt = back.state_named("['moco']")
+                same = all(np.array_equal(np.asarray(rt[k]),
+                                          np.asarray(st[k])) for k in rt)
+                ok = all(torch.isfinite(v) for v in losses.values())
+                if not (ok and moved > 0 and same and set(rt) <= set(st)):
+                    raise AssertionError(f"{ocfg} {sched}: finite {ok}, "
+                                         f"moved {moved}, round trip {same}")
+                out[(ocfg["type"], sched["type"])] = moved
+        tr.rcfg_train = dataclasses.replace(tr.rcfg_train, noise_std=1.0)
+        tr.configure_optimizers({"moco": OPTIONS[1][0],
+                                 "nof": OPTIONS[1][0]}, None)
+        tr.clock.step = 4000
+        draws = tr.draw(4000)
+        if draws.sigma_noise_fine is None:
+            raise AssertionError("noise_std 1.0: no sigma noise drawn")
+        p0 = {k: t.detach().clone() for k, t in named.items()}
+        losses = tr.train_step(draws=draws)
+        moved = max(float((t.detach() - p0[k]).abs().max())
+                    for k, t in named.items())
+        if not (all(torch.isfinite(v) for v in losses.values())
+                and moved > 0):
+            raise AssertionError(f"noise step: {losses} {moved}")
+        log(f"[22d options] {len(OPTIONS)} optimizers x "
+            f"{len(SCHEDULES)} schedules, a full step each (moco + nof): "
+            "largest update " + ", ".join(
+                f"{o}/{s} {m:.2e}" for (o, s), m in out.items())
+            + f"; noise_std 1.0 step moved {moved:.2e}"
+            f", losses {json.dumps({k: float(v) for k, v in losses.items()})}"
+            f" on {card}")
+
+    _, launches = _count_launches(body)
+    out = {"launches": launches, "err": {}, "moved": out}
+    log(f"[22d options] launches {json.dumps(launches)}; phase "
+        f"{time.time() - t_phase:.1f} s on {card}")
+    return out
+
+
 def main():
     card = phase_card()
     dev = torch.device("cuda")
@@ -3501,6 +4002,17 @@ def main():
     torch.cuda.synchronize()
     occ_cli = phase_occ_cli(card, cli)
     torch.cuda.synchronize()
+    t22 = time.time()
+    p22 = [phase_student(card, occ)]
+    del occ["trainer"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    p22.append(phase_hashgrid(card))
+    p22.append(phase_hybrids(card))
+    p22.append(phase_options(card, p22[-1].pop("trainer")))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[22] phase 22 took {time.time() - t22:.1f} s on {card}")
     fine = k["times"]["fine S=256 N=4096 nof bf16"]
     n_fine = 4096 * 256
     rp_work = (2 * (NERF_MACS + NOF_MACS) * n_fine,
@@ -3509,11 +4021,14 @@ def main():
     log(f"[3 kernel vs plain] render_pass bound at fine S=256 N=4096 nof: "
         f"bf16 {rp_bound:.4f} ms, fp32 {bound_ms(*rp_work, 'fp32')[0]:.4f} ms "
         f"({rp_by}: {rp_work[0] / 1e12:.3f} TFLOP)")
-    # the CLI paths of phases 20 and 21 and phase 21's occupancy path
+    # the CLI paths of phases 20 and 21, phase 21's occupancy path and
+    # phase 22's student, hash-grid, hybrid and option paths
     cl = {k: cli["launches"][k] + occ["launches"][k]
-          + occ_cli["launches"][k] for k in cli["launches"]}
+          + occ_cli["launches"][k] + sum(p["launches"][k] for p in p22)
+          for k in cli["launches"]}
     ce = {k: max(d.get(k, 0.0) for d in (cli["err"], occ["err"],
-                                         occ_cli["err"]))
+                                         occ_cli["err"],
+                                         *(p["err"] for p in p22)))
           for k in cl}
     kernels = [{
         "name": "render_pass", "route": "cuda", "source": SOURCE,
@@ -3527,7 +4042,8 @@ def main():
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": (tsl["launches"][name] + ho["launches"][name]
                          + cl[name]),
-            "max_abs_err": tk["err"][name], "ms": t[0], "plain_ms": t[1],
+            "max_abs_err": max(tk["err"][name], ce.get(name, 0.0)),
+            "ms": t[0], "plain_ms": t[1],
             "bound_ms": t[2], "bound_by": t[3], "library_ms": None})
     for name, src, rep in NOF_KERNELS:
         t = nk["times"][name]

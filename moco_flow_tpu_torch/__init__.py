@@ -11,12 +11,15 @@ reader and experiment layout, ``utils/logging.py``'s ``log.txt`` and
 ``metrics.jsonl``), visualisation and mesh extraction (``train/vis.py``,
 ``ops/mcubes.py``), LPIPS (``nn/lpips.py``), occupancy-grid empty-space
 skipping and the packed stream of views (``render/occupancy.py``,
-``render/packed.py``) and every ``test.py`` mode, on both of the JAX
+``render/packed.py``), student distillation (``render/distill.py``), the
+hash-grid encoding (``nn/hashgrid.py``), every optimizer and schedule
+(``train/optim.py``) and every ``test.py`` mode, on each of the JAX
 package's kernel routes: the whole-ray kernels (``mlp_impl`` ``fused``,
-``xla`` or ``auto``) and the per-op MLPs (``pallas``). Each of the nine
-Pallas kernels is a hand-written CUDA kernel under ``ops/csrc/`` with its
-plain PyTorch version beside it. Distillation, the hash grid and data
-parallelism come in later slices (ROADMAP.md).
+``xla`` or ``auto``), the per-op MLPs (``pallas``) and the hybrids
+(``fused_nof``, ``fused_nerf``). Each of the nine Pallas kernels is a
+hand-written CUDA kernel under ``ops/csrc/`` with its plain PyTorch
+version beside it. Data parallelism comes in a later slice
+(ROADMAP.md).
 
 It never imports ``jax`` or ``moco_flow_tpu``, nor ``yaml``, ``PIL``,
 ``cv2`` or ``imageio``: YAML, PNG and the JET colour table are its own

@@ -105,7 +105,10 @@ def sample_train_rays(table: FrameTable, directions: torch.Tensor,
 
 
 class MoCoFlowDataset:
-    """One video sequence, in val or train mode.
+    """One video sequence in a mode of JAX's: ``<mode>.json`` is read for
+    the part before a ``/`` (``train/vis`` reads ``train.json``, the part
+    after is ``vis_mode``); every mode but ``val`` builds the frame table,
+    and only ``val`` the spherical poses.
 
     ``meta`` / ``images`` ((F, H, W, C) uint8) take the place of the JSON
     file and the PNGs when the scene is held in memory; otherwise both are
@@ -116,16 +119,15 @@ class MoCoFlowDataset:
                  interval: int = 1, mode: str = "val",
                  smpl_data: SMPLData | None = None, meta: dict | None = None,
                  images: np.ndarray | None = None, load_images: bool = True):
-        if mode not in ("val", "train"):
-            raise NotImplementedError(f"dataset mode {mode!r} is not ported")
         self.root_dir = root_dir
         self.imgs_dir = imgs_dir
         self.size = tuple(size)
         self.aabb_cfg = aabb
         self.bkgd = bkgd
-        self.mode = mode
+        self.mode = mode.split("/")[0]
+        self.vis_mode = mode.split("/")[1] if "/" in mode else None
         if meta is None:
-            self.meta = _load_meta(root_dir, mode, interval)
+            self.meta = _load_meta(root_dir, self.mode, interval)
         else:
             self.meta = dict(meta, frames=list(meta["frames"])[::interval])
             if images is not None:
@@ -140,7 +142,7 @@ class MoCoFlowDataset:
         if load_images:
             self._load_images(images)
         self._build_background()
-        if mode == "val":
+        if self.mode == "val":
             fr0 = self.meta["frames"][0]
             radius = float(np.sqrt(((np.asarray(fr0["camera_pose"])[:3, 3]
                                      - np.asarray(fr0["transl"])) ** 2).sum()))
@@ -156,7 +158,7 @@ class MoCoFlowDataset:
         self._verts = smpl_forward(self.smpl, poses, betas).numpy()
         self._poses, self._betas = poses, betas
         self._corr_table = None
-        if self.mode == "train":
+        if self.mode != "val":
             self._build_table()
 
     @property

@@ -29,6 +29,10 @@ class Draws:
     cube: torch.Tensor | None = None    # (N_sampled, 3) uniform in +-1.5
     pick: torch.Tensor | None = None    # (N_sampled,) int64 vertex ids
     noise: torch.Tensor | None = None   # (N_sampled, 3) standard normal
+    # the sigma noise of the coarse and fine passes (standard normals, scaled
+    # by noise_std in the render), only with noise_std > 0
+    sigma_noise_coarse: torch.Tensor | None = None   # (N, S)
+    sigma_noise_fine: torch.Tensor | None = None     # (N, S + I)
 
     def to(self, device) -> "Draws":
         def mv(t):
@@ -36,7 +40,9 @@ class Draws:
         return dataclasses.replace(
             self, pixels=mv(self.pixels), background=mv(self.background),
             perturb=mv(self.perturb), pdf=mv(self.pdf), cube=mv(self.cube),
-            pick=mv(self.pick), noise=mv(self.noise))
+            pick=mv(self.pick), noise=mv(self.noise),
+            sigma_noise_coarse=mv(self.sigma_noise_coarse),
+            sigma_noise_fine=mv(self.sigma_noise_fine))
 
 
 @dataclasses.dataclass
@@ -81,12 +87,13 @@ def draw_val_points(step: int, num_frames: int, num_verts: int,
 def draw(gen: torch.Generator, frame: int, valid_count: int, n_rand: int,
          n_samples: int, n_importance: int, num_frames: int,
          chain_global: bool, n_sampled: int = 0,
-         num_verts: int = 0) -> Draws:
+         num_verts: int = 0, noise_std: float = 0.0) -> Draws:
     """One step's draws for ``frame`` (drawn by the caller's frame policy)
     whose valid-pixel table holds ``valid_count`` pixels; with
     ``n_sampled > 0`` also the correspondence draws over ``num_verts`` SMPL
-    vertices. Made on the CPU from ``gen``; move them with
-    :meth:`Draws.to`."""
+    vertices; with ``noise_std > 0`` then the sigma noise of both passes
+    (after every other draw, so a config without it draws what it always
+    drew). Made on the CPU from ``gen``; move them with :meth:`Draws.to`."""
     pixels = torch.randint(0, valid_count, (n_rand,), generator=gen)
     background = torch.rand((1, 3), generator=gen)
     chained = (int(torch.randint(0, num_frames, (), generator=gen))
@@ -94,4 +101,10 @@ def draw(gen: torch.Generator, frame: int, valid_count: int, n_rand: int,
     perturb = torch.rand((n_rand, n_samples), generator=gen)
     pdf = torch.rand((n_rand, max(n_importance, 0)), generator=gen)
     corr = _corr(gen, n_sampled, num_verts) if n_sampled > 0 else {}
+    if noise_std > 0:
+        corr["sigma_noise_coarse"] = torch.randn((n_rand, n_samples),
+                                                 generator=gen)
+        if n_importance > 0:
+            corr["sigma_noise_fine"] = torch.randn(
+                (n_rand, n_samples + n_importance), generator=gen)
     return Draws(frame, pixels, background, chained, perturb, pdf, **corr)

@@ -3,7 +3,9 @@
 Port of ``moco_flow_tpu/nn/nerf.py``: a D=8, W=256 density trunk over
 positional-encoded xyz with a skip connection, a sigma head, and an rgb
 branch conditioned on an extra feature (frame index, view direction or
-nothing). Only the PE encoding is ported; ``encoding: hashgrid`` raises.
+nothing). The xyz input is the sinusoidal PE (embedded outside the net)
+or, with ``encoding: hashgrid``, the features of a trainable hash grid
+(``nn/hashgrid.py``) whose table is the ``hash`` leaf of the parameters.
 ``nerf_apply`` takes a per-sample extra feature (the per-op route),
 ``nerf_apply_perray_extra`` a per-ray one.
 """
@@ -14,6 +16,7 @@ import dataclasses
 
 import torch
 
+from .hashgrid import HashGridConfig, init_hashgrid
 from .mlp import init_linear, linear, linear_relu
 
 
@@ -25,29 +28,38 @@ class NeRFConfig:
     skips: tuple = (4,)
     extra_feat_type: str = "none"  # none | ind | dir
     extra_feat_dim: int = 0
-    encoding: str = "pe"
+    encoding: str = "pe"   # 'pe' | 'hashgrid'
+    hash: HashGridConfig | None = None
 
     @classmethod
     def from_dict(cls, d: dict) -> "NeRFConfig":
         encoding = d.get("encoding", "pe")
-        if encoding != "pe":
-            raise NotImplementedError(
-                f"NeRF encoding '{encoding}' is not ported yet (only 'pe'; "
-                "the hash-grid encoding is ROADMAP 'Modules to port' item 7)")
+        hash_cfg = None
+        in_xyz = d.get("in_channels_xyz", 63)
+        if encoding == "hashgrid":
+            hash_cfg = HashGridConfig.from_dict(d.get("hash"))
+            in_xyz = hash_cfg.out_dim    # the MLP's input: L*F features
+        elif encoding != "pe":
+            raise ValueError(f"unknown NeRF encoding '{encoding}' "
+                             "(expected 'pe' or 'hashgrid')")
         return cls(
             depth=d.get("D", 8),
             width=d.get("W", 256),
-            in_channels_xyz=d.get("in_channels_xyz", 63),
+            in_channels_xyz=in_xyz,
             skips=tuple(d.get("skips", (4,))),
             extra_feat_type=d.get("extra_feat_type", "none"),
             extra_feat_dim=d.get("extra_feat_dim", 0),
+            encoding=encoding,
+            hash=hash_cfg,
         )
 
 
 def init_nerf(gen: torch.Generator, cfg: NeRFConfig,
               device: torch.device | str = "cpu") -> dict:
     """Parameter dict with the JAX package's tree structure (``trunk`` list,
-    ``sigma``, ``final``, ``extra``, ``rgb``), seeded from ``gen``."""
+    ``sigma``, ``final``, ``extra``, ``rgb``, and the hash table ``hash``
+    under ``encoding: hashgrid``), seeded from ``gen``; the table is drawn
+    after the layers, so a PE model draws what it always drew."""
     if cfg.extra_feat_type not in ("none", "ind", "dir"):
         raise ValueError(f"extra_feat_type {cfg.extra_feat_type} not supported")
     trunk = []
@@ -58,24 +70,31 @@ def init_nerf(gen: torch.Generator, cfg: NeRFConfig,
         trunk.append(init_linear(gen, in_dim, cfg.width, device))
     extra_in = cfg.width + (cfg.extra_feat_dim
                             if cfg.extra_feat_type != "none" else 0)
-    return {
+    params = {
         "trunk": trunk,
         "sigma": init_linear(gen, cfg.width, 1, device),
         "final": init_linear(gen, cfg.width, cfg.width, device),
         "extra": init_linear(gen, extra_in, cfg.width // 2, device),
         "rgb": init_linear(gen, cfg.width // 2, 3, device),
     }
+    if cfg.encoding == "hashgrid":
+        params["hash"] = init_hashgrid(gen, cfg.hash, device)
+    return params
 
 
 SIGMA_BRANCH = ("trunk", "sigma", "final")
 
 
 def sigma_branch_params(params: dict) -> dict:
-    """The subtree that moves from stage 1 to stage 3: the trunk, the sigma
-    head and ``final`` (the rgb branch, ``extra`` / ``rgb``, is drawn
-    afresh). The hash table of JAX's ``encoding: hashgrid`` is not
-    ported."""
-    return {k: params[k] for k in SIGMA_BRANCH}
+    """The density half of a NeRF: the trunk, the sigma head, ``final``
+    and, under ``encoding: hashgrid``, the hash table (the rgb branch is
+    ``extra`` / ``rgb``). The stage 1 -> 3 hand-over
+    (``train/checkpoint.py::transfer_pretrained_nerf``) moves only
+    ``SIGMA_BRANCH``, as JAX's does."""
+    out = {k: params[k] for k in SIGMA_BRANCH}
+    if "hash" in params:
+        out["hash"] = params["hash"]
+    return out
 
 
 def nerf_trunk(params: dict, x_emb: torch.Tensor, cfg: NeRFConfig,

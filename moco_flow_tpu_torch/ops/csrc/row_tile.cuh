@@ -20,8 +20,14 @@
 //   #1 / #5, and the fp32 builds of #7 / #8 in render_pass.cu and
 //   fused_mlp.cu): mma.sync m16n8k8 in TF32 with split operands ("3xTF32"):
 //   a = a_hi + a_lo and b = b_hi + b_lo, each part rounded to TF32 by
-//   cvt.rna, and a_lo b_hi + a_hi b_lo + a_hi b_hi accumulated in fp32
-//   (the dropped a_lo b_lo is ~2^-22 of a term). The warp layout is the
+//   cvt.rna; a k-step's a_lo b_hi + a_hi b_lo + a_hi b_hi is summed on the
+//   tensor cores from zero and added to the running sum with an fp32 add
+//   (mma_split). The tensor core's own additions do not round to nearest:
+//   adding each product into the running sum left it 2.4-4.4x further from
+//   the exact product than cuBLAS's fp32 one (at most; rms 3.2-9.4x), the
+//   k-step sum added with __fadd_rn 0.39-0.70x
+//   (scripts/torch_port_tf32_accum_probe.py). The dropped a_lo b_lo
+//   (~2^-22 of a term) moved neither. The warp layout is the
 //   bf16 one; B (the FFMA layout, (k, pad16(n))) is staged in 16-deep fp32
 //   slices with cp.async, double-buffered, and split at fragment load; A
 //   fragments are 32-bit loads from row-major fp32 shared memory, whose
@@ -236,6 +242,37 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d = a b from zero (one zero register as the accumulator operand, so d
+// takes no registers before the product)
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4],
+                                              const unsigned (&a)[4],
+                                              const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+// c += a_hi b_lo + a_lo b_hi + a_hi b_hi for one k-step: the three
+// products summed from zero on the tensor cores, then added to c rounding
+// to nearest. In this order (b_lo's registers free first) #7's fp32
+// kernel fits its 128 registers without spilling (chip_smoke.py phase 2
+// fails on a spill).
+__device__ __forceinline__ void mma_split(float (&c)[4],
+                                          const unsigned (&ah)[4],
+                                          const unsigned (&al)[4],
+                                          const unsigned (&bh)[2],
+                                          const unsigned (&bl)[2]) {
+  float s[4];
+  mma_tf32_zero(s, ah, bl);
+  mma_tf32(s, al, bh);
+  mma_tf32(s, ah, bh);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) c[q] = __fadd_rn(c[q], s[q]);
+}
+
 // The fp32 product on the tensor cores, the contract of the bf16 rt_mm. A
 // holds finite values (zeros) in its columns k..pad8(k); B's rows past k
 // are staged as zeros.
@@ -298,9 +335,7 @@ __device__ void rt_mm(float* Ws, Term<float> t1, Term<float> t2, int n,
           unsigned bh[2], bl[2];
           tf32_split(B[ks * kWsLdF + t * 8], bh[0], bl[0]);
           tf32_split(B[(ks + 4) * kWsLdF + t * 8], bh[1], bl[1]);
-          mma_tf32(acc[t], al, bh);
-          mma_tf32(acc[t], ah, bl);
-          mma_tf32(acc[t], ah, bh);
+          mma_split(acc[t], ah, al, bh, bl);
         }
       }
     }
@@ -389,9 +424,7 @@ __device__ void rt_mm_presplit(float* Ws, int kd, Term<float> t1,
                                   __float_as_uint(Bh[b1])};
           const unsigned bl[2] = {__float_as_uint(Bl[b0]),
                                   __float_as_uint(Bl[b1])};
-          mma_tf32(acc[t], al, bh);
-          mma_tf32(acc[t], ah, bl);
-          mma_tf32(acc[t], ah, bh);
+          mma_split(acc[t], ah, al, bh, bl);
         }
       }
     }

@@ -19,7 +19,11 @@ path.
 A training render with the NoF but without a warp chain (the val step's)
 warps each sample set once through the single-warp NoF kernel
 (:func:`nof_warp`, :func:`nof_fused_rays`); with ``perturb == 0`` it draws
-nothing and needs no ``Draws``.
+nothing and needs no ``Draws``. With ``noise_std > 0`` a training render
+adds ``noise_std`` times the ``Draws``' standard normals to the raw sigmas
+of each pass before the activation, in the coarse pass too; a render
+without ``Draws`` (the val step's) adds none, where JAX's val step adds
+noise from a fixed key.
 
 ``mlp_impl: pallas`` (``RenderConfig.mlp_impl``) takes the per-op route
 instead, the JAX package's row-major branch (:func:`_render_rows`): the
@@ -31,6 +35,17 @@ stage 3's training and val steps (the bw warp and the chains as separate
 NoF evaluations, the consensus terms on (N, S, 3) tensors) and the stage-3
 test render (the bw warp of each sample set, a sigma-only coarse pass, the
 fine pass on the depth-merged warps).
+
+The hybrids take the same row-major branch, as JAX routes them (its
+``t_mode`` is off for them), in training and at test time:
+``mlp_impl: fused_nof`` runs the NoF warps on the whole-ray kernels (#3,
+and the chains #5/#6 in training; the (N, S, 3) samples are moved to the
+transposed (3, N, S) layout of :func:`nof_chain_rays_t` and back) and the
+NeRF on embedded rows (#8); ``fused_nerf`` the NeRF on the transposed
+whole-ray kernel #1/#2 (#1 alone at test time, the sigma-only coarse pass
+included) and the NoF on rows (#9). Neither runs the test-time pass #7,
+which only ``fused`` takes. A hash-grid NeRF (``encoding: hashgrid``) is
+encoded in PyTorch (``nn/hashgrid.py``) and evaluated on rows (#8).
 """
 
 from __future__ import annotations
@@ -40,6 +55,7 @@ import dataclasses
 import torch
 
 from ..nn.embedding import posenc
+from ..nn.hashgrid import hashgrid_encode
 from ..nn.nerf import NeRFConfig
 from ..nn.nof import NoFConfig
 from ..nn.losses import masked_mean
@@ -86,7 +102,9 @@ class RenderConfig:
     """Render-time options. There is no switch between a kernel and its
     plain version: the device of the rays decides (CUDA runs the kernel,
     the CPU the plain version). ``mlp_impl`` picks the kernels: 'pallas'
-    the per-op route (#8 / #9), 'fused' the whole-ray kernels (#1-#7)."""
+    the per-op route (#8 / #9), 'fused' the whole-ray kernels (#1-#7),
+    'fused_nof' / 'fused_nerf' the hybrids (the NoF on #3-#6 and the NeRF
+    on #8; the NeRF on #1 / #2 and the NoF on #9)."""
     n_samples: int = 64
     n_importance: int = 0
     use_disp: bool = False
@@ -101,7 +119,15 @@ class RenderConfig:
     share_coarse_warps: bool = True
     fine_budget: int = 0   # keep this many fine samples (0 = all, exact)
     coarse_probe: int = 0  # strided coarse probe size (0 = all, exact)
-    mlp_impl: str = "fused"  # 'fused' | 'pallas'
+    mlp_impl: str = "fused"  # 'fused' | 'pallas' | 'fused_nof' | 'fused_nerf'
+
+    @property
+    def nof_fused(self) -> bool:
+        return self.mlp_impl in ("fused", "fused_nof")
+
+    @property
+    def nerf_fused(self) -> bool:
+        return self.mlp_impl in ("fused", "fused_nerf")
 
     @property
     def dtype(self):
@@ -125,11 +151,11 @@ def encode_nerf_xyz(nerf_params: dict, nerf_cfg: NeRFConfig,
                     statics: "ModelStatics", flat: torch.Tensor,
                     anneal: dict) -> torch.Tensor:
     """(M, 3) positions -> the NeRF's input features: the annealed
-    sinusoidal PE, zero-padded to ``in_channels_xyz``."""
+    sinusoidal PE, zero-padded to ``in_channels_xyz``, or the hash-grid
+    features of ``nerf_params['hash']`` (``encoding: hashgrid``), through
+    which the table's gradient flows."""
     if nerf_cfg.encoding == "hashgrid":
-        raise NotImplementedError(
-            "the hash-grid encoding is not ported yet; ROADMAP 'Modules to "
-            "port' item 7")
+        return hashgrid_encode(nerf_params["hash"], flat, nerf_cfg.hash)
     return embed_padded(flat, statics.nerf_xyz, nerf_cfg.in_channels_xyz,
                         anneal.get("nerf_xyz"))
 
@@ -152,13 +178,13 @@ def nof_warp(params: dict, statics: "ModelStatics", anneal: dict,
              xyz: torch.Tensor, ind: torch.Tensor,
              rcfg: "RenderConfig") -> torch.Tensor:
     """Warp (N, S, 3) sample positions through one NoF, the frame index
-    ``ind`` (N, 1) per ray: with the single-warp kernel, or under
-    ``mlp_impl: pallas`` as embedded rows ``[xyz_emb, ind_emb]`` (the frame
-    embedding broadcast to every sample) through :func:`_eval_nof`.
-    Returns (N, S, 3)."""
+    ``ind`` (N, 1) per ray: with the single-warp kernel (``fused``,
+    ``fused_nof``), or under ``pallas`` / ``fused_nerf`` as embedded rows
+    ``[xyz_emb, ind_emb]`` (the frame embedding broadcast to every sample)
+    through :func:`_eval_nof`. Returns (N, S, 3)."""
     cfg = statics.nof
     ind_emb = embed_padded(ind, statics.nof_ind, cfg.extra_feat_dim)
-    if rcfg.mlp_impl != "pallas":
+    if rcfg.nof_fused:
         return nof_fused_rays(params, cfg, statics.nof_xyz.n_freqs,
                               statics.nof_xyz.logscale,
                               anneal.get("nof_xyz"), xyz, ind_emb,
@@ -267,8 +293,10 @@ def nerf_inference(params: dict, nerf_cfg: NeRFConfig, statics: ModelStatics,
                    anneal: dict, xyz_t: torch.Tensor, ind: torch.Tensor,
                    direction: torch.Tensor, z_vals: torch.Tensor,
                    rcfg: RenderConfig, background=None,
-                   weights_only: bool = False):
-    """A NeRF on every sample of a ray batch, then compositing.
+                   weights_only: bool = False, noise=None):
+    """A NeRF on every sample of a ray batch through the whole-ray kernel
+    #1 (#2 its backward), then compositing; ``noise`` (N, S) is added to
+    the raw sigmas.
 
     ``xyz_t``: (3, N, S) sample positions (the fused path's transposed
     layout). Returns ``(rgb, depth, weights, alphas)``; rgb and depth are
@@ -287,10 +315,10 @@ def nerf_inference(params: dict, nerf_cfg: NeRFConfig, statics: ModelStatics,
                               sigma_only=weights_only,
                               compute_dtype=rcfg.dtype)
     if weights_only:
-        alphas, weights = composite(out_t[0], z_vals, dir_norm, None,
+        alphas, weights = composite(out_t[0], z_vals, dir_norm, noise,
                                     rcfg.activation)
         return None, None, weights, alphas
-    return _composite_tail(out_t[0:3], out_t[3], z_vals, dir_norm, None,
+    return _composite_tail(out_t[0:3], out_t[3], z_vals, dir_norm, noise,
                            rcfg, background, transposed_rgb=True)
 
 
@@ -299,10 +327,17 @@ def nerf_inference_rows(params: dict, nerf_cfg: NeRFConfig,
                         xyz: torch.Tensor, ind: torch.Tensor,
                         direction: torch.Tensor, z_vals: torch.Tensor,
                         rcfg: RenderConfig, background=None,
-                        weights_only: bool = False):
-    """:func:`nerf_inference` on the per-op route: ``xyz`` (N, S, 3) is
+                        weights_only: bool = False, noise=None):
+    """:func:`nerf_inference` on the row-major branch: ``xyz`` (N, S, 3) is
     embedded (and the extra feature broadcast to every sample) here, and the
-    NeRF runs through :func:`_eval_nerf`."""
+    NeRF runs through :func:`_eval_nerf`; under ``fused_nerf`` it goes to
+    :func:`nerf_inference` in the transposed layout instead."""
+    if rcfg.nerf_fused:
+        return nerf_inference(params, nerf_cfg, statics, anneal,
+                              xyz.permute(2, 0, 1).contiguous(), ind,
+                              direction, z_vals,
+                              rcfg, background=background,
+                              weights_only=weights_only, noise=noise)
     n, s = xyz.shape[0], xyz.shape[1]
     dir_norm = torch.linalg.norm(direction, dim=-1, keepdim=True)
     x_emb = encode_nerf_xyz(params, nerf_cfg, statics, xyz.reshape(-1, 3),
@@ -310,13 +345,13 @@ def nerf_inference_rows(params: dict, nerf_cfg: NeRFConfig,
     if weights_only:
         sigmas = _eval_nerf(params, nerf_cfg, x_emb, None, True, rcfg)
         alphas, weights = composite(sigmas.reshape(n, s), z_vals, dir_norm,
-                                    None, rcfg.activation)
+                                    noise, rcfg.activation)
         return None, None, weights, alphas
     extra = _extra_embedding(nerf_cfg, statics, ind, direction, n, s)
     out = _eval_nerf(params, nerf_cfg, x_emb, extra, False,
                      rcfg).reshape(n, s, 4)
-    return _composite_tail(out[..., :3], out[..., 3], z_vals, dir_norm, None,
-                           rcfg, background)
+    return _composite_tail(out[..., :3], out[..., 3], z_vals, dir_norm,
+                           noise, rcfg, background)
 
 
 def _consensus(disp_src: torch.Tensor, disp_rec: torch.Tensor,
@@ -387,31 +422,58 @@ def _chained_ind(rays: torch.Tensor, rcfg: RenderConfig, use_nof: bool):
     return rays[:, 9:10]
 
 
+def _chain_warps(params: dict, statics: ModelStatics, anneal: dict,
+                 rcfg: RenderConfig, xyz_t: torch.Tensor, img_ind,
+                 chained_ind) -> dict:
+    """The bw warp and the chains that are on of (3, N, S) samples in one
+    kernel (#5 / #6): ``cano``, ``recon`` and ``chain_recon`` (None where
+    its chain is off), each (3, N, S)."""
+    cfg = statics.nof
+    ind_emb = embed_padded(img_ind, statics.nof_ind, cfg.extra_feat_dim)
+    ch_emb = (embed_padded(chained_ind, statics.nof_ind, cfg.extra_feat_dim)
+              if rcfg.chain_global else None)
+    cano, recon, chain_recon = nof_chain_rays_t(
+        params, cfg, statics.nof_xyz.n_freqs, statics.nof_xyz.logscale,
+        anneal.get("nof_xyz"), xyz_t, ind_emb, ch_emb, rcfg.chain_local,
+        rcfg.chain_global, compute_dtype=rcfg.dtype)
+    return {"cano": cano, "recon": recon, "chain_recon": chain_recon}
+
+
 def _check_train(rcfg: RenderConfig, draws):
     if draws is None and rcfg.perturb > 0:
         raise ValueError("a perturbed training render needs its Draws")
-    if rcfg.noise_std > 0:
-        raise NotImplementedError(
-            "sigma noise (noise_std > 0) is not drawn by Draws yet; "
-            "ROADMAP 'Modules to port' item 2")
+
+
+def _sigma_noise(rcfg: RenderConfig, draws, which: str):
+    """``noise_std`` times the Draws' sigma noise of a pass (``coarse`` or
+    ``fine``), or None: at test time, without noise, or without Draws."""
+    if rcfg.noise_std <= 0 or rcfg.test_time or draws is None:
+        return None
+    noise = getattr(draws, f"sigma_noise_{which}")
+    if noise is None:
+        raise ValueError(f"noise_std > 0: the Draws carry no sigma noise of "
+                         f"the {which} pass (draw them with noise_std)")
+    return noise * rcfg.noise_std
 
 
 def _render_rows(params: dict, statics: ModelStatics, anneal: dict,
                  rays: torch.Tensor, background, rcfg: RenderConfig,
                  draws) -> dict:
-    """:func:`render_rays` on the per-op route (``mlp_impl: pallas``), the
-    JAX package's row-major branch: every NoF evaluation is one
-    :func:`nof_warp` (kernel #9), every NeRF pass one
-    :func:`nerf_inference_rows` (#8). In training with the NoF, each sample
-    set runs the bw warp and the chains that are on (local: fw(cano);
-    global: fw -> bw at the chained frame, then fw at the ray's frame);
-    under ``share_coarse_warps`` the fine pass warps only the new depths and
-    depth-merges them with the coarse warps."""
+    """:func:`render_rays` on the JAX package's row-major branch, for the
+    per-op route (``mlp_impl: pallas``) and the hybrids: every NoF
+    evaluation is one :func:`nof_warp` (kernel #9; #3 under ``fused_nof``),
+    every NeRF pass one :func:`nerf_inference_rows` (#8; #1 / #2 under
+    ``fused_nerf``). In training with the NoF, each sample set runs the bw
+    warp and the chains that are on (local: fw(cano); global: fw -> bw at
+    the chained frame, then fw at the ray's frame), under ``fused_nof`` as
+    one chain kernel (#5 / #6); under ``share_coarse_warps`` the fine pass
+    warps only the new depths and depth-merges them with the coarse
+    warps."""
     use_nof = rcfg.use_nof and statics.nof is not None
     if rcfg.fine_budget or rcfg.coarse_probe:
         raise ValueError("fine_budget / coarse_probe are implemented on the "
                          "fused test-time route only, not on mlp_impl: "
-                         "pallas")
+                         f"{rcfg.mlp_impl}")
     if not rcfg.test_time:
         _check_train(rcfg, draws)
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
@@ -429,7 +491,17 @@ def _render_rows(params: dict, statics: ModelStatics, anneal: dict,
     def warp(net, xyz, ind):
         return nof_warp(params[net], statics, anneal, xyz, ind, rcfg)
 
+    chains = (use_nof and not rcfg.test_time
+              and (rcfg.chain_local or rcfg.chain_global))
+
     def warp_stack(xyz):
+        if chains and rcfg.nof_fused:
+            # the whole chain in one kernel, on the transposed layout
+            out = _chain_warps(params, statics, anneal, rcfg,
+                               xyz.permute(2, 0, 1).contiguous(), img_ind,
+                               chained_ind)
+            return {k: v.permute(1, 2, 0) for k, v in out.items()
+                    if v is not None}
         cano = warp("bw_NoF", xyz, img_ind)
         out = {"cano": cano}
         if rcfg.chain_local and not rcfg.test_time:
@@ -449,7 +521,8 @@ def _render_rows(params: dict, statics: ModelStatics, anneal: dict,
         params["coarse_NeRF"], statics.coarse, statics, anneal,
         warped_c["cano"] if use_nof else xyz_coarse, img_ind, rays_d,
         z_vals, rcfg, background=background,
-        weights_only=coarse_weights_only)
+        weights_only=coarse_weights_only,
+        noise=_sigma_noise(rcfg, draws, "coarse"))
     result["opacity_coarse"] = torch.sum(weights_c, dim=1)
     if not coarse_weights_only:
         result["rgb_coarse"] = rgb_c
@@ -481,7 +554,7 @@ def _render_rows(params: dict, statics: ModelStatics, anneal: dict,
     rgb_f, depth_f, weights_f, alphas_f = nerf_inference_rows(
         params["fine_NeRF"], statics.fine or statics.coarse, statics,
         anneal, fine_input, img_ind, rays_d, z_all, rcfg,
-        background=background)
+        background=background, noise=_sigma_noise(rcfg, draws, "fine"))
     result["rgb_fine"] = rgb_f
     result["depth_fine"] = depth_f
     result["opacity_fine"] = torch.sum(weights_f, dim=1)
@@ -516,23 +589,16 @@ def _render_train(params: dict, statics: ModelStatics, anneal: dict,
             cano = nof_warp(params["bw_NoF"], statics, anneal,
                             xyz_t.permute(1, 2, 0), img_ind, rcfg)
             return {"cano": cano.permute(2, 0, 1)}
-        cfg = statics.nof
-        ind_emb = embed_padded(img_ind, statics.nof_ind, cfg.extra_feat_dim)
-        ch_emb = (embed_padded(chained_ind, statics.nof_ind,
-                               cfg.extra_feat_dim)
-                  if rcfg.chain_global else None)
-        cano, recon, chain_recon = nof_chain_rays_t(
-            params, cfg, statics.nof_xyz.n_freqs, statics.nof_xyz.logscale,
-            anneal.get("nof_xyz"), xyz_t, ind_emb, ch_emb, rcfg.chain_local,
-            rcfg.chain_global, compute_dtype=rcfg.dtype)
-        return {"cano": cano, "recon": recon, "chain_recon": chain_recon}
+        return _chain_warps(params, statics, anneal, rcfg, xyz_t, img_ind,
+                            chained_ind)
 
     result: dict = {}
     warped_c = warp_stack(xyz_coarse) if use_nof else None
     rgb_c, depth_c, weights_c, alphas_c = nerf_inference(
         params["coarse_NeRF"], statics.coarse, statics, anneal,
         warped_c["cano"] if use_nof else xyz_coarse, img_ind, rays_d,
-        z_vals, rcfg, background=background)
+        z_vals, rcfg, background=background,
+        noise=_sigma_noise(rcfg, draws, "coarse"))
     result["opacity_coarse"] = torch.sum(weights_c, dim=1)
     result["rgb_coarse"] = rgb_c
     result["depth_coarse"] = depth_c
@@ -566,7 +632,7 @@ def _render_train(params: dict, statics: ModelStatics, anneal: dict,
     rgb_f, depth_f, weights_f, alphas_f = nerf_inference(
         params["fine_NeRF"], statics.fine or statics.coarse, statics,
         anneal, fine_input, img_ind, rays_d, z_all, rcfg,
-        background=background)
+        background=background, noise=_sigma_noise(rcfg, draws, "fine"))
     result["rgb_fine"] = rgb_f
     result["depth_fine"] = depth_f
     result["opacity_fine"] = torch.sum(weights_f, dim=1)
@@ -595,7 +661,7 @@ def render_rays(params: dict, statics: ModelStatics, anneal: dict,
     scalars ``nof_local_disp_coarse`` / ``_fine`` and
     ``nof_global_disp_coarse`` / ``_fine`` of the chains that are on.
     """
-    if rcfg.mlp_impl == "pallas":
+    if rcfg.mlp_impl != "fused":
         return _render_rows(params, statics, anneal, rays, background, rcfg,
                             draws)
     if not rcfg.test_time:

@@ -443,6 +443,14 @@ class BaseTrainer:
         ends = np.stack([o + d * r[:, 6:7], o + d * r[:, 7:8]])
         return float(np.abs(ends).max()) * 1.05
 
+    def clear_render_caches(self):
+        """Drop what was computed from the NeRF's weights or shapes: the
+        occupancy grids and the last view's keep mask and stats (a swapped
+        NeRF, ``render/distill.py::swap_render_nerf``)."""
+        self._occ_grids.clear()
+        self._occ_keep = None
+        self._occ_stats = None
+
     def occupancy_grid(self, frame_idx: int):
         """The frame's occupancy grid (canonical for -1), built once and
         reused by every view of the frame until the next training step."""

@@ -20,7 +20,7 @@ import re
 import numpy as np
 import torch
 
-from ..nn.nerf import sigma_branch_params
+from ..nn.nerf import SIGMA_BRANCH
 
 
 def _to_numpy(v) -> np.ndarray:
@@ -177,17 +177,17 @@ def _onto(cur, loaded, path: str):
 def transfer_pretrained_nerf(params: dict, ckpt_tree: dict) -> dict:
     """The stage-1 checkpoint's *fine* NeRF sigma branch (trunk, sigma head,
     ``final``) into both stage-3 NeRFs; ``extra`` / ``rgb`` keep their fresh
-    init."""
+    init, and so does a ``hash`` table (JAX's code moves only these three,
+    whatever its docstring says), which stays trainable."""
     src = ckpt_tree.get("params", ckpt_tree).get("fine_NeRF")
     if src is None:
         raise KeyError("checkpoint has no fine_NeRF parameters")
-    branch = sigma_branch_params(src)
     out = dict(params)
     for name in ("coarse_NeRF", "fine_NeRF"):
         if name in out:
             tgt = dict(out[name])
-            for k, v in branch.items():
-                tgt[k] = _onto(tgt[k], v, f"{name}/{k}")
+            for k in SIGMA_BRANCH:
+                tgt[k] = _onto(tgt[k], src[k], f"{name}/{k}")
             out[name] = tgt
     return out
 

@@ -1,12 +1,20 @@
 """Model statics, parameters and render configs from config dicts.
 
 Port of ``moco_flow_tpu/train/factory.py``. ``render_config`` reads
-``mlp_impl`` as a choice of kernels, never of a kernel against its plain
-version (the device of the tensors decides that: a CUDA tensor runs the
-kernel, a CPU tensor the plain version): ``pallas`` takes the per-op route
-(kernels #8 / #9, ``ops/fused_mlp.py``); ``fused``, ``xla`` and ``auto``
-take the whole-ray kernels (#1-#7), since the port has no XLA route; the
-hybrids ``fused_nof`` / ``fused_nerf`` are not ported.
+``mlp_impl`` (``model.mlp_impl``, or its argument) as a choice of kernels,
+never of a kernel against its plain version (the device of the tensors
+decides that: a CUDA tensor runs the kernel, a CPU tensor the plain
+version): ``pallas`` takes the per-op route (kernels #8 / #9,
+``ops/fused_mlp.py``); ``fused``, ``xla`` and ``auto`` take the whole-ray
+kernels (#1-#7), since the port has no XLA route; the hybrids
+``fused_nof`` / ``fused_nerf`` take the NoF on the whole-ray kernels and
+the NeRF on rows (#8), or the reverse (#1 / #2 and #9). A hash-grid NeRF
+(``encoding: hashgrid``) has no whole-ray kernel (JAX's has no fused
+kernel for it either): ``fused``, ``fused_nerf`` and ``pallas`` raise as
+JAX's do, and ``auto`` / ``xla`` resolve to ``fused_nof``, the port's
+counterpart of JAX's all-XLA route for it: the NoF stays on the whole-ray
+kernels like every other ``auto`` / ``xla`` config, and the NeRF goes to
+#8.
 """
 
 from __future__ import annotations
@@ -60,21 +68,31 @@ def init_params(gen: torch.Generator, statics: ModelStatics,
 
 
 _ROUTES = {"pallas": "pallas", "fused": "fused", "xla": "fused",
-           "auto": "fused"}
+           "auto": "fused", "fused_nof": "fused_nof",
+           "fused_nerf": "fused_nerf"}
+
+
+def _uses_hashgrid(model_cfg: dict) -> bool:
+    return any((model_cfg.get(k) or {}).get("encoding") == "hashgrid"
+               for k in ("coarse_NeRF", "fine_NeRF"))
 
 
 def render_config(model_cfg: dict, use_nof: bool = False,
                   chain_local: bool = False, chain_global: bool = False,
                   test_time: bool = False, perturb=None,
-                  compute_dtype: str | None = None) -> RenderConfig:
-    impl = model_cfg.get("mlp_impl", "auto")
-    if impl in ("fused_nof", "fused_nerf"):
-        raise NotImplementedError(
-            f"mlp_impl {impl!r} (a hybrid of the fused and XLA routes) is not "
-            "ported; ROADMAP 'Modules to port' item 2")
+                  compute_dtype: str | None = None,
+                  mlp_impl: str | None = None) -> RenderConfig:
+    impl = mlp_impl or model_cfg.get("mlp_impl", "auto")
     if impl not in _ROUTES:
         raise ValueError(f"unknown mlp_impl {impl!r}")
     route = _ROUTES[impl]
+    if _uses_hashgrid(model_cfg):
+        if impl in ("fused", "fused_nerf", "pallas"):
+            raise ValueError(
+                f"mlp_impl={impl} has no hashgrid-encoding kernel path; use "
+                "mlp_impl: xla (or auto) with encoding: hashgrid")
+        # the NoF on the whole-ray kernels, the hash NeRF on rows (#8)
+        route = "fused_nof"
     fine_budget = int(model_cfg.get("fine_budget", 0))
     coarse_probe = int(model_cfg.get("coarse_probe", 0))
     if not test_time:

@@ -223,7 +223,8 @@ class MoCoFlowTrainer(BaseTrainer):
                     int(mcfg["N_rand"]), rcfg.n_samples, rcfg.n_importance,
                     self.num_frames, self.chain_global,
                     n_sampled=int(mcfg.get("N_sampled", 1000)) if corr else 0,
-                    num_verts=int(self._corr.verts.shape[1]) if corr else 0)
+                    num_verts=int(self._corr.verts.shape[1]) if corr else 0,
+                    noise_std=rcfg.noise_std)
 
     def _losses(self, params, anneal, rays, rgbs, bg, draws: Draws, corr,
                 norm_idx, nof_mode: str):

@@ -52,7 +52,8 @@ class NeRFTrainer(BaseTrainer):
         rcfg = self.rcfg_train
         return draw(gen, frame, self._valid_count[frame],
                     int(self.config["model"]["N_rand"]), rcfg.n_samples,
-                    rcfg.n_importance, self.num_frames, chain_global=False)
+                    rcfg.n_importance, self.num_frames, chain_global=False,
+                    noise_std=rcfg.noise_std)
 
     def train_step(self, draws: Draws | None = None) -> dict:
         """One training step at ``self.step`` (the clock is not ticked):

@@ -567,3 +567,83 @@ def test_fwd_mlp_deterministic(card, which, dt):
     a, b = kernel(dt), kernel(dt)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# The render-time models' shapes: the distilled student (4x128, skip 2;
+# render/distill.py's default, and a width-48 one) through #7 and #8, and
+# the hash-grid NeRF (2x64, no skips, 16 hash features in, a 'dir' extra of
+# 27) through #8.
+NEW_NERFS = {
+    "student-4x128": NeRFConfig(depth=4, width=128, skips=(2,),
+                                extra_feat_type="ind", extra_feat_dim=5),
+    "student-6x48": NeRFConfig(depth=6, width=48, skips=(3,),
+                               extra_feat_type="ind", extra_feat_dim=5),
+    "hash-2x64": NeRFConfig(depth=2, width=64, in_channels_xyz=16,
+                            skips=(), extra_feat_type="dir",
+                            extra_feat_dim=27),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("sigma_only", [False, True],
+                         ids=["full", "sigma-only"])
+@pytest.mark.parametrize("net", list(NEW_NERFS))
+def test_fused_mlp_nerf_new_shapes(card, net, sigma_only, dt):
+    """#8 at the student's and the hash NeRF's widths on a ragged row
+    count, within TOL; bf16 also within the plain version's bf16-vs-fp32
+    gap."""
+    from moco_flow_tpu_torch.ops import fused_mlp as fm
+    cfg = NEW_NERFS[net]
+    gen = torch.Generator().manual_seed(13)
+    ws = fm._nerf_weights_flat(init_nerf(gen, cfg, card), sigma_only)
+    n = 3001
+    x = (torch.rand(n, cfg.in_channels_xyz, generator=gen) * 2
+         - 1).to(card)
+    e = None if sigma_only else (torch.rand(n, cfg.extra_feat_dim,
+                                            generator=gen) * 2 - 1).to(card)
+    before = fm.nerf_pallas.launches
+    got = fm.nerf_pallas(cfg, dt, x, e, sigma_only, ws)
+    want = fm._nerf_pallas_ref(cfg, dt, x, e, sigma_only, ws)
+    want32 = fm._nerf_pallas_ref(cfg, None, x, e, sigma_only, ws)
+    torch.cuda.synchronize()
+    assert fm.nerf_pallas.launches == before + 1
+    atol, rtol = TOL[dt]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+    if dt is not None:
+        assert (got - want).abs().max() <= (want - want32).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [None, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("sigma_only", [True, False], ids=["coarse", "fine"])
+@pytest.mark.parametrize("net", ["student-4x128", "student-6x48"])
+def test_render_pass_student_shapes(card, net, sigma_only, dt):
+    """#7 with the bw warp at a student's widths, within TOL."""
+    gen = torch.Generator().manual_seed(14)
+    ncfg, fcfg = NEW_NERFS[net], NoFConfig()
+    params = {"coarse_NeRF": init_nerf(gen, ncfg, card),
+              "bw_NoF": init_nof(gen, fcfg, card)}
+    n, s = 300, 64
+    o = torch.tensor([0.0, 0.0, 4.0]) + 0.05 * torch.randn(n, 3, generator=gen)
+    d = torch.randn(n, 3, generator=gen)
+    d[:, 2] = -d[:, 2].abs() - 1
+    d = d / d.norm(dim=-1, keepdim=True)
+    z = torch.sort(2.5 + 3 * torch.rand(n, s, generator=gen), -1).values
+    ind = torch.rand(n, 1, generator=gen) * 2 - 1
+    o, d, z, ind = (t.to(card) for t in (o, d, z, ind))
+    extra = embed_padded(ind, EmbeddingSpec(2, in_channels=1), 5)
+    ind_emb = embed_padded(ind, EmbeddingSpec(16, in_channels=1), 33)
+    args = (params, "coarse_NeRF", ncfg, fcfg, 10, 5, True, True,
+            anneal_weights(505000, 10, 5000, 1005000).to(card),
+            anneal_weights(505000, 5, 5000, 1005000).to(card), o, d, z,
+            None if sigma_only else extra, ind_emb, True, sigma_only, dt)
+    before = render_pass.launches
+    ks, kr = render_pass(*args)
+    rs, rr = render_pass_ref(*args)
+    torch.cuda.synchronize()
+    assert render_pass.launches == before + 1
+    atol, rtol = TOL[dt]
+    torch.testing.assert_close(ks, rs, atol=atol, rtol=rtol)
+    if not sigma_only:
+        torch.testing.assert_close(kr, rr, atol=atol, rtol=rtol)

@@ -13,6 +13,8 @@ keeps the same samples on both sides because ``compact_fine_samples`` sorts
 stably, like ``lax.sort``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -104,9 +106,10 @@ def test_fine_budget_and_probe(stored):
 
 def test_training_branch_raises(stored):
     """The training render with the NoF but no warp chain (the val step's,
-    through the single-warp NoF kernel) runs; what it still lacks raises:
-    sigma noise names its ROADMAP item, and a perturbed render without its
-    Draws is refused (the chained branch is tests/test_torch_train_render.py,
+    through the single-warp NoF kernel) runs, and with sigma noise from its
+    Draws (zero noise gives the noiseless render's bits); what it lacks
+    raises: sigma noise without the Draws' noise, and a perturbed render
+    without its Draws (the chained branch is tests/test_torch_train_render.py,
     the val step tests/test_torch_train_phases.py)."""
     params = params_from_jax(_unflatten(
         {k[len("params/"):]: v for k, v in stored.items()
@@ -128,7 +131,23 @@ def test_training_branch_raises(stored):
     out = render_rays(params, statics, anneal, rays, bg, rcfg(perturb=0.0))
     assert out["rgb_fine"].shape == (n, 3)
     assert torch.isfinite(out["rgb_fine"]).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 2"):
+    base = render_rays(params, statics, anneal, rays, bg, rcfg(perturb=1.0),
+                       draws=draws)
+    zero = render_rays(params, statics, anneal, rays, bg,
+                       rcfg(perturb=1.0, noise_std=1.0),
+                       draws=dataclasses.replace(
+                           draws, sigma_noise_coarse=torch.zeros(n, s),
+                           sigma_noise_fine=torch.zeros(n, s + i)))
+    for k, v in base.items():
+        torch.testing.assert_close(zero[k], v, rtol=0, atol=0)
+    noised = render_rays(params, statics, anneal, rays, bg,
+                         rcfg(perturb=1.0, noise_std=1.0),
+                         draws=dataclasses.replace(
+                             draws, sigma_noise_coarse=torch.randn(n, s),
+                             sigma_noise_fine=torch.randn(n, s + i)))
+    assert torch.isfinite(noised["rgb_fine"]).all()
+    assert not torch.equal(noised["rgb_fine"], base["rgb_fine"])
+    with pytest.raises(ValueError, match="sigma noise"):
         render_rays(params, statics, anneal, rays, bg,
                     rcfg(perturb=1.0, noise_std=1.0), draws=draws)
     with pytest.raises(ValueError, match="Draws"):

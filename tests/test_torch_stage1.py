@@ -241,8 +241,8 @@ def test_per_op_training_with_the_nof_raises(stage3_params):
     """The stage-3 training render under pallas runs (its parity with JAX
     is ``tests/test_torch_pallas_train.py``'s): with the bw warp only it
     matches the fused route's training render of the same weights and
-    depths; and it still refuses what is not ported, sigma noise (ROADMAP
-    item 2) and the test-time fine budget / coarse probe."""
+    depths; with ``noise_std > 0`` it needs the Draws' sigma noise; and it
+    refuses the test-time fine budget / coarse probe."""
     rays, bg, _ = _rays(11)
     p = params_from_jax(stage3_params)
     statics = _s3_statics(tvol, NeRFConfig, NoFConfig)
@@ -253,9 +253,14 @@ def test_per_op_training_with_the_nof_raises(stage3_params):
     assert set(res) == set(fused)
     for k, v in fused.items():
         _close(res[k], v.numpy(), f"{k} vs the fused route")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    draws = Draws(frame=0, pixels=torch.zeros(N_RAYS, dtype=torch.long),
+                  background=torch.zeros(1, 3), chained=None,
+                  perturb=torch.rand(N_RAYS, N_SAMPLES),
+                  pdf=torch.rand(N_RAYS, N_IMPORTANCE))
+    with pytest.raises(ValueError, match="sigma noise"):
         tvol.render_rays(*args, tvol.RenderConfig(mlp_impl="pallas",
-                                                  noise_std=1.0, **kw))
+                                                  noise_std=1.0, **kw),
+                         draws=draws)
     with pytest.raises(ValueError, match="fused test-time route"):
         tvol.render_rays(*args, tvol.RenderConfig(mlp_impl="pallas",
                                                   fine_budget=8, **kw))
@@ -263,7 +268,9 @@ def test_per_op_training_with_the_nof_raises(stage3_params):
 
 @pytest.mark.parametrize("impl,route", [("pallas", "pallas"),
                                         ("fused", "fused"), ("xla", "fused"),
-                                        ("auto", "fused"), (None, "fused")])
+                                        ("auto", "fused"), (None, "fused"),
+                                        ("fused_nof", "fused_nof"),
+                                        ("fused_nerf", "fused_nerf")])
 def test_render_config_routes(impl, route):
     model = {} if impl is None else {"mlp_impl": impl}
     assert render_config(model).mlp_impl == route
@@ -272,8 +279,9 @@ def test_render_config_routes(impl, route):
 
 def test_render_config_refuses_what_it_cannot_run():
     for impl in ("fused_nof", "fused_nerf"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_config({"mlp_impl": impl})
+        with pytest.raises(ValueError, match="fused test-time route"):
+            render_config({"mlp_impl": impl, "fine_budget": 24},
+                          test_time=True)
     with pytest.raises(ValueError, match="unknown"):
         render_config({"mlp_impl": "triton"})
     model = {"mlp_impl": "pallas", "fine_budget": 24, "coarse_probe": 8}

@@ -138,9 +138,11 @@ def _trainer(stored, step: int) -> MoCoFlowTrainer:
 @pytest.mark.parametrize("step,phase", [(5000, "none"), (10000, "msk"),
                                         (100, "full"), (1_100_000, "msk")])
 def test_other_phases_raise(stored, scene_dir, step, phase):
-    """Every phase trains now (tests/test_torch_train_phases.py holds them
-    against JAX); what still raises in each, naming ROADMAP, is sigma noise
-    (``noise_std > 0``), which ``Draws`` does not draw yet."""
+    """Every phase trains (tests/test_torch_train_phases.py holds them
+    against JAX), with sigma noise too: under ``noise_std > 0`` the step's
+    Draws carry the noise of both passes, and the step's losses are finite
+    and its parameters move (the noise against JAX is
+    tests/test_torch_hybrids.py's)."""
     root, smpl = scene_dir
     cfg = json.loads(str(stored["config_json"]))
     cfg["model"]["noise_std"] = 0.5
@@ -153,8 +155,13 @@ def test_other_phases_raise(stored, scene_dir, step, phase):
     tr.clock.step = step
     assert tr.phase(step)[0] == phase
     assert tr.phase(STEP) == ("none", False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.train_step()
+    draws = tr.draw(step)
+    assert draws.sigma_noise_coarse.shape == draws.perturb.shape
+    before = {k: t.detach().clone() for k, t in tr._named().items()}
+    metrics = tr.train_step(draws=draws)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert any(not torch.equal(t, before[k])
+               for k, t in tr._named().items())
 
 
 def test_val_every_n_step_raises(stored, tmp_path):
