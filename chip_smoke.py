@@ -179,14 +179,32 @@ happened; any failure raises and the script exits non-zero):
      one with noise_std 1.0: finite losses, moving parameters, the
      opt_named round trip. #3 / #8 / #9 held on the first launch of each
      shape of (b) and (c).
+  23. data parallelism: two ranks on cuda:0 over gloo, spawned by
+     parallel/multihost.py::launch (the kernels built here first): (a)
+     tests/fixtures/torch_port_dp_golden.npz (JAX's make_mesh(2) steps of
+     the three stages, scripts/make_torch_port_dp_golden.py) replayed on
+     each rank within STEP_TOL, the ranks' parameters equal to the bit;
+     (b) train() at c2f.yaml's widths from a seeded checkpoint at step
+     4990, 3 full steps (the clock ticking by 2) in fp32 and in bf16,
+     equal to the bit to one process that runs both ranks' draws on the
+     same parameters, averages their gradients and metrics and applies the
+     same two Adam updates; each rank's step, the gradient all-reduce and
+     peak memory; (c) one stage-1 step (init_nerf.yaml, 'xla') and one
+     stage-2 step (init_nof.yaml) through train() on the two ranks; (d)
+     test() --eval_metrics on one 256x256 fp32 frame, fused and pallas,
+     each rank's frame equal to world 1's to the bit, both timed; (e) the
+     fixture over NCCL on two cards, where there are two (else the line
+     says it was not run). The two ranks share one card's SMs: its times
+     are no scaling figure.
 Phase 9 also holds #3/#4 at init_nof.yaml's NoF (0 xyz bands) at stage 2's
 shape. The last three lines are the card, the kernel JSON (launch counts
-from the main paths of phases 5, 8, 11, 14, 15, 17, 18, 19, 20, 21 and 22) and
-the result JSON. Needs one CUDA card; imports neither JAX nor moco_flow_tpu.
+from the main paths of phases 5, 8, 11, 14, 15, 17, 18, 19, 20, 21, 22 and
+23) and the result JSON. Needs one CUDA card; imports neither JAX nor moco_flow_tpu.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import shutil
@@ -3073,7 +3091,8 @@ def phase_cli(card: str) -> dict:
                 tcfg["num_iters"] = n
                 path = os.path.join(CLI_DIR, f"{stage}_{run}.yaml")
                 dump_config(cfg, path)
-                argv = ["-c", path, "-n", run, "-s", "0", "--device", DEVICE]
+                argv = ["-c", path, "-n", run, "-s", "0", "--device", DEVICE,
+                        "--num_devices", "1"]
                 if stage == "init_nerf" and run == "run1":
                     seed = os.path.join(CLI_DIR, "seed", "ckpts", "seeded")
                     shift = _seeded_stage1(cfg, seed)
@@ -3146,7 +3165,8 @@ def phase_cli(card: str) -> dict:
             out = os.path.join(CLI_DIR, f"test_{impl}")
             common = ["-c", path, "--render_gt", "--reso", str(CLI_RESO),
                       "-s", "0", "--device", DEVICE, "--out_dir", out,
-                      "--extract_mesh", "--N_grid", str(CLI_GRID)]
+                      "--extract_mesh", "--N_grid", str(CLI_GRID),
+                      "--num_devices", "1"]
             calls = (common + ["--render_training_poses",
                                "--render_spherical_poses",
                                "--render_bullet_time", "--mesh_frame", "-1",
@@ -3504,7 +3524,7 @@ def phase_occ_cli(card: str, cli: dict) -> dict:
                     "--render_gt", "--reso", str(CLI_RESO), "-s", "0",
                     "--device", DEVICE, "--out_dir", out, "--occ_res",
                     str(OCC_CLI_RES), "--render_frame", "0",
-                    "--eval_metrics"]
+                    "--eval_metrics", "--num_devices", "1"]
             t = time.time()
             tt, got = _count_launches(lambda: test_main(argv))
             wall = time.time() - t
@@ -3958,6 +3978,368 @@ def phase_options(card: str, tr) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism (phase 23)
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_START, DP_STEPS = 4990, 3         # full steps 4990, 4992, 4994 (c2f: 5000)
+DP_DIR = os.path.join(HERE, "build", "chip_smoke_dp")
+DP_REDUCE_REPS = 10
+DP_RESO = 256
+DP_FRAME_REPS = 2
+
+
+def _dp_sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _dp_replay(rank: int, dev) -> dict:
+    """The DP fixture's steps on this rank
+    (scripts/make_torch_port_dp_golden.py)."""
+    from scripts import make_torch_port_dp_golden as gd
+    arrs = gd.load()
+    return {stage: gd.port_run(arrs, stage, rank, dev) for stage in gd.RUNS}
+
+
+def _check_dp_replay(results: list, tag: str) -> tuple:
+    """Each rank's replay within STEP_TOL of JAX's mesh steps, the ranks'
+    parameters and metrics equal to the bit. Returns (worst metric rel,
+    worst param |diff|)."""
+    from scripts import make_torch_port_dp_golden as gd
+    arrs = gd.load()
+    worst = perr = 0.0
+    for stage, (_, n_steps) in gd.RUNS.items():
+        for r in results:
+            metrics, params = r["replay"][stage]
+            for i, m in enumerate(metrics):
+                want = gd.unflatten_prefix(arrs, f"{stage}/metrics/{i}")
+                if set(m) != set(want):
+                    raise AssertionError(f"{tag} {stage} step {i}: keys "
+                                         f"{sorted(m)} vs {sorted(want)}")
+                for k, v in m.items():
+                    w = float(want[k])
+                    rel = abs(v - w) / max(abs(w), 1e-30)
+                    worst = max(worst, rel)
+                    if rel > STEP_TOL["metrics_rtol"]:
+                        raise AssertionError(f"{tag} {stage} step {i} {k}: "
+                                             f"port {v} JAX {w}")
+            want = gd.unflatten_prefix(arrs, f"{stage}/params{n_steps}")
+            for k, v in params.items():
+                d = float(np.abs(v - want[k]).max())
+                perr = max(perr, d)
+                if d > STEP_TOL["params_atol"]:
+                    raise AssertionError(f"{tag} {stage} params {k}: "
+                                         f"max|diff| {d:.3e}")
+        (m0, p0), (m1, p1) = (r["replay"][stage] for r in results)
+        if m0 != m1 or any(p0[k].tobytes() != p1[k].tobytes() for k in p0):
+            raise AssertionError(f"{tag} {stage}: the ranks' metrics or "
+                                 "parameters differ")
+    return worst, perr
+
+
+def _dp_train(dev, cfg: dict, seed: str, scene, extra=()) -> tuple:
+    """train(config, args) on this rank, each step's metrics recorded:
+    (trainer, [metrics per step])."""
+    from moco_flow_tpu_torch.train.__main__ import parse_args as train_args
+    from moco_flow_tpu_torch.train.__main__ import train
+    from moco_flow_tpu_torch.train.base import BaseTrainer
+    args = ["-c", "(dict)", "-n", "dp", "--device", str(dev), *extra]
+    if seed:
+        args += ["-r", seed]
+    record = []
+    orig = BaseTrainer.train_func
+
+    def recorded(self):
+        out = orig(self)
+        record.append({k: float(v) for k, v in out.items()
+                       if k != "state/nerf"})
+        return out
+
+    BaseTrainer.train_func = recorded
+    try:
+        tr = train(copy.deepcopy(cfg), train_args(args), scene=scene)
+    finally:
+        BaseTrainer.train_func = orig
+    if tr.logger is not None:
+        tr.logger.close()
+    _dp_sync(dev)
+    return tr, record
+
+
+def _host_ms(dev, fn, reps: int) -> float:
+    """ms a call of ``fn`` on the host's clock, the device synchronised
+    (every rank calls it together, so a collective inside is timed whole)."""
+    import torch.distributed as dist
+    fn()
+    _dp_sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _dp_sync(dev)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _dp_rank(rank: int, world: int, dev, job: dict) -> dict:
+    """Phase 23 on one rank: (a) the fixture, then with ``job["full"]`` (b)
+    the stage-3 full steps through train() and their times, (c) a stage-1
+    and a stage-2 step, (d) test() --eval_metrics and the sharded frame."""
+    from moco_flow_tpu_torch.parallel.mesh import all_reduce_mean
+    from moco_flow_tpu_torch.train.checkpoint import _flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"replay": _dp_replay(rank, dev)}
+    if not job.get("full"):
+        return out
+    counters = _kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    cuda = torch.device(dev).type == "cuda"
+    for dtype, (cfg, seed) in job["s3"].items():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        tr, record = _dp_train(dev, cfg, seed, job["scene"])
+        res = {"metrics": record, "clock": tr.clock.step,
+               "params": {k: v.copy() for k, v in _flatten(tr.params).items()}}
+        res["step_ms"] = _host_ms(dev, tr.train_step, 3)
+        named = list(tr._named().values())
+        res["reduce_bytes"] = 4 * sum(t.numel() for t in named
+                                      if t.grad is not None)
+        res["reduce_ms"] = _host_ms(
+            dev, lambda: all_reduce_mean(named, {}, world), DP_REDUCE_REPS)
+        res["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                           if cuda else 0.0)
+        out[dtype] = res
+        del tr
+    for stage, (cfg, scene) in job["stages"].items():
+        tr, record = _dp_train(dev, cfg, None, scene)
+        out[stage] = {"metrics": record, "params": _flatten(tr.params),
+                      "clock": tr.clock.step}
+        del tr
+    for impl, (cfg, argv) in job["test"].items():
+        args = parse_args(argv + ["--device", str(dev)])
+        tr = test(copy.deepcopy(cfg), args, scene=job["scene"])
+        ds = tr.val_dataset
+        rays = ds.frame_rays(0)
+
+        def render():
+            return tr.render_rays_chunked(rays, ds.bkgd_img, tr.rcfg_test,
+                                          anneal=tr.anneal())
+        with torch.no_grad():
+            ms = _host_ms(dev, render, DP_FRAME_REPS)
+            frame = {k: v.cpu().numpy() for k, v in render().items()}
+        out[impl] = {"metrics": tr.metrics, "frame": frame, "ms": ms}
+        del tr
+    _dp_sync(dev)
+    out["launches"] = {k: f.launches for k, f in counters.items()}
+    return out
+
+
+def _dp_reference(cfg: dict, seed: str, scene) -> tuple:
+    """One process on the card in place of DP_WORLD ranks: each step runs
+    every rank's draws on the same parameters, averages their gradients
+    and metrics as the all-reduce does ((g0 + g1) / 2 in fp32) and applies
+    the same Adam updates. Returns ([metrics per step], params)."""
+    from moco_flow_tpu_torch.train.__main__ import parse_args as train_args
+    from moco_flow_tpu_torch.train.__main__ import train
+    from moco_flow_tpu_torch.train.checkpoint import _flatten
+    ref = copy.deepcopy(cfg)
+    ref["save_dir"] = cfg["save_dir"] + "_reference"
+    ref["trainer"]["num_iters"] = DP_START             # build and load only
+    shutil.rmtree(ref["save_dir"], ignore_errors=True)
+    tr = train(ref, train_args(["-c", "(dict)", "-r", seed, "-n", "ref",
+                                "--device", DEVICE]), scene=scene)
+    tr.world_size = DP_WORLD       # the ranks' milestones and draws
+    tr.opt = tr.opt_nof = None
+    tr.reduce_grads = lambda metrics: metrics
+    named = list(tr._named().values())
+    metrics = []
+    for _ in range(DP_STEPS):
+        step = tr.clock.step
+        opts = [tr._optimizers(), tr.opt_nof]
+        grads, ms = [], []
+        for o in opts:
+            o.step = lambda: None
+        try:
+            for r in range(DP_WORLD):
+                tr.rank = r
+                ms.append(tr.train_step(draws=tr.draw(step)))
+                grads.append([None if t.grad is None else t.grad.clone()
+                              for t in named])
+        finally:
+            for o in opts:
+                del o.step
+        for j, t in enumerate(named):
+            if grads[0][j] is not None:
+                t.grad = sum(g[j] for g in grads) / DP_WORLD
+        for o in opts:
+            o.step()
+        metrics.append({k: float(sum(m[k] for m in ms) / DP_WORLD)
+                        for k in ms[0]})
+        tr.clock.tick(DP_WORLD)
+    _dp_sync(DEVICE)
+    return metrics, _flatten(tr.params)
+
+
+def _dp_jobs(scratch: str) -> dict:
+    """Phase 23's configs, checkpoints and scenes, made here for the ranks."""
+    scene = body_scene()
+    shutil.rmtree(scratch, ignore_errors=True)
+    job = {"full": True, "scene": scene, "s3": {}, "stages": {}, "test": {}}
+    for dtype in ("float32", "bfloat16"):
+        cfg = phases_config(dtype)
+        cfg["save_dir"] = os.path.join(scratch, "s3", dtype)
+        cfg["trainer"]["num_iters"] = DP_START + DP_WORLD * DP_STEPS
+        cfg["trainer"]["log_freq"] = 1
+        params = init_params(torch.Generator().manual_seed(0),
+                             build_statics(cfg["model"]), with_nof=True,
+                             with_fw_nof=True)
+        for net in ("coarse_NeRF", "fine_NeRF"):
+            params[net]["sigma"]["b"] += 1.0
+        seed = os.path.join(scratch, "seeds", f"s3_{dtype}")
+        save_checkpoint(seed, {"params": params}, extra={
+            "clock": {"epoch": 1, "minibatch": 0, "step": DP_START}})
+        job["s3"][dtype] = (cfg, seed + ".npz")
+    s1 = stage1_config("float32", "xla")
+    s1["save_dir"] = os.path.join(scratch, "s1")
+    s1["trainer"].update(num_iters=DP_WORLD, log_freq=1)
+    s2 = stage2_config()
+    s2["save_dir"] = os.path.join(scratch, "s2")
+    s2["trainer"].update(num_iters=DP_WORLD, val_every_n_step=0, log_freq=1)
+    job["stages"] = {"stage1": (s1, scene), "stage2": (s2, body_scene(64))}
+    for impl in ("fused", "pallas"):
+        cfg = slice_config()
+        cfg["save_dir"] = os.path.join(scratch, "test", impl)
+        cfg["model"].update(compute_dtype="float32", mlp_impl=impl)
+        ckpt = seeded_checkpoint(cfg, os.path.join(scratch, "seeds",
+                                                   f"test_{impl}"))
+        job["test"][impl] = (cfg, ["-c", "(dict)", "-r", ckpt, "--render_gt",
+                                   "--reso", str(DP_RESO), "--eval_metrics",
+                                   "--eval_max_frames", "1"])
+    return job
+
+
+def _same_bits_dict(tag: str, got: dict, want: dict) -> None:
+    if set(got) != set(want):
+        raise AssertionError(f"{tag}: keys {sorted(got)} vs {sorted(want)}")
+    for k, v in want.items():
+        g = got[k]
+        if g.dtype != v.dtype or g.shape != v.shape or \
+                g.tobytes() != v.tobytes():
+            d = (np.abs(g.astype(np.float64) - v.astype(np.float64)).max()
+                 if g.shape == v.shape else float("nan"))
+            raise AssertionError(f"{tag} {k}: not the same bits (max |diff| "
+                                 f"{d:.3e})")
+
+
+def phase_dp(card: str, devices=None) -> dict:
+    """Phase 23: data parallelism, DP_WORLD ranks (two on cuda:0 over gloo,
+    which share its SMs: no scaling figure), against JAX's mesh fixture, a
+    single process averaging the ranks' gradients, and world 1's frame."""
+    from moco_flow_tpu_torch.parallel import multihost
+    t_phase = time.time()
+    devices = devices or [torch.device("cuda", 0)] * DP_WORLD
+    backend = multihost.backend_for(devices)
+    job = _dp_jobs(DP_DIR)
+    torch.cuda.empty_cache()
+    t = time.time()
+    ranks = multihost.launch(_dp_rank, devices, job)
+    log(f"[23 dp] {DP_WORLD} ranks on {[str(d) for d in devices]} over "
+        f"{backend} (they share the card's SMs): {time.time() - t:.1f} s "
+        "with the processes' start")
+    worst, perr = _check_dp_replay(ranks, "[23a]")
+    log(f"[23a dp fixture] JAX's make_mesh(2) steps (stage 3 full x 2, "
+        f"stage 1, stage 2 x 2) on {DP_WORLD} ranks: loss terms max rel "
+        f"{worst:.2e} (tol {STEP_TOL['metrics_rtol']:g}), params max|diff| "
+        f"{perr:.2e} (tol {STEP_TOL['params_atol']:g}); the ranks' "
+        "parameters equal to the bit")
+    result = {"launches": {k: sum(r["launches"][k] for r in ranks)
+                           for k in ranks[0]["launches"]}}
+    for dtype, (cfg, seed) in job["s3"].items():
+        want_m, want_p = _dp_reference(cfg, seed, job["scene"])
+        for r in ranks:
+            got = r[dtype]
+            if got["clock"] != DP_START + DP_WORLD * DP_STEPS:
+                raise AssertionError(f"[23b] {dtype}: clock {got['clock']}")
+            if got["metrics"] != want_m:
+                raise AssertionError(f"[23b] {dtype} rank metrics "
+                                     f"{got['metrics']} vs the reference "
+                                     f"{want_m}")
+            _same_bits_dict(f"[23b] {dtype} rank params vs the reference",
+                            got["params"], want_p)
+        moved = max(float(np.abs(want_p[k] - v).max()) for k, v in
+                    _dp_seed_params(seed).items())
+        r0, r1 = ranks[0][dtype], ranks[1][dtype]
+        result[dtype] = {k: (r0[k], r1[k]) for k in
+                         ("step_ms", "reduce_ms", "reduce_bytes", "peak_gib")}
+        log(f"[23b dp train] {dtype}: {DP_STEPS} full steps from {DP_START} "
+            f"through train() on each rank equal the single-process "
+            f"reference to the bit (params moved up to {moved:.3e}); last "
+            f"losses {json.dumps(r0['metrics'][-1])}; a step "
+            f"{r0['step_ms']:.1f} / {r1['step_ms']:.1f} ms (rank 0 / 1, host "
+            f"clock), the gradient all-reduce of {r0['reduce_bytes']} bytes "
+            f"{r0['reduce_ms']:.3f} / {r1['reduce_ms']:.3f} ms, peak "
+            f"{r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB; two ranks "
+            f"sharing one card, on {card}")
+    for stage in job["stages"]:
+        (m0, p0, c0), (m1, p1, c1) = ((r[stage]["metrics"], r[stage]["params"],
+                                      r[stage]["clock"]) for r in ranks)
+        if m0 != m1 or not c0 == c1 == DP_WORLD or not all(
+                np.isfinite(v) for m in m0 for v in m.values()):
+            raise AssertionError(f"[23c] {stage}: metrics {m0} / {m1}, "
+                                 f"clock {c0} / {c1}")
+        _same_bits_dict(f"[23c] {stage} rank 1 vs rank 0", p1, p0)
+        log(f"[23c dp {stage}] one step on {DP_WORLD} ranks: "
+            f"{json.dumps(m0[-1])}; the ranks' parameters equal to the bit")
+    for impl, (cfg, argv) in job["test"].items():
+        args = parse_args(argv + ["--device", DEVICE])
+        tr = test(copy.deepcopy(cfg), args, scene=job["scene"])
+        ds = tr.val_dataset
+        rays = ds.frame_rays(0)
+        with torch.no_grad():
+            def render():
+                return tr.render_rays_chunked(rays, ds.bkgd_img,
+                                              tr.rcfg_test,
+                                              anneal=tr.anneal())
+            ms1 = cuda_ms(render, reps=DP_FRAME_REPS)
+            want = {k: v.cpu().numpy() for k, v in render().items()}
+        for r in ranks:
+            _same_bits_dict(f"[23d] {impl} sharded frame vs world 1",
+                            r[impl]["frame"], want)
+            if r[impl]["metrics"] != tr.metrics:
+                raise AssertionError(f"[23d] {impl}: metrics "
+                                     f"{r[impl]['metrics']} vs {tr.metrics}")
+        result[impl] = (ranks[0][impl]["ms"], ranks[1][impl]["ms"], ms1)
+        log(f"[23d dp test {impl}] test() --eval_metrics on {DP_WORLD} ranks "
+            f"{json.dumps(tr.metrics)}, equal to world 1's; the 256x256 "
+            f"fp32 frame equal to world 1's to the bit: "
+            f"{ranks[0][impl]['ms']:.1f} / {ranks[1][impl]['ms']:.1f} ms on "
+            f"the ranks (host clock) against {ms1:.1f} ms at world 1 (CUDA "
+            f"events), two ranks sharing one card, on {card}")
+        del tr
+    if torch.cuda.device_count() >= DP_WORLD:
+        cards = [torch.device("cuda", i) for i in range(DP_WORLD)]
+        nccl = multihost.launch(_dp_rank, cards, {"full": False})
+        worst, perr = _check_dp_replay(nccl, "[23e]")
+        log(f"[23e dp nccl] the fixture on {cards} over "
+            f"{multihost.backend_for(cards)}: max rel {worst:.2e}, params "
+            f"max|diff| {perr:.2e}, the ranks equal to the bit")
+    else:
+        log(f"[23e dp nccl] not run: {torch.cuda.device_count()} card(s) "
+            "here, NCCL needs one rank a card")
+    log(f"[23] phase 23 took {time.time() - t_phase:.1f} s on {card}; "
+        f"launches on the ranks {json.dumps(result['launches'])}")
+    return result
+
+
+def _dp_seed_params(seed: str) -> dict:
+    from moco_flow_tpu_torch.train.checkpoint import _flatten, load_checkpoint
+    tree, _ = load_checkpoint(seed)
+    return _flatten(tree["params"])
+
+
 def main():
     card = phase_card()
     dev = torch.device("cuda")
@@ -4013,6 +4395,8 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"[22] phase 22 took {time.time() - t22:.1f} s on {card}")
+    dp = phase_dp(card)
+    torch.cuda.synchronize()
     fine = k["times"]["fine S=256 N=4096 nof bf16"]
     n_fine = 4096 * 256
     rp_work = (2 * (NERF_MACS + NOF_MACS) * n_fine,
@@ -4021,11 +4405,12 @@ def main():
     log(f"[3 kernel vs plain] render_pass bound at fine S=256 N=4096 nof: "
         f"bf16 {rp_bound:.4f} ms, fp32 {bound_ms(*rp_work, 'fp32')[0]:.4f} ms "
         f"({rp_by}: {rp_work[0] / 1e12:.3f} TFLOP)")
-    # the CLI paths of phases 20 and 21, phase 21's occupancy path and
-    # phase 22's student, hash-grid, hybrid and option paths
+    # the CLI paths of phases 20 and 21, phase 21's occupancy path,
+    # phase 22's student, hash-grid, hybrid and option paths and phase 23's
+    # ranks
     cl = {k: cli["launches"][k] + occ["launches"][k]
           + occ_cli["launches"][k] + sum(p["launches"][k] for p in p22)
-          for k in cli["launches"]}
+          + dp["launches"][k] for k in cli["launches"]}
     ce = {k: max(d.get(k, 0.0) for d in (cli["err"], occ["err"],
                                          occ_cli["err"],
                                          *(p["err"] for p in p22)))

@@ -18,8 +18,9 @@ package's kernel routes: the whole-ray kernels (``mlp_impl`` ``fused``,
 ``xla`` or ``auto``), the per-op MLPs (``pallas``) and the hybrids
 (``fused_nof``, ``fused_nerf``). Each of the nine Pallas kernels is a
 hand-written CUDA kernel under ``ops/csrc/`` with its plain PyTorch
-version beside it. Data parallelism comes in a later slice
-(ROADMAP.md).
+version beside it. Training and test-time rendering run data-parallel
+over several ranks (``parallel/``: one gradient all-reduce a step, tiles
+shared out over the ranks, rank 0's side effects).
 
 It never imports ``jax`` or ``moco_flow_tpu``, nor ``yaml``, ``PIL``,
 ``cv2`` or ``imageio``: YAML, PNG and the JET colour table are its own

@@ -6,7 +6,9 @@
         [--render_bullet_time [--bullet_time_frame F]] \
         [--extract_mesh [--mesh_frame F] [--N_grid N] [--sigma_threshold T]] \
         [--render_frame F] [--eval_metrics [--eval_max_frames K]] \
-        [--occ_res N] [--out_dir DIR] [--device cuda|cpu]
+        [--occ_res N] [--out_dir DIR] [--device cuda|cpu] \
+        [--num_devices N] [--dist] [--coordinator_address HOST:PORT \
+        --num_processes N --process_id R]
 
 JAX's ``test.py`` surface through ``get_trainer``, so a checkpoint of any
 rendering stage (``nerf``, ``moco_flow``) of either package renders: the
@@ -23,6 +25,12 @@ per-op MLPs #8/#9, where ``--fine_budget`` / ``--coarse_probe`` raise.
 of ``--eval_metrics``, render through the per-frame occupancy grid
 (``render/occupancy.py``; 0 = off; a softplus NeRF raises).
 ``test(config, args)`` takes the config as a dict or a ``Config``.
+
+``main`` runs on the ranks that ``train``'s CLI would (torchrun, ``--dist``
+and the multi-host flags, one rank a card, or ``--num_devices`` gloo ranks
+on the CPU): every rank renders its share of each frame's tiles and gets
+the whole frame (``BaseTrainer.render_rays_chunked``), and rank 0 writes
+the images, meshes and the ``--eval_metrics`` JSON.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import os
 import os.path as osp
 
 from .train import get_trainer
-from .train.__main__ import as_config, require_device
+from .train.__main__ import add_dist_args, as_config, require_device, run_ranks
 from .train.base import BaseTrainer
 from .train.checkpoint import find_latest_checkpoint
 from .train.vis import (visualize_bullet_time, visualize_frame,
@@ -61,13 +69,14 @@ def test(config, args, smpl_data=None, scene=None) -> BaseTrainer:
     if getattr(args, "occ_res", None) is not None:
         config.raw["model"]["occ_res"] = args.occ_res
     trainer.build_model(config["model"])
+    trainer.broadcast_params()
     ckpt = config.resume or find_latest_checkpoint(osp.join(
         config.save_dir, config.exp_name, "*", "ckpts", "*.npz"))
     if ckpt:
         trainer.load_ckpt(ckpt)
 
     out_dir = getattr(args, "out_dir", None)
-    if out_dir:
+    if out_dir and trainer.is_main:
         os.makedirs(out_dir, exist_ok=True)
     if not args.render_gt:
         if not getattr(args, "test_json", None):
@@ -93,7 +102,8 @@ def test(config, args, smpl_data=None, scene=None) -> BaseTrainer:
     if args.eval_metrics:
         trainer.metrics = trainer.evaluate_sequence(
             max_frames=args.eval_max_frames)
-        print(json.dumps(trainer.metrics))
+        if trainer.is_main:
+            print(json.dumps(trainer.metrics))
     return trainer
 
 
@@ -132,13 +142,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="mean PSNR / SSIM / DSSIM (and LPIPS with "
                         "$LPIPS_WEIGHTS_NPZ) over the val sequence")
     p.add_argument("--eval_max_frames", default=None, type=int)
+    add_dist_args(p)
     return p.parse_args(argv)
 
 
-def main(argv=None) -> BaseTrainer:
-    args = parse_args(argv)
-    require_device(args.device)
-    return test(Config.from_args(args, mode="test"), args)
+def _test_config(args) -> Config:
+    return Config.from_args(args, mode="test")
+
+
+def main(argv=None) -> BaseTrainer | None:
+    """The CLI: renders on the ranks of the run and returns the trainer of
+    this process's rank, or None where the ranks were spawned."""
+    return run_ranks(parse_args(argv), _test_config, test)
 
 
 if __name__ == "__main__":

@@ -179,7 +179,8 @@ class MoCoFlowTrainer(BaseTrainer):
             t.requires_grad_(True)
         opt_cfg, sched = self.opt_cfg
         self.opt = make_optimizer(list(named.values()), opt_cfg["moco"],
-                                  sched, names=list(named))
+                                  sched, world_size=self.world_size,
+                                  names=list(named))
         if not self.nof_opt_deleted:
             if "nof" not in opt_cfg:
                 raise ValueError("a full / msk step before the nof "
@@ -187,7 +188,8 @@ class MoCoFlowTrainer(BaseTrainer):
             nof = {k: t for k, t in named.items()
                    if k.split("/")[0] in _NOF_NETS}
             self.opt_nof = make_optimizer(list(nof.values()), opt_cfg["nof"],
-                                          sched, names=list(nof))
+                                          sched, world_size=self.world_size,
+                                          names=list(nof))
         if self._opt_named is not None:
             self.opt.load_named(self._opt_named, "['moco']")
             if self.opt_nof is not None:
@@ -208,15 +210,16 @@ class MoCoFlowTrainer(BaseTrainer):
 
     def draw(self, step: int) -> Draws:
         """Every random input of ``step``, from a generator seeded with
-        (seed, step), so a resumed run draws what the run before it would
-        have drawn."""
+        (seed, step) and, above world 1, the rank, so a resumed run draws
+        what the run before it would have drawn."""
         mcfg = self.config["model"]
         policy = mcfg.get("frame_sampling", "uniform")
         if policy not in FRAME_SAMPLING_POLICIES:
             raise ValueError("model.frame_sampling must be one of "
                              f"{FRAME_SAMPLING_POLICIES}, got {policy!r}")
         gen = self._step_generator(step)
-        frame = sample_frame(policy, self.seed, step, self.num_frames, gen)
+        frame = sample_frame(policy, self.seed, step, self.num_frames, gen,
+                             self.dp_rank)
         rcfg = self.rcfg_train
         corr = self.phase(step)[0] != "none"
         return draw(gen, frame, self._valid_count[frame],
@@ -277,8 +280,9 @@ class MoCoFlowTrainer(BaseTrainer):
     def train_step(self, draws: Draws | None = None) -> dict:
         """One training step at ``self.step`` (the clock is not ticked):
         draws (or the given ``draws``), rays, correspondences, render,
-        losses, backward, the density freeze and the optimizer updates.
-        Returns the losses and ``train_psnr`` as 0-dim tensors."""
+        losses, backward, the density freeze, the mean over the ranks and
+        the optimizer updates. Returns the losses and ``train_psnr`` as
+        0-dim tensors (the ranks' mean)."""
         step = self.clock.step
         nof_mode, freeze = self.phase(step)
         if nof_mode == "none":
@@ -312,11 +316,12 @@ class MoCoFlowTrainer(BaseTrainer):
         sum(losses.values()).backward()
         if freeze:
             zero_grads_where(self._named(), _freeze_density)
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["train_psnr"] = train_psnr
+        metrics = self.reduce_grads(metrics)   # once: both updates use it
         opt.step()
         if self.opt_nof is not None:
             self.opt_nof.step()     # the same gradients, the updated params
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["train_psnr"] = train_psnr
         return metrics
 
     def step_records(self, step: int) -> dict:

@@ -46,7 +46,7 @@ class NeRFTrainer(BaseTrainer):
     def draw(self, step: int) -> Draws:
         """Every random input of ``step`` (frame drawn uniformly, pixels,
         background, depth jitter, importance uniforms) from the step's
-        generator."""
+        generator (the rank's own above world 1)."""
         gen = self._step_generator(step)
         frame = int(torch.randint(0, self.num_frames, (), generator=gen))
         rcfg = self.rcfg_train
@@ -58,8 +58,9 @@ class NeRFTrainer(BaseTrainer):
     def train_step(self, draws: Draws | None = None) -> dict:
         """One training step at ``self.step`` (the clock is not ticked):
         draws (or the given ``draws``), rays, render, the image loss of
-        both passes, backward and the optimizer update. Returns
-        ``img_loss`` and ``train_psnr`` as 0-dim tensors."""
+        both passes, backward, the mean over the ranks and the optimizer
+        update. Returns ``img_loss`` and ``train_psnr`` as 0-dim tensors
+        (the ranks' mean)."""
         if draws is None:
             draws = self.draw(self.clock.step)
         draws = draws.to(self.device)
@@ -74,8 +75,10 @@ class NeRFTrainer(BaseTrainer):
         typ = "rgb_fine" if "rgb_fine" in res else "rgb_coarse"
         train_psnr = psnr(res[typ].detach(), rgbs)
         loss.backward()
+        metrics = self.reduce_grads({"img_loss": loss.detach(),
+                                     "train_psnr": train_psnr})
         opt.step()
-        return {"img_loss": loss.detach(), "train_psnr": train_psnr}
+        return metrics
 
     def visualize_batch(self, save_path=None):
         """After a val step: a frame drawn by ``val_rng`` every

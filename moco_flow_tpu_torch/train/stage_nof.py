@@ -97,22 +97,24 @@ class NoFTrainer(BaseTrainer):
 
     def draw(self, step: int) -> PointDraws:
         """The frame of ``step`` by ``model.frame_sampling``, then its
-        ``N_sampled`` points, from the step's generator."""
+        ``N_sampled`` points, from the step's generator (the rank's own
+        above world 1)."""
         mcfg = self.config["model"]
         policy = mcfg.get("frame_sampling", "uniform")
         if policy not in FRAME_SAMPLING_POLICIES:
             raise ValueError("model.frame_sampling must be one of "
                              f"{FRAME_SAMPLING_POLICIES}, got {policy!r}")
         gen = self._step_generator(step)
-        frame = sample_frame(policy, self.seed, step, self.num_frames, gen)
+        frame = sample_frame(policy, self.seed, step, self.num_frames, gen,
+                             self.dp_rank)
         return draw_points(gen, frame, int(mcfg["N_sampled"]),
                            int(self._corr.verts.shape[1]))
 
     def train_step(self, draws: PointDraws | None = None) -> dict:
         """One step at ``self.step`` (the clock is not ticked): draws (or
         the given ``draws``), correspondences, both NoFs, the summed L1,
-        backward and the optimizer update. Returns ``nof_bw`` / ``nof_fw``
-        as 0-dim tensors."""
+        backward, the mean over the ranks and the optimizer update. Returns
+        ``nof_bw`` / ``nof_fw`` as 0-dim tensors (the ranks' mean)."""
         if draws is None:
             draws = self.draw(self.clock.step)
         corr = self._points(draws)
@@ -120,8 +122,10 @@ class NoFTrainer(BaseTrainer):
         opt.zero_grad()
         losses = self._loss(self.params, corr, self._norm_idx[draws.frame])
         sum(losses.values()).backward()
+        metrics = self.reduce_grads({k: v.detach()
+                                     for k, v in losses.items()})
         opt.step()
-        return {k: v.detach() for k, v in losses.items()}
+        return metrics
 
     def val_step(self, draws: PointDraws | None = None) -> dict:
         """The losses on a fresh 10,000-point set (:func:`draw_val_points`

@@ -11,7 +11,8 @@ the device for ``render/occupancy.py``). Views render through the trainer's
 AABB hull (and with occupancy, those its grid keeps), the background
 elsewhere. Frames are PNGs (``utils/image.py``);
 the port has no mp4 encoder, so a video is its directory of PNGs, which
-``log.txt`` says once a run.
+``log.txt`` says once a run. In a data-parallel run every rank renders
+(its share of each view's tiles) and rank 0 writes images and meshes.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from ..nn.nerf import nerf_sigma
+from ..parallel.multihost import is_main
 from ..render.volume import RenderConfig, encode_nerf_xyz
 from ..utils.image import JET, write_png
 from .stage_nof import nof_points
@@ -39,6 +41,10 @@ def colorize_depth(depth: np.ndarray) -> np.ndarray:
 
 
 def save_image(path: str, img: np.ndarray):
+    """Write ``img`` (float in [0, 1]) as a PNG: on rank 0 only, as JAX's
+    process 0; every rank computes what it shows."""
+    if not is_main():
+        return
     os.makedirs(osp.dirname(path), exist_ok=True)
     write_png(path, (np.clip(img, 0, 1) * 255).astype(np.uint8))
 
@@ -447,9 +453,12 @@ def visualize_mesh(trainer, frame_idx: int, n_grid: int = 256,
                    extent: float = 1.5):
     """Sigma grid -> marching cubes -> OBJ, with the reference's xy swap,
     winding flip and rescale to [-extent, extent]. Returns the OBJ's path,
-    or None for an empty field."""
+    or None for an empty field. Every rank computes the grid; rank 0 runs
+    marching cubes and writes (the others return None)."""
     from ..ops.mcubes import export_obj, marching_cubes
     sigma = sigma_grid(trainer, frame_idx, n_grid=n_grid, extent=extent)
+    if not is_main():
+        return None
     verts, tris = marching_cubes(sigma, sigma_threshold)
     if len(verts) == 0:
         trainer.record_str("visualize_mesh: empty sigma field, skipping")

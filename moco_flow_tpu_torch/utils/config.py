@@ -27,6 +27,8 @@ import shutil
 import time
 import warnings
 
+from ..parallel.multihost import is_main
+
 # ---------------------------------------------------------------------------
 # Schema validation: every key the framework consumes, by section; unknown
 # keys warn, so a typo or a knob the framework does not have cannot silently
@@ -589,7 +591,8 @@ class Config:
     """Parsed config with the experiment-directory services of JAX's
     ``Config``: with ``mode == "train"`` the constructor makes
     ``exp_dir/{ckpts,log}``, writes ``config.yaml`` and snapshots the
-    package's source under ``exp_dir/code/moco_flow_tpu_torch``."""
+    package's source under ``exp_dir/code/moco_flow_tpu_torch``, on rank 0
+    of a data-parallel run only (JAX's writes on every process)."""
 
     def __init__(self, cfg: dict, mode: str = "train",
                  resume: str | None = None, job_name: str | None = None,
@@ -606,7 +609,7 @@ class Config:
         self.exp_dir = osp.join(self.save_dir, self.exp_name, self.job_name)
         self.ckpts_dir = osp.join(self.exp_dir, "ckpts")
         self.log_dir = osp.join(self.exp_dir, "log")
-        if mode == "train":
+        if mode == "train" and is_main():
             os.makedirs(self.ckpts_dir, exist_ok=True)
             os.makedirs(self.log_dir, exist_ok=True)
             dump_config(cfg, osp.join(self.exp_dir, "config.yaml"))

@@ -4,7 +4,9 @@ Port of ``moco_flow_tpu/utils/logging.py``: a ``log.txt`` work log and an
 appendable ``metrics.jsonl`` of scalar (``train/...``, ``valid/...``) and
 histogram (``hist/...``) records, so a headless run keeps its losses;
 TensorBoard events too where tensorboardX is importable. ``profile_trace``
-is the ``torch.profiler`` counterpart of JAX's ``jax.profiler`` hook.
+is the ``torch.profiler`` counterpart of JAX's ``jax.profiler`` hook. In a
+data-parallel run both are rank 0's (the trainer makes its ``WorkLogger``
+there only).
 """
 
 from __future__ import annotations
@@ -84,11 +86,15 @@ def profile_trace(log_dir: str):
     """A ``torch.profiler`` context over the host and, where there is one,
     the card; on exit the trace goes to ``log_dir/plugins/profile/trace.json``
     (Perfetto / chrome://tracing) and a table of the ops by device time
-    beside it."""
+    beside it. On a rank other than 0 it traces nothing."""
     import contextlib
 
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from ..parallel.multihost import is_main
+    if not is_main():
+        return contextlib.nullcontext()
 
     out = os.path.join(log_dir, "plugins", "profile")
     acts = [ProfilerActivity.CPU]
