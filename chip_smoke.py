@@ -196,10 +196,25 @@ happened; any failure raises and the script exits non-zero):
      fixture over NCCL on two cards, where there are two (else the line
      says it was not run). The two ranks share one card's SMs: its times
      are no scaling figure.
+  24. the offline toolchain (moco_flow_tpu_torch/scripts/): (a) a seeded
+     30-frame VIBE pkl over the 6890-vertex body's SMPL pickle ->
+     train.json / val.json (equal to the bit to a second run) and
+     create_init_nerf_data's 120 views at 1080^2 on the card; two views
+     drawn again on the card and by the CPU plain version (alpha may
+     differ on 0.01% of pixels, rgb where both cover within 1e-5; the
+     written PNGs are the card's renders), ms a view on each; (b)
+     median_background of 30 and 31 of those frames on the card, equal to
+     the CPU plain version and to np.median; (c) two init_nerf.yaml steps
+     through the training CLI on the 120 views; (d) phase 5's model at
+     c2f.yaml's widths -> reverse_checkpoint -> a reference .pth ->
+     convert_ref_ckpt's CLI with --config c2f.yaml: its 256^2 fp32 frame
+     equal to the bit to the original's; (e) drive_pipeline_e2e's CLI
+     (TOOL_PIPE_STEPS a stage, no occupancy eval), in a process of its
+     own beside (c) and (d): PSNR and SSIM.
 Phase 9 also holds #3/#4 at init_nof.yaml's NoF (0 xyz bands) at stage 2's
 shape. The last three lines are the card, the kernel JSON (launch counts
-from the main paths of phases 5, 8, 11, 14, 15, 17, 18, 19, 20, 21, 22 and
-23) and the result JSON. Needs one CUDA card; imports neither JAX nor moco_flow_tpu.
+from the main paths of phases 5, 8, 11, 14, 15, 17, 18, 19, 20, 21, 22,
+23 and 24) and the result JSON. Needs one CUDA card; imports neither JAX nor moco_flow_tpu.
 """
 
 from __future__ import annotations
@@ -4340,6 +4355,275 @@ def _dp_seed_params(seed: str) -> dict:
     return _flatten(tree["params"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the offline toolchain (moco_flow_tpu_torch/scripts/)
+# ---------------------------------------------------------------------------
+
+TOOL_DIR = os.path.join(HERE, "build", "chip_smoke_toolchain")
+TOOL_SIZE = 1080         # preprocess_data.py's default --size
+TOOL_VIEWS = 120         # its --num_init_views
+TOOL_FRAMES = 30
+TOOL_CPU_VIEWS = 2       # views drawn again by the CPU plain version
+# the runbook's steps a stage: the fewest (of 30, 100, 200) whose trained
+# field beats the render-nothing baseline by the runbook's 1 dB on the CPU
+# (30 and 100 steps render the white background, PSNR equal to it)
+TOOL_PIPE_STEPS = 200
+PIPE_TIMEOUT = 600
+
+
+def _vibe_pkl(path: str, n_frames: int, seed: int = 0) -> str:
+    """A seeded single-person VIBE output: poses, betas and orig_cam
+    (scale ~1, a small image-plane shift) for ``n_frames`` frames."""
+    import pickle
+    rng = np.random.default_rng(seed)
+    poses = np.zeros((n_frames, 72), np.float32)
+    poses[:, 3:] = rng.normal(scale=0.1, size=(n_frames, 69))
+    cam = np.tile([1.0, 1.0, 0.0, 0.1], (n_frames, 1))
+    cam[:, 2:] += rng.normal(scale=0.02, size=(n_frames, 2))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump({1: {"frame_ids": np.arange(n_frames), "pose": poses,
+                         "betas": np.zeros((n_frames, 10), np.float32),
+                         "orig_cam": cam}}, f)
+    return path
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def phase_toolchain(card: str) -> dict:
+    """Phase 24: (a) a VIBE pkl -> train/val.json and the init_nerf views on
+    the card, the rasterizer held against its CPU plain version; (b) the
+    median background on the card against the CPU; (c) two init_nerf.yaml
+    steps through the training CLI on those views; (d) a reference .pth of
+    a c2f-wide model converted by the CLI renders the same bits; (e) the
+    pipeline runbook through its CLI, in a process of its own beside (c)
+    and (d), started once the card's timings of (a) and (b) are taken."""
+    from moco_flow_tpu_torch.geometry.smpl import (load_smpl_data,
+                                                   save_smpl_data,
+                                                   synthetic_smpl_data)
+    from moco_flow_tpu_torch.scripts import data_utils as du
+    from moco_flow_tpu_torch.scripts.rasterizer import rasterize_mesh
+    from moco_flow_tpu_torch.utils.image import read_png
+    t_phase = time.time()
+    shutil.rmtree(TOOL_DIR, ignore_errors=True)
+    out = {"launches": {k: 0 for k in _kernel_counters()}}
+    size = (TOOL_SIZE, TOOL_SIZE)
+    os.environ["SMPL_MODEL_DIR"] = os.path.dirname(save_smpl_data(
+        synthetic_smpl_data(6890), os.path.join(TOOL_DIR, "smpl")))
+    smpl = load_smpl_data()
+
+    # (a) the dataset and the init_nerf views
+    data = {d: os.path.join(TOOL_DIR, d) for d in ("data", "data_cpu")}
+    pkls = {d: _vibe_pkl(os.path.join(p, "vibe_output.pkl"), TOOL_FRAMES)
+            for d, p in data.items()}
+    du.create_moco_flow_data(pkls["data"], size)
+    du.create_moco_flow_data(pkls["data_cpu"], size)
+    for name in ("train.json", "val.json"):
+        if _read(os.path.join(data["data"], name)) != _read(
+                os.path.join(data["data_cpu"], name)):
+            raise AssertionError(f"[24a] {name} differs between two runs")
+    torch.cuda.synchronize()
+    t = time.time()
+    meta = du.create_init_nerf_data(pkls["data"], size, num_images=TOOL_VIEWS,
+                                    device="cuda")
+    build_s = time.time() - t
+    init_dir = os.path.join(data["data"], "init_nerf")
+    imgs = sorted(os.listdir(os.path.join(init_dir, "images")))
+    if len(meta["frames"]) != TOOL_VIEWS or len(imgs) != TOOL_VIEWS:
+        raise AssertionError(f"[24a] {len(imgs)} views written")
+    fr0 = meta["frames"][0]
+    verts = du.posed_vertices(smpl, fr0["pose"], fr0["betas"], fr0["transl"],
+                              "cuda")
+    colors = du.position_colors(verts)
+    focal, cam_c = meta["camera_focal"], meta["camera_c"]
+
+    def draw(i, device):
+        c2w = np.asarray(meta["frames"][i]["camera_pose"])
+        return rasterize_mesh(verts, smpl.faces, colors, c2w, focal, cam_c,
+                              size, device=device)
+    card_ms = [cuda_ms(lambda: draw(i, "cuda"), reps=3)
+               for i in range(TOOL_CPU_VIEWS)]
+    out.update(view_ms=card_ms, build_s=build_s)
+
+    # (b) the median background of 30 and 31 frames (the views above) on
+    # the card; the CPU's checks follow beside (e)
+    medians = {}
+    for n in (TOOL_FRAMES, TOOL_FRAMES + 1):
+        src = os.path.join(TOOL_DIR, f"frames{n}")
+        os.makedirs(src)
+        for name in imgs[:n]:
+            os.symlink(os.path.join(init_dir, "images", name),
+                       os.path.join(src, name))
+        t = time.time()
+        bg = du.median_background(src, None, os.path.join(
+            TOOL_DIR, f"bg{n}.png"), device="cuda")
+        wall = time.time() - t
+        stack = torch.from_numpy(np.stack(
+            [read_png(os.path.join(src, f))[..., :3] for f in imgs[:n]]))
+        gpu_stack = stack.cuda()
+        out[f"median_ms {n}"] = cuda_ms(lambda: du.median_stack(gpu_stack),
+                                        reps=3)
+        del gpu_stack
+        medians[n] = (bg, stack, wall)
+
+    # (e) starts here as the CLI in a process of its own, beside the CPU's
+    # checks of (a) and (b), and (c) and (d)
+    pipe_dir = os.path.join(TOOL_DIR, "pipe")
+    os.makedirs(pipe_dir)
+    t_pipe = time.time()
+    pipe_log = open(os.path.join(pipe_dir, "run.log"), "w")
+    pipe = subprocess.Popen(
+        [sys.executable, "-m", "moco_flow_tpu_torch.scripts.drive_pipeline_e2e",
+         "--steps", str(TOOL_PIPE_STEPS), "--base", pipe_dir, "--device",
+         "cuda", "--occ_eval", "0"], cwd=HERE, stdout=pipe_log,
+        stderr=subprocess.STDOUT)
+    try:
+        t = time.time()
+        cpu = [draw(i, "cpu") for i in range(TOOL_CPU_VIEWS)]
+        cpu_ms = (time.time() - t) / TOOL_CPU_VIEWS * 1e3
+        n_px = TOOL_SIZE * TOOL_SIZE
+        for i, want in enumerate(cpu):
+            got = draw(i, "cuda").cpu()
+            a_off = int((got[..., 3] != want[..., 3]).sum())
+            both = (got[..., 3] > 0) & (want[..., 3] > 0)
+            rgb = (got[..., :3] - want[..., :3]).abs()[both]
+            rgb_err = rgb.max().item() if rgb.numel() else 0.0
+            png = read_png(os.path.join(init_dir, "images", imgs[i]))
+            if a_off > 1e-4 * n_px or rgb_err > 1e-5 or not np.array_equal(
+                    png, du.rgba_bytes(got)):
+                raise AssertionError(
+                    f"[24a] view {i}: alpha differs on {a_off} pixels, rgb "
+                    f"{rgb_err:.3e}, or its PNG is not the card's render")
+            log(f"[24a] view {i} at {TOOL_SIZE}^2: card vs CPU plain "
+                f"version: alpha off on {a_off} of {n_px} pixels (bound "
+                f"0.01%), max |d rgb| {rgb_err:.3e} where both cover (bound "
+                f"1e-5); {int(both.sum())} covered pixels")
+        log(f"[24a] rasterize_mesh, {len(smpl.faces)} faces at "
+            f"{TOOL_SIZE}^2: {card_ms[0]:.2f} / {card_ms[1]:.2f} ms a view "
+            f"on the card (CUDA events), {cpu_ms:.1f} ms a view by the CPU "
+            f"plain version (host clock, {TOOL_CPU_VIEWS} views, beside "
+            f"(e)); create_init_nerf_data of {TOOL_VIEWS} views "
+            f"{build_s:.2f} s (host clock, PNG writes included); train.json "
+            f"/ val.json equal to the bit to a second run, on {card}")
+        out["cpu_view_ms"] = cpu_ms
+        for n, (bg, stack, wall) in medians.items():
+            want = du.median_stack(stack).numpy()
+            t = time.time()
+            ref = np.median(stack.numpy(), axis=0).astype(np.uint8)
+            np_ms = (time.time() - t) * 1e3
+            if not (np.array_equal(bg, want) and np.array_equal(bg, ref)):
+                raise AssertionError(f"[24b] median of {n} frames differs "
+                                     "from the CPU plain version or "
+                                     "np.median")
+            log(f"[24b] median_background of {n} frames at {TOOL_SIZE}^2: "
+                f"the median {out[f'median_ms {n}']:.2f} ms on the card "
+                f"(CUDA events), np.median {np_ms:.1f} ms (host clock, "
+                f"beside (e)); the call {wall:.2f} s with its PNG reads and "
+                f"write; equal to the CPU plain version and to np.median on "
+                f"{card}")
+        del medians
+        _toolchain_cd(card, out, init_dir)
+        pipe.wait(timeout=PIPE_TIMEOUT)
+    finally:
+        if pipe.poll() is None:
+            pipe.kill()
+            pipe.wait()
+        pipe_log.close()
+    wall = time.time() - t_pipe
+    with open(os.path.join(pipe_dir, "run.log")) as f:
+        lines = f.read().splitlines()
+    done = [ln for ln in lines if ln.startswith("PIPELINE OK ")]
+    if pipe.returncode != 0 or not done:
+        raise AssertionError("[24e] drive_pipeline_e2e failed (rc "
+                             f"{pipe.returncode}):\n" + "\n".join(lines[-30:]))
+    res = json.loads(done[-1][len("PIPELINE OK "):])
+    for ln in lines:
+        if ln.startswith("== "):
+            log(f"[24e] {ln[3:]}")
+    log(f"[24e] python -m moco_flow_tpu_torch.scripts.drive_pipeline_e2e "
+        f"--steps {TOOL_PIPE_STEPS}: PSNR {res['psnr']:.4f}, SSIM "
+        f"{res['ssim']:.4f} (render-nothing baseline "
+        f"{res['baseline_psnr']:.4f} dB); {wall:.1f} s beside the CPU's "
+        f"checks, (c) and (d) on {card}")
+    out["pipeline"] = res
+    log(f"[24] phase 24 took {time.time() - t_phase:.1f} s on {card}")
+    return out
+
+
+def _toolchain_cd(card: str, out: dict, init_dir: str):
+    """Phase 24 (c) and (d); their launches go to ``out["launches"]``."""
+    from moco_flow_tpu_torch.scripts import convert_ref_ckpt as conv
+    from moco_flow_tpu_torch.train.__main__ import main as train_main
+    from moco_flow_tpu_torch.train.checkpoint import load_checkpoint
+    from moco_flow_tpu_torch.utils.config import dump_config, load_yaml
+
+    # (c) two init_nerf.yaml steps on the views
+    cfg = load_yaml(os.path.join(CONFIGS, "init_nerf.yaml"))
+    cfg["dataloader"]["root_dir"] = init_dir
+    cfg["save_dir"] = os.path.join(TOOL_DIR, "log")
+    cfg["trainer"].update(num_iters=2, val_every_n_step=0,
+                          save_every_n_step=0)
+    path = os.path.join(TOOL_DIR, "init_nerf.yaml")
+    dump_config(cfg, path)
+    t = time.time()
+    tr, got = _count_launches(lambda: train_main(
+        ["-c", path, "-n", "run", "-s", "0", "--device", DEVICE,
+         "--num_devices", "1"]))
+    wall = time.time() - t
+    for k, v in got.items():
+        out["launches"][k] += v
+    losses = {k: float(v) for k, v in tr.losses.items()}
+    if tr.clock.step != 2 or tr.num_frames != TOOL_VIEWS or not all(
+            np.isfinite(list(losses.values()))) or not os.path.exists(
+            os.path.join(tr.job_dir, "ckpts", "final.npz")):
+        raise AssertionError(f"[24c] step {tr.clock.step}, frames "
+                             f"{tr.num_frames}, losses {losses}")
+    log(f"[24c] init_nerf.yaml, 2 steps on the {TOOL_VIEWS} views: "
+        f"{wall:.1f} s with the dataset's set-up, losses "
+        f"{json.dumps(losses)}, launches "
+        f"{json.dumps({k: v for k, v in got.items() if v})} on {card}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # (d) a reference .pth of a c2f-wide model through the converter's CLI
+    cfg = slice_config()
+    cfg["model"]["compute_dtype"] = "float32"
+    seed = seeded_checkpoint(cfg, os.path.join(TOOL_DIR, "seeded"))
+    tree, extra = load_checkpoint(seed)
+    c2f = os.path.join(CONFIGS, "c2f.yaml")
+    save_dict, skipped = conv.reverse_checkpoint(
+        tree, extra, **conv.config_channels(c2f))
+    pth = os.path.join(TOOL_DIR, "reference.pth")
+    torch.save(save_dict, pth)
+    stem = os.path.join(TOOL_DIR, "converted")
+    conv.main([pth, stem, "--config", c2f])
+    scene = make_synthetic_scene(None, n_frames=8, size=256, focal=300.0)
+    frames = []
+    for ckpt in (seed, stem + ".npz"):
+        args = parse_args(["-c", "(dict)", "-r", ckpt, "--render_gt",
+                           "--reso", "256", "--device", "cuda"])
+        tt = test(copy.deepcopy(cfg), args, scene=scene)
+        rays = tt.val_dataset.frame_rays(0)
+        res, got = _count_launches(lambda: tt.render_rays_chunked(
+            rays, tt.val_dataset.bkgd_img, tt.rcfg_test,
+            anneal=tt.anneal()))
+        for k, v in got.items():
+            out["launches"][k] += v
+        frames.append(res["rgb_fine"])
+        del tt
+    if not torch.equal(frames[0], frames[1]) or not torch.isfinite(
+            frames[0]).all():
+        raise AssertionError("[24d] the converted model's frame differs "
+                             "from the original's")
+    log(f"[24d] c2f-wide seeded model -> reverse_checkpoint -> "
+        f"reference.pth ({len(save_dict) - 1} nets, skipped {skipped}) -> "
+        f"convert_ref_ckpt --config c2f.yaml: its 256^2 fp32 frame equals "
+        f"the original's to the bit on {card}")
+
+
 def main():
     card = phase_card()
     dev = torch.device("cuda")
@@ -4397,6 +4681,9 @@ def main():
     log(f"[22] phase 22 took {time.time() - t22:.1f} s on {card}")
     dp = phase_dp(card)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tool = phase_toolchain(card)
+    torch.cuda.synchronize()
     fine = k["times"]["fine S=256 N=4096 nof bf16"]
     n_fine = 4096 * 256
     rp_work = (2 * (NERF_MACS + NOF_MACS) * n_fine,
@@ -4406,11 +4693,12 @@ def main():
         f"bf16 {rp_bound:.4f} ms, fp32 {bound_ms(*rp_work, 'fp32')[0]:.4f} ms "
         f"({rp_by}: {rp_work[0] / 1e12:.3f} TFLOP)")
     # the CLI paths of phases 20 and 21, phase 21's occupancy path,
-    # phase 22's student, hash-grid, hybrid and option paths and phase 23's
-    # ranks
+    # phase 22's student, hash-grid, hybrid and option paths, phase 23's
+    # ranks and phase 24's training CLI and converted model's frames
     cl = {k: cli["launches"][k] + occ["launches"][k]
           + occ_cli["launches"][k] + sum(p["launches"][k] for p in p22)
-          + dp["launches"][k] for k in cli["launches"]}
+          + dp["launches"][k] + tool["launches"][k]
+          for k in cli["launches"]}
     ce = {k: max(d.get(k, 0.0) for d in (cli["err"], occ["err"],
                                          occ_cli["err"],
                                          *(p["err"] for p in p22)))

@@ -20,11 +20,16 @@ package's kernel routes: the whole-ray kernels (``mlp_impl`` ``fused``,
 hand-written CUDA kernel under ``ops/csrc/`` with its plain PyTorch
 version beside it. Training and test-time rendering run data-parallel
 over several ranks (``parallel/``: one gradient all-reduce a step, tiles
-shared out over the ranks, rank 0's side effects).
+shared out over the ranks, rank 0's side effects). The offline toolchain
+(``scripts/``) turns pose estimates into a dataset, renders stage 1's
+init_nerf views on the device, converts reference checkpoints and runs the
+pipeline's runbooks.
 
 It never imports ``jax`` or ``moco_flow_tpu``, nor ``yaml``, ``PIL``,
 ``cv2`` or ``imageio``: YAML, PNG and the JET colour table are its own
 (``utils/config.py``, ``utils/image.py``), so the CLIs take the published
-YAMLs on a machine without those packages. ``tensorboardX`` is used where
-it is importable.
+YAMLs on a machine without those packages. The exception is the video
+decode, ``scripts/data_utils.py::clip_video``, which imports cv2 where it
+runs, as JAX's script does. ``tensorboardX`` is used where it is
+importable.
 """

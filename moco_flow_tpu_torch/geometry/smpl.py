@@ -203,3 +203,10 @@ def smpl_vertex_transforms(data: SMPLData, pose: torch.Tensor,
     w = torch.as_tensor(data.lbs_weights, dtype=torch.float32,
                         device=pose.device)
     return torch.einsum("vj,bjmn->bvmn", w, g)
+
+
+def smpl_joints(data: SMPLData, vertices: torch.Tensor) -> torch.Tensor:
+    """Joint positions (B, 24, 3) regressed from vertices (B, V, 3)."""
+    jr = torch.as_tensor(data.j_regressor, dtype=vertices.dtype,
+                         device=vertices.device)
+    return torch.einsum("jv,bvc->bjc", jr, vertices)

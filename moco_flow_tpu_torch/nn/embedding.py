@@ -21,6 +21,11 @@ def freq_bands(n_freqs: int, logscale: bool = True) -> np.ndarray:
     return np.linspace(1.0, 2.0 ** (n_freqs - 1), n_freqs).astype(np.float32)
 
 
+def out_channels(in_channels: int, n_freqs: int) -> int:
+    """Embedded width: ``in_channels * (2 * n_freqs + 1)``."""
+    return in_channels * (2 * n_freqs + 1)
+
+
 def posenc(x: torch.Tensor, n_freqs: int, logscale: bool = True,
            weights: torch.Tensor | None = None) -> torch.Tensor:
     """Positional-encode ``x`` (..., C) along the last axis.

@@ -16,6 +16,7 @@ another summation order may flip a bf16 rounding of a hidden activation
 (measured on an H100: max |diff| 1.4e-4 of sigmas up to 0.035).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -647,3 +648,48 @@ def test_render_pass_student_shapes(card, net, sigma_only, dt):
     torch.testing.assert_close(ks, rs, atol=atol, rtol=rtol)
     if not sigma_only:
         torch.testing.assert_close(kr, rr, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reso", [256, 1080])
+def test_rasterizer_matches_plain(card, reso):
+    """The offline toolchain's rasterizer on the card against the same
+    function on the CPU: the fp64 inside tests and depths are the same
+    operations, so the coverage is equal; a pixel's colour sums three fp64
+    terms in another order before its rounding to fp32 (1e-6)."""
+    from moco_flow_tpu_torch.geometry.smpl import synthetic_smpl_data
+    from moco_flow_tpu_torch.scripts import data_utils as du
+    from moco_flow_tpu_torch.scripts.rasterizer import rasterize_mesh
+    smpl = synthetic_smpl_data(6890)
+    rng = np.random.default_rng(reso)
+    pose = np.zeros(72, np.float32)
+    pose[3:] = rng.normal(scale=0.1, size=69)
+    # preprocess_data.py's camera (focal 2000 at 1080^2, orig_cam scale
+    # 1), scaled to the size
+    focal = 2000.0 * reso / 1080
+    transl = np.array([0.0, 0.2, 2 * focal / reso], np.float32)
+    verts = du.posed_vertices(smpl, pose, np.zeros(10), transl, card)
+    colors = du.position_colors(verts)
+    radius = float(np.linalg.norm(transl))
+    for pos in du.sample_on_sphere(3, radius):
+        c2w = du.look_at_pose(pos + transl, transl)
+        args = (verts, smpl.faces, colors, c2w, focal, (reso / 2, reso / 2),
+                (reso, reso))
+        got = rasterize_mesh(*args, device=card).cpu()
+        want = rasterize_mesh(*args, device="cpu")
+        assert torch.equal(got[..., 3], want[..., 3])
+        assert want[..., 3].sum() > 0.05 * reso * reso
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 5, 30, 31])
+def test_median_matches_plain(card, n):
+    """``median_stack`` on the card equals the CPU plain version (both
+    sort; an even count truncates the mean of the two middle values)."""
+    from moco_flow_tpu_torch.scripts.data_utils import median_stack
+    gen = torch.Generator().manual_seed(n)
+    stack = torch.randint(0, 256, (n, 150, 97, 3), generator=gen,
+                          dtype=torch.uint8)
+    want = median_stack(stack)
+    assert torch.equal(median_stack(stack.to(card)).cpu(), want)
