@@ -1170,7 +1170,8 @@ def _profile_step(tr, card: str, tag: str = "[8 train slice] profiled bf16",
                   kernels: dict = STEP_GROUPS) -> None:
     """One profiled step: device time by kernel group and the idle share,
     written to build/<out_dir>/<fname>."""
-    ranges = {"sample_pdf": "sample_pdf", "optimizer": "Optimizer.step"}
+    ranges = {"sample_pdf": "render.sample_pdf",
+              "optimizer": "train.optimizer"}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1189,8 +1190,10 @@ def _profile_step(tr, card: str, tag: str = "[8 train slice] profiled bf16",
 
     for ev in prof.key_averages():
         on_card = str(getattr(ev, "device_type", "")).endswith("CUDA")
-        if on_card and ev.key.startswith(tuple(ranges.values())):
-            continue                            # a range's span on the card
+        # a range's span on the card (the program's, torch.optim's) is no
+        # kernel
+        if on_card and ev.key.startswith(("train.", "render.", "Optimizer.")):
+            continue
         if on_card:
             ms = dev_ms(ev)                     # a kernel (or a copy)
             busy += ms

@@ -64,6 +64,7 @@ from ..ops.nerf_rays import nerf_fused_rays_t
 from ..ops.nof_chain import nof_chain_rays_t
 from ..ops.nof_rays import nof_fused_rays
 from ..ops.render_pass import render_pass
+from ..utils.logging import span
 from .sampling import (compact_fine_samples, merge_cano_by_z,
                        merge_cano_by_z_t, sample_pdf, stratified_zvals,
                        unsort_by_pos)
@@ -533,7 +534,7 @@ def _render_rows(params: dict, statics: ModelStatics, anneal: dict,
     if rcfg.n_importance <= 0:
         return result
     z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
-    with torch.profiler.record_function("sample_pdf"):
+    with span("render.sample_pdf"):
         z_fine = sample_pdf(z_mid, weights_c[:, 1:-1], rcfg.n_importance,
                             det=(rcfg.perturb == 0),
                             u=None if draws is None else draws.pdf).detach()
@@ -610,7 +611,7 @@ def _render_train(params: dict, statics: ModelStatics, anneal: dict,
         return result
 
     z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
-    with torch.profiler.record_function("sample_pdf"):
+    with span("render.sample_pdf"):
         z_fine = sample_pdf(z_mid, weights_c[:, 1:-1], rcfg.n_importance,
                             det=(rcfg.perturb == 0),
                             u=None if draws is None else draws.pdf).detach()

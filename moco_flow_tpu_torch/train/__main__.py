@@ -22,7 +22,9 @@ As in the JAX loop, every ``val_every_n_step`` steps the trainer runs its
 val step and then ``visualize_batch`` (``train/vis.py``: stages 1 and 3
 write a frame strip, the 90-view canonical orbit and the canonical mesh;
 stage 2 nothing), and once more ``visualize_batch`` after the last step.
-``--profile`` wraps the run in ``torch.profiler`` (``log/plugins/profile``).
+``--profile`` wraps the run in ``torch.profiler`` (``log/plugins/profile``),
+whose trace shows each step's ``train.*`` spans and the renderer's
+``render.*`` ones (``utils/logging.py::span``).
 ``train(config, args)`` takes the config as a dict or a ``Config``.
 
 Data parallelism (``parallel/``): ``main`` trains one rank a device, each
@@ -129,7 +131,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="cuda (the kernels) or cpu (the plain versions)")
     p.add_argument("--profile", action="store_true",
                    help="trace the run with torch.profiler into "
-                        "log/plugins/profile")
+                        "log/plugins/profile (spans train.step, "
+                        "train.inputs/forward/backward/reduce/optimizer, "
+                        "render.sample_pdf)")
     add_dist_args(p)
     return p.parse_args(argv)
 

@@ -185,8 +185,6 @@ class _Optimizer:
     keeps a schedule count. A tensor without a gradient counts as a zero
     gradient (optax always has one)."""
 
-    kind = "Optimizer"
-
     def __init__(self, params: list, schedule: Callable[[int], float],
                  names: list | None = None, scheduled: bool = True,
                  weight_decay: float = 0.0):
@@ -212,10 +210,7 @@ class _Optimizer:
 
     @torch.no_grad()
     def step(self):
-        # the range torch.optim's optimizers open, so profiles group it alike
-        with torch.profiler.record_function(
-                f"Optimizer.step#{self.kind}.step"):
-            self._step()
+        self._step()
 
     def zero_grad(self):
         for p in self.params:
@@ -258,8 +253,6 @@ class ScheduledRAdam(_Optimizer):
     scale_by_learning_rate(schedule))`` on a list of tensors.
     ``strict_threshold`` is Ranger's ``N_sma > 5`` instead of ``>= 5``;
     ``key`` prefixes the keystr paths (``.inner`` inside Lookahead)."""
-
-    kind = "RAdam"
 
     def __init__(self, params: list, schedule: Callable[[int], float],
                  names: list | None = None, scheduled: bool = True,
@@ -332,8 +325,6 @@ class Ranger(_Optimizer):
     moves the slow copy ``slow_step_size`` of the way to the fast weights
     and lands the parameters on it."""
 
-    kind = "Ranger"
-
     def __init__(self, params: list, schedule: Callable[[int], float],
                  names: list | None = None, scheduled: bool = True,
                  weight_decay: float = 0.0, sync_period: int = 6,
@@ -378,8 +369,6 @@ class ScheduledSGD(_Optimizer):
     ``add_decayed_weights(wd)`` where there is weight decay: the trace
     ``t = g + momentum * t`` of the (decayed) gradient, times -lr."""
 
-    kind = "SGD"
-
     def __init__(self, params: list, schedule: Callable[[int], float],
                  names: list | None = None, scheduled: bool = True,
                  weight_decay: float = 0.0, momentum: float = 0.0):
@@ -410,8 +399,6 @@ class ScheduledAdamW(_Optimizer):
     ``chain(scale_by_adam, add_decayed_weights(wd),
     scale_by_learning_rate)``, the decay decoupled from the Adam step and
     scaled by the learning rate."""
-
-    kind = "AdamW"
 
     def __init__(self, params: list, schedule: Callable[[int], float],
                  names: list | None = None, scheduled: bool = True,
@@ -447,8 +434,6 @@ class WarmupAdamW(_Optimizer):
     weight decay and a linear warmup, ``slr = 1e-8 + t * lr / warmup`` for
     ``t < warmup``, both the decay and the Adam step scaled by ``slr``; the
     schedule is read at the count after the update."""
-
-    kind = "AdamW"
 
     def __init__(self, params: list, schedule: Callable[[int], float],
                  names: list | None = None, scheduled: bool = True,

@@ -38,6 +38,7 @@ from ..nn.metrics import psnr
 from ..nn.nerf import nerf_sigma
 from ..parallel.mesh import FRAME_SAMPLING_POLICIES, sample_frame
 from ..render.volume import encode_nerf_xyz, render_rays
+from ..utils.logging import span
 from .base import BaseTrainer
 from .checkpoint import (load_checkpoint, merge_into,
                          transfer_pretrained_nerf, transfer_pretrained_nof)
@@ -281,48 +282,59 @@ class MoCoFlowTrainer(BaseTrainer):
         """One training step at ``self.step`` (the clock is not ticked):
         draws (or the given ``draws``), rays, correspondences, render,
         losses, backward, the density freeze, the mean over the ranks and
-        the optimizer updates. Returns the losses and ``train_psnr`` as
-        0-dim tensors (the ranks' mean)."""
-        step = self.clock.step
-        nof_mode, freeze = self.phase(step)
-        if nof_mode == "none":
-            self.nof_opt_deleted = True
-            self.opt_nof = None
-        if draws is None:
-            draws = self.draw(step)
-        draws = draws.to(self.device)
-        rays, rgbs, bg = sample_train_rays(
-            self._table, self._directions, self._images, self._bkgd, draws,
-            self._rand_bkgd, self._has_alpha)
-        if self.chain_global:
-            cidx = (torch.tensor(float(draws.chained), device=self.device)
-                    * 2.0 / self.num_frames - 1.0)
-            rays = torch.cat([rays, torch.zeros_like(rays[:, :1]) + cidx],
-                             dim=1)
-        corr = None
-        if nof_mode != "none":
-            if self._corr is None or draws.cube is None:
-                raise ValueError(
-                    f"step {step} ({nof_mode!r}) needs the correspondence "
-                    "table and the correspondence draws")
-            corr = sample_correspondences(self._corr, draws.frame,
-                                          draws.cube, draws.pick,
-                                          draws.noise, thickness=0.2)
-        opt = self._optimizers()
-        opt.zero_grad()
-        losses, train_psnr = self._losses(
-            self.params, self.anneal(step), rays, rgbs, bg, draws, corr,
-            self._table.norm_idx[draws.frame], nof_mode)
-        sum(losses.values()).backward()
-        if freeze:
-            zero_grads_where(self._named(), _freeze_density)
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["train_psnr"] = train_psnr
-        metrics = self.reduce_grads(metrics)   # once: both updates use it
-        opt.step()
-        if self.opt_nof is not None:
-            self.opt_nof.step()     # the same gradients, the updated params
-        return metrics
+        the optimizer updates, each part in its ``train.*`` span
+        (``utils/logging.py::span``). Returns the losses and ``train_psnr``
+        as 0-dim tensors (the ranks' mean)."""
+        with span("train.step"):
+            step = self.clock.step
+            nof_mode, freeze = self.phase(step)
+            if nof_mode == "none":
+                self.nof_opt_deleted = True
+                self.opt_nof = None
+            with span("train.inputs"):
+                if draws is None:
+                    draws = self.draw(step)
+                draws = draws.to(self.device)
+                rays, rgbs, bg = sample_train_rays(
+                    self._table, self._directions, self._images, self._bkgd,
+                    draws, self._rand_bkgd, self._has_alpha)
+                if self.chain_global:
+                    cidx = (torch.tensor(float(draws.chained),
+                                         device=self.device)
+                            * 2.0 / self.num_frames - 1.0)
+                    rays = torch.cat(
+                        [rays, torch.zeros_like(rays[:, :1]) + cidx], dim=1)
+                corr = None
+                if nof_mode != "none":
+                    if self._corr is None or draws.cube is None:
+                        raise ValueError(
+                            f"step {step} ({nof_mode!r}) needs the "
+                            "correspondence table and the correspondence "
+                            "draws")
+                    corr = sample_correspondences(self._corr, draws.frame,
+                                                  draws.cube, draws.pick,
+                                                  draws.noise, thickness=0.2)
+            opt = self._optimizers()
+            opt.zero_grad()
+            with span("train.forward"):
+                losses, train_psnr = self._losses(
+                    self.params, self.anneal(step), rays, rgbs, bg, draws,
+                    corr, self._table.norm_idx[draws.frame], nof_mode)
+                loss = sum(losses.values())
+            with span("train.backward"):
+                loss.backward()
+                if freeze:
+                    zero_grads_where(self._named(), _freeze_density)
+            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics["train_psnr"] = train_psnr
+            with span("train.reduce"):   # once: both updates use it
+                metrics = self.reduce_grads(metrics)
+            with span("train.optimizer"):
+                opt.step()
+                if self.opt_nof is not None:
+                    # the same gradients, the updated params
+                    self.opt_nof.step()
+            return metrics
 
     def step_records(self, step: int) -> dict:
         """JAX's step adds ``state/nerf`` (0 while the density is frozen)

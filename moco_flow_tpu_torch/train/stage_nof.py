@@ -27,6 +27,7 @@ from ..data.draws import PointDraws, draw_points, draw_val_points
 from ..nn.losses import l1
 from ..parallel.mesh import FRAME_SAMPLING_POLICIES, sample_frame
 from ..render.volume import RenderConfig, nof_warp
+from ..utils.logging import span
 from .base import BaseTrainer
 from .checkpoint import load_checkpoint, merge_into
 from .factory import build_statics, init_params
@@ -113,19 +114,28 @@ class NoFTrainer(BaseTrainer):
     def train_step(self, draws: PointDraws | None = None) -> dict:
         """One step at ``self.step`` (the clock is not ticked): draws (or
         the given ``draws``), correspondences, both NoFs, the summed L1,
-        backward, the mean over the ranks and the optimizer update. Returns
+        backward, the mean over the ranks and the optimizer update, each
+        part in its ``train.*`` span (``utils/logging.py::span``). Returns
         ``nof_bw`` / ``nof_fw`` as 0-dim tensors (the ranks' mean)."""
-        if draws is None:
-            draws = self.draw(self.clock.step)
-        corr = self._points(draws)
-        opt = self._optimizers()
-        opt.zero_grad()
-        losses = self._loss(self.params, corr, self._norm_idx[draws.frame])
-        sum(losses.values()).backward()
-        metrics = self.reduce_grads({k: v.detach()
-                                     for k, v in losses.items()})
-        opt.step()
-        return metrics
+        with span("train.step"):
+            with span("train.inputs"):
+                if draws is None:
+                    draws = self.draw(self.clock.step)
+                corr = self._points(draws)
+            opt = self._optimizers()
+            opt.zero_grad()
+            with span("train.forward"):
+                losses = self._loss(self.params, corr,
+                                    self._norm_idx[draws.frame])
+                loss = sum(losses.values())
+            with span("train.backward"):
+                loss.backward()
+            with span("train.reduce"):
+                metrics = self.reduce_grads({k: v.detach()
+                                             for k, v in losses.items()})
+            with span("train.optimizer"):
+                opt.step()
+            return metrics
 
     def val_step(self, draws: PointDraws | None = None) -> dict:
         """The losses on a fresh 10,000-point set (:func:`draw_val_points`

@@ -4,19 +4,24 @@ Port of ``moco_flow_tpu/utils/logging.py``: a ``log.txt`` work log and an
 appendable ``metrics.jsonl`` of scalar (``train/...``, ``valid/...``) and
 histogram (``hist/...``) records, so a headless run keeps its losses;
 TensorBoard events too where tensorboardX is importable. ``profile_trace``
-is the ``torch.profiler`` counterpart of JAX's ``jax.profiler`` hook. In a
-data-parallel run both are rank 0's (the trainer makes its ``WorkLogger``
-there only).
+is the ``torch.profiler`` counterpart of JAX's ``jax.profiler`` hook, and
+``span`` names the program's ranges in its trace. In a data-parallel run
+the records and the trace are rank 0's (the trainer makes its
+``WorkLogger`` there only).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import time
 
 import numpy as np
+import torch
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 class WorkLogger:
@@ -82,14 +87,26 @@ class WorkLogger:
             self._logger.removeHandler(h)
 
 
+def span(name: str):
+    """A named range of the program in a ``torch.profiler`` trace: a
+    ``record_function`` while a profiler runs, else a shared null context,
+    so that a span costs one flag check when nothing traces. The spans are
+    ``train.step`` around a trainer's ``train_step`` and, inside it and
+    never overlapping, ``train.inputs``, ``train.forward``,
+    ``train.backward``, ``train.reduce`` and ``train.optimizer``; and
+    ``render.*`` inside a render (``render.sample_pdf``). The benchmark's
+    traced runs read them (``benchmark/spans.py``), and ``--profile``'s
+    trace (:func:`profile_trace`) shows them."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
 def profile_trace(log_dir: str):
     """A ``torch.profiler`` context over the host and, where there is one,
     the card; on exit the trace goes to ``log_dir/plugins/profile/trace.json``
     (Perfetto / chrome://tracing) and a table of the ops by device time
     beside it. On a rank other than 0 it traces nothing."""
-    import contextlib
-
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ..parallel.multihost import is_main

@@ -17,7 +17,7 @@ and ``log_freq: 1``; everything else stays as written. Then:
   (names) as the JAX package's ``test.py`` on the same checkpoint and
   scene (JAX writes an mp4 only where imageio has ffmpeg, absent here);
   ``--test_json`` reads its file's directory; ``--profile`` writes a
-  ``torch.profiler`` trace;
+  ``torch.profiler`` trace that shows each step's ``train.*`` spans;
 - ``--occ_res`` writes the same files as without it, ``--device cuda``
   without a card fails;
 - no module of the port imports jax, moco_flow_tpu or the host packages.
@@ -27,6 +27,7 @@ import argparse
 import ast
 import contextlib
 import copy
+import json
 import os
 import os.path as osp
 import subprocess
@@ -290,6 +291,30 @@ def test_profile_writes_a_trace(runs):
     prof = osp.join(tr.job_dir, "log", "plugins", "profile")
     assert sorted(os.listdir(prof)) == ["ops.txt", "trace.json"]
     assert os.path.getsize(osp.join(prof, "trace.json")) > 0
+
+
+def test_profile_trace_shows_the_step_spans(runs):
+    """``--profile``'s trace holds each training step's spans
+    (``utils/logging.py::span``): one ``train.step`` a step and its five
+    parts."""
+    cfg = copy.deepcopy(runs["cfgs"]["init_nof"])
+    cfg["trainer"].update(num_iters=2, val_every_n_step=0)
+    cfg["save_dir"] = osp.join(runs["tmp"], "profiled_spans")
+    path = osp.join(runs["tmp"], "init_nof_spans.yaml")
+    dump_config(cfg, path)
+    with blocked_host_packages():
+        tr = train_main(["-c", path, "-n", "job", "--device", "cpu",
+                         "--profile"])
+    with open(osp.join(tr.job_dir, "log", "plugins", "profile",
+                       "trace.json")) as f:
+        events = json.load(f)
+    if isinstance(events, dict):
+        events = events["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"
+             and e["name"].startswith("train.")]
+    parts = ("train.step", "train.inputs", "train.forward", "train.backward",
+             "train.reduce", "train.optimizer")
+    assert {n: names.count(n) for n in parts} == dict.fromkeys(parts, 2)
 
 
 def test_occupancy_and_a_missing_card_raise(runs):
