@@ -10,8 +10,8 @@ Phases (each ends in torch.cuda.synchronize(), so a fault shows where it
 happened; any failure raises and the script exits non-zero):
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. build the kernels (nvcc, sm_90a) into build/torch_kernels/; the
-     forward MLP kernels' registers, stack and spills from -Xptxas -v (a
-     spill fails the phase);
+     forward MLP kernels' and the fp32 training passes' registers, stack
+     and spills from -Xptxas -v (a spill fails the phase);
   3. kernel against plain version: first one product of the wgmma tile
      (wg_tile.cuh, through wg_probe.cu) against the plain product, then
      render_pass vs render_pass_ref on the same
@@ -36,7 +36,8 @@ happened; any failure raises and the script exits non-zero):
      N x S = 1000 x 128, 256 x 256 and 1000 x 127 (rows not a multiple of
      the 128-row tile), fp32 and bf16: outputs, dxyz, every d(partial) and
      dW, under TRAIN_TOL, bf16 also within the plain version's own
-     bf16-vs-fp32 gap; the fp32 forwards' error (their split TF32 product);
+     bf16-vs-fp32 gap; the fp32 forwards' and backwards' error (the split
+     TF32 product of their passes);
      every kernel bitwise equal across two launches, the backward kernels
      also in chunks (a lowered scratch cap) as in one launch; then each
      kernel, its plain version and its bounds at one step's shapes, and
@@ -349,6 +350,11 @@ FWD_SMEM = {"render_pass_wg_kernel": 1024 + 4 * 32768 + 5 * 16384 + 9728
                                             + 128 * (68 + 260)),
             "nerf_tf32_kernel": 4 * (2 * 16 * 264 + 128 * (68 + 260)),
             "nof_tf32_kernel": 4 * (4 * 16 * 264 + 128 * (16 + 84 + 132))}
+# the fp32 builds of #2 / #4 / #6's row-tile passes (split TF32), by the
+# stem of their mangled names
+PASS_KERNELS = {f"{k}<float>": f"{k}IfE" for k in (
+    "nerf_fwd_pass", "nerf_walk_pass", "chain_fwd_pass", "chain_walk_pass",
+    "nof_fwd_pass", "nof_walk_pass")}
 PTXAS = {}   # kernel -> its ptxas lines (registers, stack, spills)
 
 
@@ -358,17 +364,19 @@ def phase_build():
     _build.load_library()
     dt = time.perf_counter() - t0
     log(f"[2 build] {path} in {dt:.1f} s")
+    checked = {**{k: k for k in FWD_KERNELS}, **PASS_KERNELS}
     name = None
     for line in out.splitlines():
         if "Function properties for" in line:
-            name = next((k for k in FWD_KERNELS if k in line), None)
+            name = next((k for k, stem in checked.items() if stem in line),
+                        None)
         if "registers" in line or "spill" in line:
             log(f"[2 build] {line.strip()}")
             if name:
                 PTXAS.setdefault(name, []).append(line.strip())
     if PTXAS:   # a cached build prints nothing
         spills = []
-        for k in FWD_KERNELS:
+        for k in checked:
             info = " | ".join(PTXAS.get(k, ["not in the compiler's output"]))
             log(f"[2 build] {k}: {info}")
             if " 0 bytes spill stores" not in info:
@@ -892,9 +900,11 @@ def phase_train_kernels(dev, card: str,
     # fp32 bound holds it.
     gap_ratio = {"nerf_bwd": 0.0, "chain_bwd": 0.0}
     no_gap = {"nerf_bwd": 0, "chain_bwd": 0}
-    # the fp32 forwards multiply on the split TF32 product: their largest
-    # |kernel - plain| and its share of the largest |plain| output
-    split_err = {"nerf_fwd": [0.0, 0.0], "chain_fwd": [0.0, 0.0]}
+    # the fp32 passes multiply on the split TF32 product: their largest
+    # |kernel - plain| and its share of the largest |plain| output (of a
+    # tensor's, for the backwards)
+    split_err = {k: [0.0, 0.0] for k in ("nerf_fwd", "chain_fwd",
+                                         "nerf_bwd", "chain_bwd")}
 
     def track_split(name, e, e_rel):
         split_err[name] = [max(split_err[name][0], e),
@@ -944,6 +954,8 @@ def phase_train_kernels(dev, card: str,
                     if refs32 is not None:
                         track_gap("nerf_bwd", a, b, refs32[i])
                 err["nerf_bwd"] = max(err["nerf_bwd"], worst)
+                if dname == "fp32":
+                    track_split("nerf_bwd", worst, w_rel)
                 log(f"[6 train kernels] {tag}: forward max|d| {e:.3e} "
                     f"({e_rel:.1e} of max|ref|), backward max|d| {worst:.3e} "
                     f"(at most {w_rel:.1e} of a tensor's max|ref|) over dxyz"
@@ -988,6 +1000,8 @@ def phase_train_kernels(dev, card: str,
                     if refs32 is not None:
                         track_gap("chain_bwd", a, b, refs32[i])
                 err["chain_bwd"] = max(err["chain_bwd"], worst)
+                if dname == "fp32":
+                    track_split("chain_bwd", worst, w_rel)
                 log(f"[6 train kernels] {tag}: forward max|d| {e:.3e} "
                     f"({e_rel:.1e} of max|ref|) over {len(ko)} outputs, "
                     f"backward max|d| {worst:.3e} (at most {w_rel:.1e} of a "
@@ -1006,10 +1020,12 @@ def phase_train_kernels(dev, card: str,
             raise AssertionError(f"{name} bf16 differs from its plain "
                                  f"version by {r:.3f} x its bf16-vs-fp32 gap")
     for name, (e, e_rel) in split_err.items():
+        tol = (f"{TOL['fp32'][0]:g} + {TOL['fp32'][1]:g}|ref|"
+               if name.endswith("fwd") else "TRAIN_TOL")
         log(f"[6 train kernels] {name} fp32 on the split TF32 product: "
             f"largest |kernel - plain| {e:.3e} ({e_rel:.2e} of the largest "
-            f"|plain| output; tolerance {TOL['fp32'][0]:g} + "
-            f"{TOL['fp32'][1]:g}|ref|)")
+            f"|plain| {'output' if name.endswith('fwd') else 'tensor'}; "
+            f"tolerance {tol})")
     if sizes:
         _fwd_repeat_checks(P, ncfg, fcfg, an_n, an_f, sizes[-1], gen, dev)
         _bwd_repeat_checks(P, ncfg, fcfg, an_n, an_f, sizes[0], gen, dev)
@@ -1061,7 +1077,7 @@ def phase_train_kernels(dev, card: str,
             k_ms = cuda_ms(lambda: [f() for f in kern], reps=3)
             p_ms = cuda_ms(lambda: [f() for f in plain], reps=3)
             b_ms, b_by = bound_ms(flops[name], nbytes[name], dname)
-            # the fp32 forwards' own product: three TF32 products a term
+            # the fp32 passes' own product: three TF32 products a term
             tc = (f", split TF32 bound "
                   f"{bound_ms(3 * flops[name], nbytes[name], 'tf32')[0]:.4f}"
                   " ms (held to this one)"
@@ -1450,7 +1466,8 @@ def phase_nof_kernels(dev, card: str,
                 times[name] = (k_ms, p_ms, b_ms, b_by)
             if key in stage2_0:
                 times_stage2[(name, dname)] = (k_ms, p_ms, b_ms, b_by)
-            # #3's fp32 build multiplies in split TF32 (#4's passes: FFMA)
+            # #3's fp32 build multiplies in split TF32 (#4's passes too,
+            # its dW on FFMA)
             shares = (f"; {fwd_shares(flops, k_ms, dname)}"
                       if name == "nof_fwd" else "")
             bands = "" if key[2] == 5 else f" xyz bands {key[2]}"

@@ -25,8 +25,7 @@
 // a block with every activation in shared memory and each layer's weights
 // staged in slices shared by the block's 16 warps.
 //   #5: one pass, every stage; nothing but xyz, the per-ray partials and
-//       the outputs touches device memory. Its fp32 build multiplies on the
-//       tensor cores with split TF32 operands.
+//       the outputs touches device memory.
 //   #6 (a) the same pass as a forward recompute (one stage loop, a
 //       compile-time flag): every stage's input, packed PE, trunk
 //       activations and head output go to the device scratch;
@@ -41,6 +40,8 @@
 // the caller's net and partials; no fw net) through entry points of their
 // own (nof_fwd_kernel; nof_fwd_pass, nof_walk_pass), so a profile and the
 // launch counts tell them apart from #5 / #6.
+// Every pass multiplies on the tensor cores (mma.sync): bf16 in the bf16
+// build, split TF32 operands in the fp32 one.
 // Rounding follows _nof_tile / _nof_bwd_tile: activations, embeddings, dz
 // and the head cotangent stored in T, fp32 accumulation, explicitly rounded
 // elementwise steps.
@@ -115,36 +116,34 @@ template <typename T> __device__ __forceinline__ T* at(const CB& a, int64_t off)
   return reinterpret_cast<T*>(a.scratch + off);
 }
 
-template <typename T, bool kForward>
+template <typename T>
 size_t fwd_smem(const CB& a) {
   return ((kMaxStages + 1) * 3 * kRT + kRT * kHeadLd) * sizeof(float) +
-         stage_bytes<T, kForward>() +
+         stage_bytes<T>() +
          kRT * (tile_ld<T>(3 + 2 * a.kc) + tile_ld<T>(a.width)) * sizeof(T);
 }
 
 template <typename T>
 size_t walk_smem(const CB& a) {
   return (4 * 3 * kRT + kRT * pad16(3 + 2 * a.kc)) * sizeof(float) +
-         stage_bytes<T, false>() +
+         stage_bytes<T>() +
          kRT * (tile_ld<T>(3 + 2 * a.kc) + tile_ld<T>(a.width)) * sizeof(T);
 }
 
 // One 128-row tile through every stage of the chain. kForward: kernel #5,
-// which writes cano, recon and chain_recon and nothing else, its fp32 build
-// on the split TF32 product; else pass (a) of #6, which stores every
-// stage's input, packed PE, activations and head output to the scratch,
-// its fp32 build on the FFMA product.
+// which writes cano, recon and chain_recon and nothing else; else pass (a)
+// of #6, which stores every stage's input, packed PE, activations and head
+// output to the scratch.
 template <typename T, bool kForward>
 __device__ __forceinline__ void chain_tile(const CB& a, unsigned char* smem) {
-  using S = StageT<T, kForward>;
   const int W = a.width, kp = 3 + 2 * a.kc, kpp = pad16(kp);
   const int e_ld = tile_ld<T>(kp), h_ld = tile_ld<T>(W);
   float* X0 = reinterpret_cast<float*>(smem);     // [3][kRT] positions
   float* Xs = X0 + 3 * kRT;                        // [stage][3][kRT] outputs
   float* O = Xs + kMaxStages * 3 * kRT;            // [kRT][kHeadLd]
-  S* Ws = reinterpret_cast<S*>(O + kRT * kHeadLd);
+  T* Ws = reinterpret_cast<T*>(O + kRT * kHeadLd);
   T* E = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(Ws) +
-                              stage_bytes<T, kForward>());  // [kRT][e_ld]
+                              stage_bytes<T>());   // [kRT][e_ld]
   T* H = E + kRT * e_ld;                           // [kRT][h_ld]
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRT;
   for (int i = threadIdx.x; i < 3 * kRT; i += blockDim.x) {
@@ -262,9 +261,9 @@ __device__ __forceinline__ void chain_walk(const CB& a, unsigned char* smem) {
   float* Gt = Gc + 3 * kRT;
   float* Gu = Gt + 3 * kRT;
   float* de = Gu + 3 * kRT;                        // [kRT][de_ld]
-  bf16* Ws = reinterpret_cast<bf16*>(de + kRT * de_ld);
+  T* Ws = reinterpret_cast<T*>(de + kRT * de_ld);
   T* E = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(Ws) +
-                              stage_bytes<T, false>());  // [kRT][e_ld] d9
+                              stage_bytes<T>());   // [kRT][e_ld] d9
   T* H = E + kRT * e_ld;                           // [kRT][h_ld] dz
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRT;
   auto load_g = [&](float* G, const float* src) {
@@ -334,21 +333,22 @@ __device__ __forceinline__ void chain_walk(const CB& a, unsigned char* smem) {
       Gc[i] = __fadd_rn(Gc[i], Gu[i]);
     __syncthreads();
   };
+  // The stages in the order of _chain_bwd_tile: the global chain's three
+  // (glob0 + 2 down to glob0, from its cotangent in Gt, then to and fro
+  // between Gt and Gu), the local chain's one (stage 1, from Gt), each
+  // chain's input cotangent added into d(cano), then stage 0 from Gc. One
+  // call site, so the walk is compiled once: five inlined copies left ptxas
+  // short of registers (spills in both builds).
   load_g(Gc, a.gin[0]);
   const int glob0 = a.chain_local ? 2 : 1;
-  if (a.chain_global) {
-    load_g(Gt, a.gin[2]);
-    vjp(glob0 + 2, Gt, Gu);
-    vjp(glob0 + 1, Gu, Gt);
-    vjp(glob0, Gt, Gu);
-    add_into_gc();
+  for (int k = 0; k < a.n_stages; ++k) {
+    const bool global = a.chain_global && k < 3;
+    const int si = global ? glob0 + 2 - k : (k + 1 < a.n_stages ? 1 : 0);
+    if (si != 0 && (!global || k == 0)) load_g(Gt, a.gin[global ? 2 : 1]);
+    const bool back = global && k == 1;    // from Gu into Gt
+    vjp(si, si == 0 ? Gc : (back ? Gu : Gt), back ? Gt : Gu);
+    if (si != 0 && (!global || si == glob0)) add_into_gc();
   }
-  if (a.chain_local) {
-    load_g(Gt, a.gin[1]);
-    vjp(1, Gt, Gu);
-    add_into_gc();
-  }
-  vjp(0, Gc, Gu);
   for (int i = threadIdx.x; i < 3 * kRT; i += blockDim.x) {
     const int64_t gi = row0 + i % kRT;
     if (gi < a.rows) a.dx[(i / kRT) * a.rows + gi] = Gu[i];
@@ -554,7 +554,7 @@ template <typename T>
 int run_passes(const CB& a, bool nof, cudaStream_t s) {
   const unsigned blocks = static_cast<unsigned>(a.rp / kRT);
   int rc = launch(nof ? nof_fwd_pass<T> : chain_fwd_pass<T>,
-                  fwd_smem<T, false>(a), blocks, kRTThreads, s, a);
+                  fwd_smem<T>(a), blocks, kRTThreads, s, a);
   if (rc) return rc;
   return launch(nof ? nof_walk_pass<T> : chain_walk_pass<T>, walk_smem<T>(a),
                 blocks, kRTThreads, s, a);
@@ -591,9 +591,9 @@ int run_forward(const CB& a, bool nof, cudaStream_t s) {
   const unsigned blocks = static_cast<unsigned>(a.rp / kRT);
   if (a.bf16)
     return launch(nof ? nof_fwd_kernel<bf16> : chain_fwd_kernel<bf16>,
-                  fwd_smem<bf16, true>(a), blocks, kRTThreads, s, a);
+                  fwd_smem<bf16>(a), blocks, kRTThreads, s, a);
   return launch(nof ? nof_fwd_kernel<float> : chain_fwd_kernel<float>,
-                fwd_smem<float, true>(a), blocks, kRTThreads, s, a);
+                fwd_smem<float>(a), blocks, kRTThreads, s, a);
 }
 
 }  // namespace

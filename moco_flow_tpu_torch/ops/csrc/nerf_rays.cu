@@ -19,10 +19,7 @@
 // staged in slices shared by the block's 16 warps.
 //   #1: one pass; nothing but xyz, the per-ray partial and the outputs
 //       touches device memory. The sigma row is an fp32 dot product of the
-//       last activation (four threads a row); its fp32 build multiplies on
-//       the tensor cores with split TF32 operands (at W=256 the 128-row
-//       tile, 16-deep fp32 weight slices and the 260-float activation rows
-//       take ~199 KB of the 227).
+//       last activation (four threads a row).
 //   #2 (a) the same pass as a forward recompute (one layer sequence, a
 //       compile-time flag): the packed PE, the trunk, `final`, the extra
 //       layer and the rgb head with its cotangent d(rgb) sigmoid'; every
@@ -30,16 +27,20 @@
 //   (b) backward walk, 128-row tiles: dz = relu'(a) dh of each layer, from
 //       the rgb head down, with a read back from the scratch and dz stored
 //       there; dh = dz W^T on weights staged in shared memory; then the PE
-//       cotangent and dx;
+//       cotangent and dx. The PE cotangent (fp32) takes E's place, which
+//       is dead once the rgb head's input gradient has read d3;
 //   (c) the weight and bias gradients as long-K products and ordered sums
 //       over the scratch (wgrad.cuh): K is every row of the call.
-// Tensor cores (mma.sync) in bf16 wherever both operands are bf16; fp32 on
-// the FFMA product in #2. Rounding follows _nerf_tile / _nerf_bwd_tile:
-// activations and dz stored in T, fp32 accumulation, explicitly rounded
-// elementwise steps, full-precision sincosf; dW of `final` takes the fp32
-// d(final output) (JAX's bf16 x fp32 dot): in bf16 as its exact split hi +
-// mid + lo into three bf16 parts on the tensor cores (each product exact,
-// the sums fp32), while dh takes it rounded to T (hi). The scratch (~10.9
+// Every pass multiplies on the tensor cores (mma.sync): bf16 in the bf16
+// build, split TF32 operands in the fp32 one (at W=256 and 63 packed PE
+// inputs, 16-deep fp32 weight slices, E and the 260-float activation rows
+// take 200 KB of a block's 227 in #1 and pass (a), 200.5 KB in the walk).
+// Rounding follows _nerf_tile / _nerf_bwd_tile: activations and dz stored
+// in T, fp32 accumulation, explicitly rounded elementwise steps,
+// full-precision sincosf; dW of `final` takes the fp32 d(final output)
+// (JAX's bf16 x fp32 dot): in bf16 as its exact split hi + mid + lo into
+// three bf16 parts on the tensor cores (each product exact, the sums
+// fp32), while dh takes it rounded to T (hi). The scratch (~10.9
 // KB a row in bf16, ~21 KB in fp32 at full width) lives for one call; the
 // wrapper cuts calls above its cap into chunks of whole rays.
 
@@ -104,34 +105,40 @@ template <typename T> __device__ __forceinline__ T* at(const NB& a, int64_t off)
   return reinterpret_cast<T*>(a.scratch + off);
 }
 
-template <typename T, bool kForward>
+template <typename T>
 size_t fwd_smem(const NB& a) {
-  return 6 * kRT * sizeof(float) + stage_bytes<T, kForward>() +
+  return 6 * kRT * sizeof(float) + stage_bytes<T>() +
          kRT * (tile_ld<T>(3 + 2 * a.kc) + tile_ld<T>(a.width)) * sizeof(T);
+}
+
+// the walk's E (d3, row stride e_ld) and the PE cotangent de (fp32, row
+// stride pad16(kp)) share one region
+template <typename T>
+__host__ __device__ size_t e_de_bytes(const NB& a) {
+  const int kp = 3 + 2 * a.kc;
+  const size_t e = tile_ld<T>(kp) * sizeof(T), de = pad16(kp) * sizeof(float);
+  return kRT * (e > de ? e : de);
 }
 
 template <typename T>
 size_t walk_smem(const NB& a) {
-  return (7 * kRT + kRT * pad16(3 + 2 * a.kc)) * sizeof(float) +
-         stage_bytes<T, false>() +
-         kRT * (tile_ld<T>(3 + 2 * a.kc) + tile_ld<T>(a.width)) * sizeof(T);
+  return 7 * kRT * sizeof(float) + stage_bytes<T>() + e_de_bytes<T>(a) +
+         kRT * tile_ld<T>(a.width) * sizeof(T);
 }
 
 // One 128-row tile through the NeRF (_nerf_tile). kForward: kernel #1,
-// which writes [rgb; sigma] (or sigma) and nothing else, its fp32 build on
-// the split TF32 product; else pass (a) of #2, the forward recompute, which
-// stores every layer's output and the rgb head's cotangent d(rgb) sigmoid'
-// to the scratch, its fp32 build on the FFMA product.
+// which writes [rgb; sigma] (or sigma) and nothing else; else pass (a) of
+// #2, the forward recompute, which stores every layer's output and the rgb
+// head's cotangent d(rgb) sigmoid' to the scratch.
 template <typename T, bool kForward>
 __device__ __forceinline__ void nerf_tile(const NB& a, unsigned char* smem) {
-  using S = StageT<T, kForward>;
   const int W = a.width, W2 = W / 2, kp = 3 + 2 * a.kc, kpp = pad16(kp);
   const int e_ld = tile_ld<T>(kp), h_ld = tile_ld<T>(W);
   float* X = reinterpret_cast<float*>(smem);      // [3][kRT]
   float* G = X + 3 * kRT;                          // [3][kRT] d(rgb)
-  S* Ws = reinterpret_cast<S*>(G + 3 * kRT);
+  T* Ws = reinterpret_cast<T*>(G + 3 * kRT);
   T* E = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(Ws) +
-                              stage_bytes<T, kForward>());  // [kRT][e_ld]
+                              stage_bytes<T>());   // [kRT][e_ld]
   T* H = E + kRT * e_ld;                           // [kRT][h_ld]
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRT;
   for (int i = threadIdx.x; i < 3 * kRT; i += blockDim.x) {
@@ -254,11 +261,12 @@ __global__ void __launch_bounds__(kRTThreads, 1) nerf_walk_pass(const NB a) {
   float* X = reinterpret_cast<float*>(smem);      // [3][kRT]
   float* dX = X + 3 * kRT;                         // [3][kRT]
   float* dsig = dX + 3 * kRT;                      // [kRT]
-  float* de = dsig + kRT;                          // [kRT][de_ld]
-  bf16* Ws = reinterpret_cast<bf16*>(de + kRT * de_ld);
-  T* E = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(Ws) +
-                              stage_bytes<T, false>());      // [kRT][e_ld]
-  T* H = E + kRT * e_ld;                           // [kRT][h_ld]
+  T* Ws = reinterpret_cast<T*>(dsig + kRT);
+  unsigned char* e_de =
+      reinterpret_cast<unsigned char*>(Ws) + stage_bytes<T>();
+  T* E = reinterpret_cast<T*>(e_de);               // [kRT][e_ld] d3
+  float* de = reinterpret_cast<float*>(e_de);      // [kRT][de_ld], after d3
+  T* H = reinterpret_cast<T*>(e_de + e_de_bytes<T>(a));  // [kRT][h_ld]
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRT;
   for (int i = threadIdx.x; i < 3 * kRT; i += blockDim.x) {
     const int64_t gi = row0 + i % kRT;
@@ -503,8 +511,8 @@ void jobs(const Decoded& d, wg::Call* mat, wg::Call* col, wg::SegCall* seg) {
 template <typename T>
 int run_passes(const NB& a, cudaStream_t s) {
   const unsigned blocks = static_cast<unsigned>(a.rp / kRT);
-  int rc = launch(nerf_fwd_pass<T>, fwd_smem<T, false>(a), blocks,
-                  kRTThreads, s, a);
+  int rc = launch(nerf_fwd_pass<T>, fwd_smem<T>(a), blocks, kRTThreads, s,
+                  a);
   if (rc) return rc;
   return launch(nerf_walk_pass<T>, walk_smem<T>(a), blocks, kRTThreads, s, a);
 }
@@ -549,10 +557,10 @@ extern "C" int nerf_fwd_launch(const int64_t* p, int n, void* stream) {
   if (a.rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned blocks = static_cast<unsigned>(a.rp / kRT);
-  return a.bf16 ? launch(nerf_fwd_kernel<bf16>, fwd_smem<bf16, true>(a),
-                         blocks, kRTThreads, s, a)
-                : launch(nerf_fwd_kernel<float>, fwd_smem<float, true>(a),
-                         blocks, kRTThreads, s, a);
+  return a.bf16 ? launch(nerf_fwd_kernel<bf16>, fwd_smem<bf16>(a), blocks,
+                         kRTThreads, s, a)
+                : launch(nerf_fwd_kernel<float>, fwd_smem<float>(a), blocks,
+                         kRTThreads, s, a);
 }
 
 extern "C" const char* nerf_bwd_error(int code) {

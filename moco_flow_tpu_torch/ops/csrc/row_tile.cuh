@@ -12,33 +12,27 @@
 //   memory, 64-deep slices of B^T staged with cp.async, double-buffered,
 //   shared by the 16 warps). B arrives as B^T zero-padded to (pad16(n),
 //   pad16(k)); A holds finite values (zeros) in its columns k..pad16(k).
-// - fp32: an FFMA loop; warp w owns rows 8w..8w+7, lane l the column pairs
-//   2l + 64j, reading A by broadcast from row-major shared memory and B
-//   (zero-padded to (k, pad16(n))) as coalesced float2 rows. The backward
-//   passes of #2 / #6 take it (rt_mm with bf16 staging, unused).
-// - fp32 on the tensor cores (rt_mm with fp32 staging; the forward kernels
-//   #1 / #5, and the fp32 builds of #7 / #8 in render_pass.cu and
-//   fused_mlp.cu): mma.sync m16n8k8 in TF32 with split operands ("3xTF32"):
-//   a = a_hi + a_lo and b = b_hi + b_lo, each part rounded to TF32 by
-//   cvt.rna; a k-step's a_lo b_hi + a_hi b_lo + a_hi b_hi is summed on the
-//   tensor cores from zero and added to the running sum with an fp32 add
-//   (mma_split). The tensor core's own additions do not round to nearest:
-//   adding each product into the running sum left it 2.4-4.4x further from
-//   the exact product than cuBLAS's fp32 one (at most; rms 3.2-9.4x), the
-//   k-step sum added with __fadd_rn 0.39-0.70x
+// - fp32 (rt_mm with fp32 staging; every pass of #1-#6, and the fp32
+//   builds of #7 / #8 in render_pass.cu and fused_mlp.cu): mma.sync
+//   m16n8k8 in TF32 with split operands ("3xTF32"): a = a_hi + a_lo and
+//   b = b_hi + b_lo, each part rounded to TF32 by cvt.rna; a k-step's
+//   a_lo b_hi + a_hi b_lo + a_hi b_hi is summed on the tensor cores from
+//   zero and added to the running sum with an fp32 add (mma_split). The
+//   tensor core's own additions do not round to nearest: adding each
+//   product into the running sum left it 2.4-4.4x further from the exact
+//   product than cuBLAS's fp32 one (at most; rms 3.2-9.4x), the k-step sum
+//   added with __fadd_rn 0.39-0.70x
 //   (scripts/torch_port_tf32_accum_probe.py). The dropped a_lo b_lo
-//   (~2^-22 of a term) moved neither. The warp layout is the
-//   bf16 one; B (the FFMA layout, (k, pad16(n))) is staged in 16-deep fp32
-//   slices with cp.async, double-buffered, and split at fragment load; A
-//   fragments are 32-bit loads from row-major fp32 shared memory, whose
-//   row stride (tile_ld: 4 mod 16 floats) keeps them conflict-free. The
-//   per-op NoF #9 takes B split once by its wrapper (rt_mm_presplit): only
-//   A is split in the kernel, with the same bits.
+//   (~2^-22 of a term) moved neither. The warp layout is the bf16 one; B
+//   (zero-padded to (k, pad16(n))) is staged in 16-deep fp32 slices with
+//   cp.async, double-buffered, and split at fragment load; A fragments are
+//   32-bit loads from row-major fp32 shared memory, whose row stride
+//   (tile_ld: 4 mod 16 floats) keeps them conflict-free. The per-op NoF #9
+//   takes B split once by its wrapper (rt_mm_presplit): only A is split in
+//   the kernel, with the same bits.
 // Every product accumulates in fp32 from the stored operands.
 
 #pragma once
-
-#include <type_traits>
 
 #include "pass_tile.cuh"
 
@@ -156,59 +150,6 @@ __device__ void rt_mm(bf16* Ws, Term<bf16> t1, Term<bf16> t2, int n,
       epi(warp_m * 16 + g + 8 * hh, col, acc[t][2 * hh], acc[t][2 * hh + 1]);
   }
   __syncthreads();
-}
-
-template <int NP, class Epi>
-__device__ void rt_mm_np(Term<float> t1, Term<float> t2, int n, Epi epi) {
-  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 8;
-  const int ldb = pad16(n);
-  float acc[8][NP][2];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < NP; ++j) acc[i][j][0] = acc[i][j][1] = 0.f;
-  for (int term = 0; term < 2; ++term) {
-    const Term<float>& t = term ? t2 : t1;
-#pragma unroll 2
-    for (int k = 0; k < t.k; ++k) {
-      float a[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = t.a[(r0 + i) * t.lda + k];
-      const float* b = t.b + static_cast<int64_t>(k) * ldb;
-#pragma unroll
-      for (int j = 0; j < NP; ++j) {
-        const int c = 2 * lane + 64 * j;
-        const float2 w = c < ldb ? __ldg(reinterpret_cast<const float2*>(
-                                       b + c))
-                                 : make_float2(0.f, 0.f);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          acc[i][j][0] = fmaf(a[i], w.x, acc[i][j][0]);
-          acc[i][j][1] = fmaf(a[i], w.y, acc[i][j][1]);
-        }
-      }
-    }
-  }
-  __syncthreads();   // every warp has read A before an epilogue writes it
-#pragma unroll
-  for (int j = 0; j < NP; ++j) {
-    const int c = 2 * lane + 64 * j;
-    if (c >= n) continue;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) epi(r0 + i, c, acc[i][j][0], acc[i][j][1]);
-  }
-  __syncthreads();
-}
-
-template <class Epi>
-__device__ void rt_mm(bf16*, Term<float> t1, Term<float> t2, int n,
-                      Epi epi) {
-  switch ((n + 63) / 64) {
-    case 1: rt_mm_np<1>(t1, t2, n, epi); break;
-    case 2: rt_mm_np<2>(t1, t2, n, epi); break;
-    case 3: rt_mm_np<3>(t1, t2, n, epi); break;
-    default: rt_mm_np<4>(t1, t2, n, epi); break;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -442,19 +383,11 @@ __device__ void rt_mm_presplit(float* Ws, int kd, Term<float> t1,
   __syncthreads();
 }
 
-// The staging type of a pass's products: fp32 slices for the forward
-// kernels' fp32 build (the tensor-core product above), else bf16 slices
-// (the bf16 product; the FFMA product stages nothing).
-template <typename T, bool kSplitTf32>
-using StageT = typename std::conditional<kSplitTf32 && sizeof(T) == 4, float,
-                                         bf16>::type;
-
-// bytes of the staged weight slices of a pass with that staging
-template <typename T, bool kSplitTf32>
-__host__ __device__ constexpr size_t stage_bytes() {
-  return sizeof(StageT<T, kSplitTf32>) == 4
-             ? 2 * kKs * kWsLdF * sizeof(float)
-             : (sizeof(T) == 2 ? 2 * kMaxWidth * kWsLd * sizeof(bf16) : 0);
+// bytes of a pass's staged weight slices (of T: rt_mm's bf16 product in
+// the bf16 build, its split-TF32 product in the fp32 one)
+template <typename T> __host__ __device__ constexpr size_t stage_bytes() {
+  return sizeof(T) == 4 ? 2 * kKs * kWsLdF * sizeof(float)
+                        : 2 * kMaxWidth * kWsLd * sizeof(bf16);
 }
 
 template <typename T> __device__ __forceinline__ Term<T> no_term() {

@@ -379,12 +379,12 @@ def test_bwd_chunks_match_one_call(card, which, dt, monkeypatch):
 FWD_ROWS = (37, 127)
 
 
-def _full_nerf(card, sigma_only):
+def _full_nerf(card, sigma_only, rows=FWD_ROWS):
     from moco_flow_tpu_torch.ops.folds import _NerfSpec, _nerf_fold
     gen = torch.Generator().manual_seed(5)
     ncfg = NeRFConfig(extra_feat_type="ind", extra_feat_dim=5)
     params = init_nerf(gen, ncfg, card)
-    n, s = FWD_ROWS
+    n, s = rows
     xyz = (0.8 * torch.randn(3, n, s, generator=gen)).to(card)
     emb = torch.randn(n, 5, generator=gen).to(card)
     an = anneal_weights(505000, 10, 5000, 1005000).to(card)
@@ -394,12 +394,12 @@ def _full_nerf(card, sigma_only):
     return spec, xyz, p_e, ws
 
 
-def _full_chain(card, local, glob):
+def _full_chain(card, local, glob, rows=FWD_ROWS):
     from moco_flow_tpu_torch.ops.nof_chain import _ChainSpec
     gen = torch.Generator().manual_seed(6)
     fcfg = NoFConfig()
     bw, fw = init_nof(gen, fcfg, card), init_nof(gen, fcfg, card)
-    n, s = FWD_ROWS
+    n, s = rows
     xyz = (0.6 * torch.randn(3, n, s, generator=gen)).to(card)
     emb = torch.randn(n, 33, generator=gen).to(card)
     emb_c = torch.randn(n, 33, generator=gen).to(card)
@@ -465,6 +465,83 @@ def test_fwd_deterministic(card, which, dt):
     a, b = kernel(dt), kernel(dt)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# The fp32 backwards #2 and #6 at the published models' widths, where the
+# NeRF walk's shared memory is at its largest (c2f.yaml's 63 packed PE
+# inputs), on 150 x 127 rows (not a multiple of the 128-row tile): every
+# output within _close_train of the plain version in fp64, and the same
+# bits from two launches.
+BWD_ROWS = (150, 127)
+
+
+def _init_nerf(card, rows):
+    """init_nerf.yaml's NeRF: raw xyz (0 PE frequencies: a 1-frequency
+    pass with zero sin / cos rows), the 27-wide ``dir`` extra."""
+    from moco_flow_tpu_torch.ops.folds import _NerfSpec, _nerf_fold
+    gen = torch.Generator().manual_seed(8)
+    ncfg = NeRFConfig(extra_feat_type="dir", extra_feat_dim=27)
+    params = init_nerf(gen, ncfg, card)
+    n, s = rows
+    xyz = (0.8 * torch.randn(3, n, s, generator=gen)).to(card)
+    emb = torch.randn(n, 27, generator=gen).to(card)
+    ws, p_e = _nerf_fold(params, ncfg, 0, None, emb, False)
+    return _NerfSpec(8, 256, 3, (4,), False, True, True), xyz, p_e, ws
+
+
+def _to64(x):
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to64(v) for v in x)
+    if torch.is_tensor(x) and x.is_floating_point():
+        return x.double()
+    return x
+
+
+def _plain64(fn, *args):
+    """The plain version ``fn`` in fp64: operands, stored activations,
+    products and sums (``Tensor.float`` widened to fp64 while it runs)."""
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    from moco_flow_tpu_torch.ops import nof_chain as nc
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.Tensor, "float", lambda self, *a, **k: self.double())
+        for mod in (nr, nc):
+            mp.setattr(mod, "_storage", lambda dt: torch.float64)
+        return fn(*_to64(args))
+
+
+def _published_bwd(card, which):
+    """(kernel call, plain call in fp64) of the fp32 backward."""
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    from moco_flow_tpu_torch.ops import nof_chain as nc
+    gen = torch.Generator().manual_seed(9)
+    if which == "chain-c2f":
+        c = _full_chain(card, True, True, BWD_ROWS)
+        gs = [(torch.randn(3, *BWD_ROWS, generator=gen)
+               / (BWD_ROWS[0] * BWD_ROWS[1]) ** 0.5).to(card)
+              for _ in range(3)]
+        return (lambda: nc.chain_bwd(c[0], None, 2, *c[1:], gs),
+                lambda: _plain64(nc._chain_bwd_ref, c[0], None, 2, *c[1:],
+                                 gs))
+    c = (_full_nerf(card, False, BWD_ROWS) if which == "nerf-c2f"
+         else _init_nerf(card, BWD_ROWS))
+    g = (torch.randn(4, *BWD_ROWS, generator=gen)
+         / (BWD_ROWS[0] * BWD_ROWS[1]) ** 0.5).to(card)
+    return (lambda: nr.nerf_bwd(c[0], None, *c[1:], g),
+            lambda: _plain64(nr._nerf_bwd_ref, c[0], None, *c[1:], g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["nerf-c2f", "nerf-init_nerf", "chain-c2f"])
+def test_fp32_bwd_published_widths(card, which):
+    kernel, plain64 = _published_bwd(card, which)
+    got, again, want = _flat(kernel()), _flat(kernel()), _flat(plain64())
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert b.dtype == torch.float64, i
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        assert _close_train(a, b, None, None), i
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 # The bf16 forward kernels #7 / #8 on the wgmma tile (csrc/wg_tile.cuh),

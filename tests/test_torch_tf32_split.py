@@ -1,6 +1,7 @@
 """The fp32 tensor-core product of the forward kernels #1 (``nerf_fwd``), #5
 (``chain_fwd``), #7 (``render_pass``), #8 (``nerf_pallas``) and #9
-(``nof_pallas``), emulated on the CPU.
+(``nof_pallas``), and of the backward passes of #2 (``nerf_bwd``), #4
+(``nof_bwd``) and #6 (``chain_bwd``), emulated on the CPU.
 
 The kernels' fp32 builds multiply on the tensor cores in TF32 with split
 operands (``csrc/row_tile.cuh``): a = a_hi + a_lo and b = b_hi + b_lo, each
@@ -17,6 +18,14 @@ model, #9 at c2f.yaml's NoF) on a few hundred seeded rows, and
 the outputs are held against the fp32 plain versions: the two-piece split
 within chip_smoke.py's ``TOL["fp32"]`` (1e-4 + 1e-4 |ref|), the three-piece
 split within 1e-6 of the largest magnitude.
+The backwards' plain versions ``_nerf_bwd_ref`` / ``_nof_bwd_ref`` /
+``_chain_bwd_ref`` take the emulated product in every product, the weight
+gradients' too (which the kernels keep in fp32: an upper bound), and are
+held against the plain versions in fp32 and fp64: the two-piece split
+within ``tests/test_torch_cuda.py``'s ``_close_train`` rule of the fp32
+one and, measured from the fp64 one, within BWD_FP32_FACTOR x the fp32
+plain version's own distance (of a tensor's largest magnitude); one TF32
+product a term leaves the ``_close_train`` rule.
 ``python -m pytest tests/test_torch_tf32_split.py -s`` prints the measured
 errors.
 """
@@ -28,14 +37,16 @@ from moco_flow_tpu_torch.nn.embedding import anneal_weights
 from moco_flow_tpu_torch.nn.nerf import NeRFConfig, init_nerf
 from moco_flow_tpu_torch.nn.nof import NoFConfig, init_nof
 from moco_flow_tpu_torch.ops import (fused_mlp, nerf_rays, nof_chain,
-                                     render_pass)
+                                     nof_rays, render_pass)
 from moco_flow_tpu_torch.ops.folds import (_NerfSpec, _NofSpec, _nerf_fold,
                                            _nof_fold)
 from moco_flow_tpu_torch.render.volume import EmbeddingSpec, embed_padded
+from tests.test_torch_cuda import _close_train, _flat, _plain64
 
 TOL_FP32 = (1e-4, 1e-4)      # chip_smoke.py TOL["fp32"]: atol, rtol
 EXACT_REL = 1e-6             # three-piece split, of max |ref|
 N_RAYS, N_SAMPLES = 48, 8    # 384 rows
+BWD_FP32_FACTOR = 4.0        # split backward's distance from fp64 / fp32's
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -222,3 +233,123 @@ def test_plain_tf32_is_not_enough(monkeypatch):
     atol, rtol = TOL_FP32
     assert any(((g - w).abs() > atol + rtol * w.abs()).any()
                for g, w in zip(got, want))
+
+
+def split_mm(pieces: int):
+    """``nerf_rays._mm`` (the backwards' products of stored values) with
+    the split product."""
+    def mm(a, b):
+        xs, ws = split(a, pieces), split(b, pieces)
+        out = None
+        for i, j in TERMS[pieces]:
+            t = xs[i] @ ws[j]
+            out = t if out is None else out + t
+        return out
+    return mm
+
+
+def _nerf_bwd(sigma_only: bool, raw_xyz: bool = False):
+    """#2 at c2f.yaml's NeRF, or (``raw_xyz``) at init_nerf.yaml's: 0 PE
+    frequencies, the 27-wide ``dir`` extra."""
+    gen = torch.Generator().manual_seed(16)
+    cfg = NeRFConfig(extra_feat_type="dir" if raw_xyz else "ind",
+                     extra_feat_dim=27 if raw_xyz else 5)
+    params = init_nerf(gen, cfg, torch.device("cpu"))
+    xyz = 0.8 * torch.randn(3, N_RAYS, N_SAMPLES, generator=gen)
+    emb = torch.randn(N_RAYS, cfg.extra_feat_dim, generator=gen)
+    n_freqs = 0 if raw_xyz else 10
+    an = None if raw_xyz else anneal_weights(505000, 10, 5000, 1005000)
+    ws, p_e = _nerf_fold(params, cfg, n_freqs, an,
+                         None if sigma_only else emb, sigma_only)
+    spec = _NerfSpec(8, 256, 3 * max(n_freqs, 1), (4,), sigma_only,
+                     not sigma_only, True)
+    g = (torch.randn(1 if sigma_only else 4, N_RAYS, N_SAMPLES,
+                     generator=gen) / (N_RAYS * N_SAMPLES) ** 0.5)
+    return nerf_rays._nerf_bwd_ref, (spec, None, xyz, p_e, ws, g)
+
+
+def _chain_bwd():
+    """#6 at c2f.yaml's NoFs, both chains."""
+    gen = torch.Generator().manual_seed(17)
+    cfg = NoFConfig()
+    cpu = torch.device("cpu")
+    bw, fw = init_nof(gen, cfg, cpu), init_nof(gen, cfg, cpu)
+    xyz = 0.6 * torch.randn(3, N_RAYS, N_SAMPLES, generator=gen)
+    emb = torch.randn(N_RAYS, 33, generator=gen)
+    emb_c = torch.randn(N_RAYS, 33, generator=gen)
+    an = anneal_weights(505000, 5, 5000, 1005000)
+    wsb, pb = _nof_fold(bw, cfg, 5, an, emb)
+    wsf, pf = _nof_fold(fw, cfg, 5, an, emb)
+    sets = [pb, pf, _nof_fold(fw, cfg, 5, an, emb_c)[1],
+            _nof_fold(bw, cfg, 5, an, emb_c)[1]]
+    parts = [p for st in sets for p in st]
+    spec = nof_chain._ChainSpec(_NofSpec(4, 128, 15, (2,), True, True),
+                                True, True)
+    gs = [torch.randn(3, N_RAYS, N_SAMPLES, generator=gen)
+          / (N_RAYS * N_SAMPLES) ** 0.5 for _ in range(3)]
+    return nof_chain._chain_bwd_ref, (spec, None, 2, xyz, parts, wsb, wsf,
+                                      gs)
+
+
+def _nof_bwd():
+    """#4 at c2f.yaml's NoF."""
+    gen = torch.Generator().manual_seed(18)
+    cfg = NoFConfig()
+    p = init_nof(gen, cfg, torch.device("cpu"))
+    xyz = 0.6 * torch.randn(3, N_RAYS, N_SAMPLES, generator=gen)
+    emb = torch.randn(N_RAYS, 33, generator=gen)
+    ws, parts = _nof_fold(p, cfg, 5, anneal_weights(505000, 5, 5000, 1005000),
+                          emb)
+    g = (torch.randn(3, N_RAYS, N_SAMPLES, generator=gen)
+         / (N_RAYS * N_SAMPLES) ** 0.5)
+    return nof_rays._nof_bwd_ref, (_NofSpec(4, 128, 15, (2,), True, True),
+                                   None, xyz, parts, ws, g)
+
+
+BWD_CASES = {"nerf": lambda: _nerf_bwd(False),
+             "nerf-sigma-only": lambda: _nerf_bwd(True),
+             "nerf-raw-xyz": lambda: _nerf_bwd(False, raw_xyz=True),
+             "chain": _chain_bwd, "nof": _nof_bwd}
+
+
+def _split_bwd(fn, args, pieces: int, monkeypatch) -> list:
+    with monkeypatch.context() as mp:
+        for mod in (nerf_rays, nof_chain):
+            mp.setattr(mod, "matmul", split_matmul(pieces))
+            mp.setattr(mod, "_mm", split_mm(pieces))
+        return _flat(fn(*args))
+
+
+def _rel_max(got: list, want: list) -> float:
+    """Largest max |got - want| / max |want| over the tensors."""
+    return max(((g.double() - w.double()).abs().max()
+                / w.double().abs().max().clamp_min(1e-30)).item()
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_split_backward_error(case, monkeypatch):
+    fn, args = BWD_CASES[case]()
+    with torch.no_grad():
+        want, want64 = _flat(fn(*args)), _flat(_plain64(fn, *args))
+        got = _split_bwd(fn, args, 2, monkeypatch)
+    assert len(got) == len(want) == len(want64)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert _close_train(g, w, None, None)
+    e_split, e_fp32 = _rel_max(got, want64), _rel_max(want, want64)
+    print(f"{case} backward, 3xTF32: {_rel_max(got, want):.2e} of a "
+          f"tensor's max|fp32 plain|; from fp64 {e_split:.2e}, the fp32 "
+          f"plain version {e_fp32:.2e}")
+    assert 0.0 < e_split <= BWD_FP32_FACTOR * e_fp32
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_plain_tf32_backward_is_not_enough(case, monkeypatch):
+    """One TF32 product a term moves some gradient out of the rule the
+    kernels' fp32 builds are held to."""
+    fn, args = BWD_CASES[case]()
+    with torch.no_grad():
+        want = _flat(fn(*args))
+        got = _split_bwd(fn, args, 1, monkeypatch)
+    assert not all(_close_train(g, w, None, None) for g, w in zip(got, want))
