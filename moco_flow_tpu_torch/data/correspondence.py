@@ -19,6 +19,7 @@ import torch
 
 from ..geometry.smpl import SMPLData, smpl_forward, smpl_vertex_transforms
 from ..ops.knn import nearest_neighbor
+from ..utils.logging import span
 
 
 @dataclasses.dataclass
@@ -59,12 +60,16 @@ def sample_correspondences(table: CorrespondenceTable, frame: int,
         noise: (N, 3) standard normal (the step's draws).
 
     Returns ``{'query': (2N, 3), 'cano': (2N, 3), 'inside': (2N,) bool}``.
+    The whole call is the span ``data.correspondences``, and its KNN the
+    span ``data.knn`` inside it (``utils/logging.py::span``).
     """
-    verts = table.verts[frame]                # (V, 3)
-    chain = table.src_to_cano[frame]          # (V, 4, 4)
-    surf = verts[pick] + noise * thickness
-    query = torch.cat([cube, surf], dim=0)
-    dist, idx = nearest_neighbor(verts, query)
-    homo = torch.cat([query, torch.ones_like(query[:, :1])], dim=-1)
-    cano = torch.einsum("nab,nb->na", chain[idx], homo)[:, :3]
-    return {"query": query, "cano": cano, "inside": dist < thickness}
+    with span("data.correspondences"):
+        verts = table.verts[frame]            # (V, 3)
+        chain = table.src_to_cano[frame]      # (V, 4, 4)
+        surf = verts[pick] + noise * thickness
+        query = torch.cat([cube, surf], dim=0)
+        with span("data.knn"):
+            dist, idx = nearest_neighbor(verts, query)
+        homo = torch.cat([query, torch.ones_like(query[:, :1])], dim=-1)
+        cano = torch.einsum("nab,nb->na", chain[idx], homo)[:, :3]
+        return {"query": query, "cano": cano, "inside": dist < thickness}

@@ -21,6 +21,20 @@ def freq_bands(n_freqs: int, logscale: bool = True) -> np.ndarray:
     return np.linspace(1.0, 2.0 ** (n_freqs - 1), n_freqs).astype(np.float32)
 
 
+_BANDS = {}   # (n_freqs, logscale, device) -> the bands there (device_bands)
+
+
+def device_bands(n_freqs: int, logscale: bool, device) -> torch.Tensor:
+    """:func:`freq_bands` as a tensor on ``device``, copied there once: a
+    copy from pageable host memory waits for every kernel queued before
+    it, which would hold the host back at each embedding of a step."""
+    key = (n_freqs, bool(logscale), str(device))
+    if key not in _BANDS:
+        _BANDS[key] = torch.from_numpy(freq_bands(n_freqs, logscale)).to(
+            device)
+    return _BANDS[key]
+
+
 def out_channels(in_channels: int, n_freqs: int) -> int:
     """Embedded width: ``in_channels * (2 * n_freqs + 1)``."""
     return in_channels * (2 * n_freqs + 1)
@@ -37,7 +51,7 @@ def posenc(x: torch.Tensor, n_freqs: int, logscale: bool = True,
     if n_freqs == 0:
         return x
     c = x.shape[-1]
-    bands = torch.from_numpy(freq_bands(n_freqs, logscale)).to(x.device)
+    bands = device_bands(n_freqs, logscale, x.device)
     scaled = (x[..., None, :] * bands[:, None]).reshape(
         *x.shape[:-1], n_freqs * c)
     s, co = torch.sin(scaled), torch.cos(scaled)

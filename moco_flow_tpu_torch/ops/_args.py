@@ -28,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from ..nn.embedding import freq_bands
+from ..nn.embedding import device_bands
 from .folds import _trunk_layers
 
 MAX_DEPTH = 8        # chain_bwd.cu / nerf_rays.cu kMaxDepth
@@ -92,14 +92,7 @@ class Operands:
 
     def bands(self, kc: int, logscale: bool) -> int:
         """The PE's frequency bands on the device, copied there once."""
-        key = (kc, logscale, str(self.device))
-        if key not in _BANDS:
-            _BANDS[key] = torch.from_numpy(
-                freq_bands(kc // 3, logscale)).to(self.device)
-        return self.ptr(_BANDS[key])
-
-
-_BANDS = {}   # (kc, logscale, device) -> the bands (Operands.bands)
+        return self.ptr(device_bands(kc // 3, logscale, self.device))
 
 
 def _pad16(x: int) -> int:

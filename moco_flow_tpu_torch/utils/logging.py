@@ -93,10 +93,14 @@ def span(name: str):
     so that a span costs one flag check when nothing traces. The spans are
     ``train.step`` around a trainer's ``train_step`` and, inside it and
     never overlapping, ``train.inputs``, ``train.forward``,
-    ``train.backward``, ``train.reduce`` and ``train.optimizer``; and
-    ``render.*`` inside a render (``render.sample_pdf``). The benchmark's
-    traced runs read them (``benchmark/spans.py``), and ``--profile``'s
-    trace (:func:`profile_trace`) shows them."""
+    ``train.backward``, ``train.reduce`` and ``train.optimizer``;
+    ``render.*`` inside a render (``render.sample_pdf``); and
+    ``data.correspondences`` around ``sample_correspondences`` with
+    ``data.knn`` around its ``nearest_neighbor`` call, both inside
+    ``train.inputs`` of the stage-2 step and of the stage-3 ``msk`` /
+    ``full`` steps. The benchmark's traced runs read them
+    (``benchmark/spans.py``, ``benchmark/metrics/knn_*.points.py``), and
+    ``--profile``'s trace (:func:`profile_trace`) shows them."""
     if not torch.autograd._profiler_enabled():
         return _NO_SPAN
     return torch.profiler.record_function(name)

@@ -79,6 +79,25 @@ def test_posenc(n_freqs, logscale, weighted):
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("n_freqs,logscale", [(16, True), (3, False)])
+def test_posenc_bands_made_once(n_freqs, logscale, monkeypatch):
+    """The bands of an embedding reach its device once (a copy from the
+    host would wait for the device at every embedding of a step), and are
+    the bands of ``freq_bands``."""
+    calls = []
+    real = temb.freq_bands
+    monkeypatch.setattr(temb, "_BANDS", {})
+    monkeypatch.setattr(temb, "freq_bands",
+                        lambda *a: calls.append(a) or real(*a))
+    x = torch.linspace(-1.0, 1.0, 12).reshape(4, 3)
+    first = temb.posenc(x, n_freqs, logscale)
+    again = temb.posenc(x, n_freqs, logscale)
+    assert calls == [(n_freqs, logscale)]
+    assert torch.equal(first, again)
+    bands = temb.device_bands(n_freqs, logscale, x.device)
+    assert bands is temb.device_bands(n_freqs, logscale, "cpu")
+    np.testing.assert_array_equal(bands.numpy(), real(n_freqs, logscale))
+
 @pytest.mark.parametrize("step", [0, 5000, 5001, 300000, 1004999, 1005000,
                                   2000000])
 def test_anneal_weights(step):

@@ -6,8 +6,10 @@ fixtures' small widths on the CPU: stage 1, stage 2 and stage 3 in its
 Each step has one ``train.step`` and in it, once each, in order and never
 overlapping, ``train.inputs``, ``train.forward``, ``train.backward``,
 ``train.reduce`` and ``train.optimizer``; a render's ``render.sample_pdf``
-lies in ``train.forward``. With no profiler running, ``span`` makes no
-``record_function``."""
+lies in ``train.forward``; where the step draws correspondences (stage 2,
+stage 3's ``msk``), ``data.correspondences`` lies in ``train.inputs`` and
+``data.knn`` in it, and the benchmark's ``knn_*.points`` readers read
+them. With no profiler running, ``span`` makes no ``record_function``."""
 
 import json
 
@@ -84,6 +86,30 @@ def test_step_spans_nest_and_do_not_overlap(fixtures, case, tmp_path):
         assert fwd[1] <= s <= e <= fwd[2]
     assert {s[0] for s in spans} <= {"train.step", *PARTS,
                                      "render.sample_pdf"}
+
+
+@pytest.mark.parametrize("case", ["s2", "s3-msk"])
+def test_data_spans_lie_in_inputs_and_are_read(fixtures, case):
+    from benchmark import cells
+    from benchmark.trace import Window, read_chrome_trace
+    tr, draws = trainer_and_draws(fixtures, case)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("bench.window"):
+            tr.train_step(draws=draws)
+    w = Window(work={}, on_card=False, steps=1)
+    read_chrome_trace(prof, w)
+
+    def named(name):
+        return [(s, e) for n, s, e in w.host if n == name]
+
+    (i0, i1), = named("train.inputs")
+    (c0, c1), = named("data.correspondences")
+    (k0, k1), = named("data.knn")
+    assert i0 <= c0 <= k0 <= k1 <= c1 <= i1
+    assert cells.metric_reader("knn_host_ms.points")(w) == \
+        pytest.approx((k1 - k0) / 1e3)
+    assert cells.metric_reader("knn_idle_ms.points")(w) is None   # no card
 
 
 def test_span_makes_no_record_function_without_a_profiler(fixtures,
