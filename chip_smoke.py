@@ -355,6 +355,8 @@ FWD_SMEM = {"render_pass_wg_kernel": 1024 + 4 * 32768 + 5 * 16384 + 9728
 PASS_KERNELS = {f"{k}<float>": f"{k}IfE" for k in (
     "nerf_fwd_pass", "nerf_walk_pass", "chain_fwd_pass", "chain_walk_pass",
     "nof_fwd_pass", "nof_walk_pass")}
+# and of the long-K weight-gradient product (wgrad.cu, split TF32 on wgmma)
+DW_KERNELS = {"matrix_mma_kernel<float>": "matrix_mma_kernelIfE"}
 PTXAS = {}   # kernel -> its ptxas lines (registers, stack, spills)
 
 
@@ -364,7 +366,7 @@ def phase_build():
     _build.load_library()
     dt = time.perf_counter() - t0
     log(f"[2 build] {path} in {dt:.1f} s")
-    checked = {**{k: k for k in FWD_KERNELS}, **PASS_KERNELS}
+    checked = {**{k: k for k in FWD_KERNELS}, **PASS_KERNELS, **DW_KERNELS}
     name = None
     for line in out.splitlines():
         if "Function properties for" in line:
@@ -851,6 +853,42 @@ def _device_split(fn, groups: dict) -> dict:
     return out
 
 
+def _dw_line(phase: str, what: str, ms: float, flops: float,
+             card: str) -> None:
+    """Logs the dW products' device ms against their split-TF32 bound
+    (three TF32 products a term at the TF32 peak)."""
+    bound = bound_ms(3 * flops, 0, "tf32")[0]
+    if ms <= 0:
+        log(f"[{phase}] dW products at {what}: no device time on {card}")
+        return
+    log(f"[{phase}] dW products (fp32, matrix_mma_kernel) at {what}: "
+        f"{ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s, split-TF32 bound "
+        f"{bound:.3f} ms ({100 * bound / ms:.1f}% of it; {flops / 1e9:.1f} "
+        f"GFLOP) on {card}")
+
+
+def _dw_init_nerf(gen, dev, card: str, n: int = 5120) -> None:
+    """#2's fp32 dW products at init_nerf.yaml's model (raw xyz, the 27-wide
+    ``dir`` extra) and a stage-1 step's shapes: n rays x 128 (coarse) and x
+    256 (fine) samples."""
+    from moco_flow_tpu_torch.ops import nerf_rays as nr
+    from moco_flow_tpu_torch.ops.folds import _NerfSpec, _nerf_fold
+    ncfg = NeRFConfig(extra_feat_type="dir", extra_feat_dim=27)
+    params = init_nerf(gen, ncfg, dev)
+    emb = torch.randn(n, 27, generator=gen).to(dev)
+    ws, p_e = _nerf_fold(params, ncfg, 0, None, emb, False)
+    spec = _NerfSpec(8, 256, 3, (4,), False, True, True)
+    calls = []
+    for s in (128, 256):
+        xyz = (0.8 * torch.randn(3, n, s, generator=gen)).to(dev)
+        g = (torch.randn(4, n, s, generator=gen) / (n * s) ** 0.5).to(dev)
+        calls.append(lambda xyz=xyz, g=g: nr.nerf_bwd(spec, None, xyz, p_e, ws,
+                                                      g))
+    split = _device_split(lambda: [f() for f in calls], BWD_GROUPS)
+    _dw_line("6 train kernels", f"init_nerf #2, {n} x (128 + 256) samples",
+             split["dW products"], 2 * _nof_macs(ws) * n * (128 + 256), card)
+
+
 def _fwd_repeat_checks(P, ncfg, fcfg, an_n, an_f, size, gen, dev):
     """#1 and #5 give the same bits in two launches."""
     from moco_flow_tpu_torch.ops import nerf_rays as nr
@@ -1029,6 +1067,7 @@ def phase_train_kernels(dev, card: str,
     if sizes:
         _fwd_repeat_checks(P, ncfg, fcfg, an_n, an_f, sizes[-1], gen, dev)
         _bwd_repeat_checks(P, ncfg, fcfg, an_n, an_f, sizes[0], gen, dev)
+        _dw_init_nerf(gen, dev, card)
     # times at the step's shapes, bf16 (the slice's compute type; its times
     # go into the kernels line) and fp32: one step launches each NeRF kernel
     # on N=1024 x S=128 (coarse) and S=256 (fine), each chain kernel twice on
@@ -1098,6 +1137,12 @@ def phase_train_kernels(dev, card: str,
                     + f"; scratch {sc['scratch_bytes'] / 2 ** 30:.3f} GiB "
                     f"in {sc['chunks']} chunk(s) for the last launch (cap "
                     f"{_args.SCRATCH_CAP / 2 ** 30:g} GiB)")
+                if dname == "fp32":
+                    # the dW products do one of the backward's three
+                    # products
+                    _dw_line("6 train kernels", f"c2f {name}, one step's two "
+                             "launches", split["dW products"],
+                             flops[name] / 3, card)
     torch.cuda.synchronize()
     return {"err": err, "times": times, "times32": times32,
             "split_err": split_err}
@@ -1165,9 +1210,8 @@ def train_config(dtype: str) -> dict:
 STEP_GROUPS = {"nerf_bwd passes": ("nerf_fwd_pass", "nerf_walk_pass"),
                "chain_bwd passes": ("chain_fwd_pass", "chain_walk_pass"),
                "nof_bwd passes": ("nof_fwd_pass", "nof_walk_pass"),
-               "dW (#2/#4/#6)": ("matrix_mma", "matrix_ffma",
-                                 "colsum_kernel", "segsum_kernel",
-                                 "reduce_kernel"),
+               "dW (#2/#4/#6)": ("matrix_mma", "colsum_kernel",
+                                 "segsum_kernel", "reduce_kernel"),
                "chain_fwd": ("chain_fwd_kernel",),
                "nerf_fwd": ("nerf_fwd_kernel",),
                "nof_fwd": ("nof_fwd_kernel",), "sort": ("sort",)}
@@ -1176,7 +1220,7 @@ BWD_GROUPS = {"forward pass": ("nerf_fwd_pass", "chain_fwd_pass",
                                "nof_fwd_pass"),
               "walk pass": ("nerf_walk_pass", "chain_walk_pass",
                             "nof_walk_pass"),
-              "dW products": ("matrix_mma", "matrix_ffma"),
+              "dW products": ("matrix_mma",),
               "dW sums": ("colsum_kernel", "segsum_kernel", "reduce_kernel")}
 
 
@@ -1466,8 +1510,8 @@ def phase_nof_kernels(dev, card: str,
                 times[name] = (k_ms, p_ms, b_ms, b_by)
             if key in stage2_0:
                 times_stage2[(name, dname)] = (k_ms, p_ms, b_ms, b_by)
-            # #3's fp32 build multiplies in split TF32 (#4's passes too,
-            # its dW on FFMA)
+            # #3's fp32 build multiplies in split TF32 (#4's passes and
+            # dW products too)
             shares = (f"; {fwd_shares(flops, k_ms, dname)}"
                       if name == "nof_fwd" else "")
             bands = "" if key[2] == 5 else f" xyz bands {key[2]}"
@@ -1482,6 +1526,15 @@ def phase_nof_kernels(dev, card: str,
         log(f"[9 nof kernels] nof_bwd {dname} at stage 2's shape, device ms "
             "by part: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
             + f" on {card}")
+        for key in stage2_0:   # init_nof.yaml's NoF: its dW products
+            if dname != "fp32":
+                continue
+            spec, xyz, parts, ws, g = cases[key]
+            split = _device_split(
+                lambda: nr.nof_bwd(spec, dt, xyz, parts, ws, g), BWD_GROUPS)
+            _dw_line("9 nof kernels", f"init_nof #4, N={xyz.shape[1]} "
+                     f"S={xyz.shape[2]}, xyz bands 0", split["dW products"],
+                     2 * _nof_macs(ws) * xyz.shape[1] * xyz.shape[2], card)
     torch.cuda.synchronize()
     return {"err": err, "times": times, "stage2": times_stage2}
 
@@ -2228,8 +2281,8 @@ def stage2_config() -> dict:
 
 STAGE2_GROUPS = {"nof_fwd (#3)": ("nof_fwd_kernel",),
                  "nof_bwd passes (#4)": ("nof_fwd_pass", "nof_walk_pass"),
-                 "dW (#4)": ("matrix_mma", "matrix_ffma", "colsum_kernel",
-                             "segsum_kernel", "reduce_kernel")}
+                 "dW (#4)": ("matrix_mma", "colsum_kernel", "segsum_kernel",
+                             "reduce_kernel")}
 
 
 def phase_stage2_slice(card: str) -> dict:

@@ -1,12 +1,15 @@
 // The long-K weight-gradient products and the ordered sums of wgrad.cuh
-// (kernels #2 and #6), for Hopper (sm_90a).
+// (kernels #2, #4 and #6), for Hopper (sm_90a). Both products are one
+// template, matrix_mma_kernel<T>: bf16 on mma.sync m16n8k16, fp32 on
+// warpgroup wgmma with the split-TF32 terms of the row-tile passes
+// (row_tile.cuh::mma_split; tf32_split rounds the parts).
 //
 // What bounds them on this card: compute for the products (K = every row
 // of the call: 10^5 and more, against outputs of at most 256 x 256, so each
 // operand element read from device memory feeds 64-128 multiply-adds), the
 // bytes of the scratch for the sums.
 
-#include "pass_tile.cuh"
+#include "row_tile.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -14,12 +17,17 @@ namespace {
 using wg::Call;
 using wg::Job;
 
-// tensor-core tiles: 128 (m) x 128 (n), 8 warps as 2 x 4 of 64 x 32
+// bf16 tiles: 128 (m) x 128 (n), 8 warps as 2 x 4 of 64 x 32
 constexpr int kBM = 128, kBN = 128, kKC = 64;
 constexpr int kALd = kBM + 8, kDLd = kBN + 8;  // conflict-free ldmatrix rows
 constexpr int kWThreads = 256;
-// FFMA tiles: 64 x 64, a thread 4 x 4, 32-row K chunks
-constexpr int kFM = 64, kFN = 64, kFKC = 32, kFLd = 64 + 4;
+// fp32 (split TF32): 128 x 128 tiles, two warpgroups, 32-row K chunks;
+// two buffers of four hi / lo TF32 planes (A hi, A lo, D hi, D lo: 128 rows
+// of 128 bytes): 132,096 bytes with the alignment.
+constexpr int kSBM = 128, kSBN = 128, kSKc = 32;
+constexpr int kSPlane = 128 * 128;                // bytes: one plane
+constexpr int kSPlanes = 4 * kSPlane;
+constexpr size_t kSSmem = 2 * kSPlanes + 1024;
 
 __device__ __forceinline__ void cp16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -60,7 +68,8 @@ __device__ bool pick(const Call& c, int bm, int bn, int* ji, int* mt,
   return false;
 }
 
-__global__ void __launch_bounds__(kWThreads) matrix_mma_kernel(const Call c) {
+// the bf16 product: mma.sync m16n8k16 on ldmatrix.trans fragments
+__device__ __forceinline__ void matrix_bf16(const Call& c) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);        // [2][kKC][kALd]
   bf16* Ds = As + 2 * kKC * kALd;                   // [2][kKC][kDLd]
@@ -156,74 +165,252 @@ __global__ void __launch_bounds__(kWThreads) matrix_mma_kernel(const Call c) {
       }
 }
 
-__global__ void __launch_bounds__(kWThreads) matrix_ffma_kernel(const Call c) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);      // [2][kFKC][kFLd]
-  float* Ds = As + 2 * kFKC * kFLd;                 // [2][kFKC][kFLd]
-  int ji, mt, nt;
-  int64_t sp;
-  if (!pick(c, kFM, kFN, &ji, &mt, &nt, &sp)) return;
-  const Job& j = c.job[ji];
-  const int tid = threadIdx.x;
-  const int m0 = mt * kFM, n0 = nt * kFN;
+// warpgroup products (wg_tile.cuh has the same for its bf16 tiles; its
+// namespace wg clashes with wgrad.cuh's, so it is not included here)
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kN> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kN) : "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps the compiler from moving reads of the accumulators above the wait
+template <int kR> __device__ __forceinline__ void fence_acc(float (&d)[kR]) {
+#pragma unroll
+  for (int i = 0; i < kR; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// descriptor of a 128-byte-swizzled K-major operand at shared address addr
+// (8-row groups 1024 bytes apart)
+__device__ __forceinline__ uint64_t desc_at(unsigned addr) {
+  return ((static_cast<uint64_t>(addr) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+// wgmma.mma_async m64nNk8, tf32 A and B from shared memory (descriptors),
+// fp32 accumulators d; scale_d 0 overwrites d, 1 accumulates. Thread t of
+// the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8 for d[4j + 2],
+// d[4j + 3]) and columns 8j + 2 (t % 4) (+ 1 for the odd entries).
+template <int kN> struct TfMma;
+
+template <> struct TfMma<128> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63 "
+        "}, %64, %65, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <> struct TfMma<16> {
+  __device__ __forceinline__ static void run(float (&d)[8], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7 "
+        "}, %8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+// A plane holds 128 rows (of A^T or D^T) of 32 k in tf32, K-major: 128
+// bytes a row, 16-byte chunk q of row r at chunk q ^ (r % 8) (wgmma's
+// 128-byte swizzle, as wg_tile.cuh lays out bf16); a k-step of 8 is 32
+// bytes into the row.
+
+// x[i] (k = 4c + i of one plane row) -> the row's 16-byte chunk c: hi at
+// dst, lo a plane further
+__device__ __forceinline__ void split_chunk(const float (&x)[4],
+                                            unsigned char* dst) {
+  uint4 hi, lo;
+  tf32_split(x[0], hi.x, lo.x);
+  tf32_split(x[1], hi.y, lo.y);
+  tf32_split(x[2], hi.z, lo.z);
+  tf32_split(x[3], hi.w, lo.w);
+  *reinterpret_cast<uint4*>(dst) = hi;
+  *reinterpret_cast<uint4*>(dst + kSPlane) = lo;
+}
+
+// The fp32 product in split TF32 on a 128 x 128 tile: two warpgroups,
+// each 64 rows of the output by N columns (N = 16 for a job of at most 16
+// columns, else 128), on wgmma. The block loads a chunk of 32 rows of A and
+// D into registers, one chunk ahead, and splits each element once into hi
+// and lo TF32 planes of A^T and D^T (K-major, as wgmma reads both
+// operands). A k-step of 8 rows is three wgmmas into a register sum from
+// zero, s = A_hi D_lo + A_lo D_hi + A_hi D_hi (row_tile.cuh::mma_split's
+// terms, in its order), then acc += s rounding to nearest. The next chunk
+// is split into the other planes while the chunk's last products run; one
+// barrier a chunk.
+//
+// Measured on an H100 at the cells' shapes (PERF.md section 6): the same
+// contract on mma.sync m16n8k8 (row_tile.cuh's fragments, tiles 64 x 64 to
+// 128 x 128, split at each fragment load or once into planes) ran at 30-35
+// TFLOP/s, as fast as the FFMA loop it replaced, bound by the instructions
+// around its products; on wgmma with the chunks staged by cp.async through
+// shared memory, 50-53, bound by shared memory; staged in registers, 55-59
+// (two warpgroups of 64 x 128 or four of 64 x 64 alike).
+template <int N>
+__device__ __forceinline__ void matrix_wg(const Call& c, const Job& j, int m0,
+                                          int n0, int64_t sp,
+                                          unsigned char* base) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = tid >> 7;  // warpgroup: rows 64 wm.. of the tile
+  const bool active = m0 + 64 * wm < j.m;
   const int64_t r_begin = sp * c.split_rows;
   const int64_t r_end = min(r_begin + c.split_rows, c.rows);
-  const int nk = static_cast<int>((r_end - r_begin) / kFKC);
+  const int nk = static_cast<int>((r_end - r_begin) / kSKc);
   const int n_it = j.n_pieces * nk;
-  for (int i = tid; i < 4 * kFKC * kFLd; i += kWThreads) As[i] = 0.f;
-  __syncthreads();
-  auto stage = [&](int it) {
-    if (it < n_it) {
-      const int p = it / nk;
-      const int64_t row = r_begin + static_cast<int64_t>(it % nk) * kFKC;
-      const float* a = static_cast<const float*>(j.a[p]);
-      const float* d = static_cast<const float*>(j.d[p]);
-      float* as = As + (it & 1) * kFKC * kFLd;
-      float* ds = Ds + (it & 1) * kFKC * kFLd;
-      for (int v = tid; v < kFKC * 16; v += kWThreads) {
-        const int r = v / 16, q = (v % 16) * 4;
-        if (m0 + q < j.lda)
-          cp16(as + r * kFLd + q, a + (row + r) * j.lda + m0 + q);
-        if (n0 + q < j.ldd)
-          cp16(ds + r * kFLd + q, d + (row + r) * j.ldd + n0 + q);
+  // This thread's part of a chunk: k = 4 warp + i (i < 4) of tile rows r =
+  // 32 jj + lane (jj < 4) of A^T and of D^T (of D only r < N): a warp reads
+  // 128 bytes of a row of A or D at a time, and writes one 16-byte chunk
+  // (warp ^ lane) % 8 of each of 8 consecutive plane rows a quarter-warp,
+  // so no bank conflict.
+  const int rk = 4 * warp;
+  const int s_dst = lane * 128 + (((warp ^ lane) & 7) << 4);
+  float xa[4][4], xd[4][4];
+  int ld_p = 0, ld_k = 0;  // piece and chunk of the next load
+  auto load = [&](int it) {  // registers <- chunk it (0 past lda / ldd)
+    if (it >= n_it) return;
+    const int64_t row = r_begin + static_cast<int64_t>(ld_k) * kSKc + rk;
+    const float* a = static_cast<const float*>(j.a[ld_p]) + row * j.lda +
+                     m0 + lane;
+    const float* d = static_cast<const float*>(j.d[ld_p]) + row * j.ldd +
+                     n0 + lane;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        xa[jj][i] = m0 + lane + 32 * jj < j.lda ? a[i * j.lda + 32 * jj]
+                                                : 0.f;
+        xd[jj][i] = lane + 32 * jj < N && n0 + lane + 32 * jj < j.ldd
+                        ? d[i * j.ldd + 32 * jj] : 0.f;
       }
+    if (++ld_k == nk) {
+      ld_k = 0;
+      ++ld_p;
     }
-    cp_async_commit();
   };
-  const int tm = (tid >> 4) * 4, tn = (tid & 15) * 4;
-  float acc[4][4];
+  auto split = [&](int it) {  // the registers -> chunk it's planes
+    unsigned char* pl = base + (it & 1) * kSPlanes + s_dst;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[i][k] = 0.f;
-  stage(0);
-  for (int it = 0; it < n_it; ++it) {
-    stage(it + 1);
-    cp_async_wait_all_but_one();
-    __syncthreads();
-    const float* as = As + (it & 1) * kFKC * kFLd;
-    const float* ds = Ds + (it & 1) * kFKC * kFLd;
-#pragma unroll 8
-    for (int k = 0; k < kFKC; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(as + k * kFLd + tm);
-      const float4 d = *reinterpret_cast<const float4*>(ds + k * kFLd + tn);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float dv[4] = {d.x, d.y, d.z, d.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(av[i], dv[e], acc[i][e]);
+    for (int jj = 0; jj < 4; ++jj) {
+      split_chunk(xa[jj], pl + 4096 * jj);
+      if (lane + 32 * jj < N)
+        split_chunk(xd[jj], pl + 2 * kSPlane + 4096 * jj);
     }
-    __syncthreads();
-  }
-  float* out = c.part + (c.split0 + sp) * c.total + j.out;
+  };
+  float acc[N / 2], s[N / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < N / 2; ++i) acc[i] = s[i] = 0.f;
+  // k-step q of the chunk in planes `pl`: its three products into s from
+  // zero (kstep), then acc += s (add)
+  auto kstep = [&](const unsigned char* pl, int q) {
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(pl)) +
+                       64 * wm * 128 + 32 * q;
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(pl)) +
+                       2 * kSPlane + 32 * q;
+    wgmma_fence();
+    TfMma<N>::run(s, desc_at(a), desc_at(d + kSPlane), 0);
+    TfMma<N>::run(s, desc_at(a + kSPlane), desc_at(d), 1);
+    TfMma<N>::run(s, desc_at(a), desc_at(d), 1);
+    wgmma_commit();
+  };
+  auto add = [&]() {
+    wgmma_wait<0>();
+    fence_acc(s);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = __fadd_rn(acc[i], s[i]);
+  };
+  load(0);
+  if (n_it > 0) split(0);
+  fence_async_smem();
+  __syncthreads();
+  load(1);
+  for (int it = 0; it < n_it; ++it) {
+    const unsigned char* pl = base + (it & 1) * kSPlanes;
+    static_assert(kSKc == 32, "four k-steps a chunk");
+    if (active)
+      for (int q = 0; q < 3; ++q) {
+        kstep(pl, q);
+        add();
+      }
+    if (active) kstep(pl, 3);
+    if (it + 1 < n_it) split(it + 1);    // the other planes, meanwhile
+    fence_async_smem();
+    load(it + 2);
+    if (active) add();
+    __syncthreads();                     // chunk it + 1 split, chunk it read
+  }
+  if (!active) return;
+  float* out = c.part + (c.split0 + sp) * c.total + j.out;
+  const int row = m0 + 64 * wm + 16 * (warp & 3) + (lane >> 2);
+#pragma unroll
+  for (int jj = 0; jj < N / 8; ++jj)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int m = m0 + tm + i, n = n0 + tn + e;
-      if (m < j.m && n < j.n) out[static_cast<int64_t>(m) * j.n + n] = acc[i][e];
+      const int m = row + (e >> 1) * 8;
+      const int n = n0 + 8 * jj + 2 * (lane & 3) + (e & 1);
+      if (m < j.m && n < j.n)
+        out[static_cast<int64_t>(m) * j.n + n] = acc[4 * jj + e];
     }
+}
+
+__device__ __forceinline__ void matrix_split(const Call& c) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // planes at a 1024-byte boundary (the swizzle's 8-row groups)
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem) + 1023) & ~static_cast<uintptr_t>(
+                                                       1023));
+  int ji, mt, nt;
+  int64_t sp;
+  if (!pick(c, kSBM, kSBN, &ji, &mt, &nt, &sp)) return;
+  const Job& j = c.job[ji];
+  if (j.n - nt * kSBN <= 16)
+    matrix_wg<16>(c, j, mt * kSBM, nt * kSBN, sp, base);
+  else
+    matrix_wg<128>(c, j, mt * kSBM, nt * kSBN, sp, base);
+}
+
+// dW = A^T D on the tensor cores, one template for both storage types, so
+// one name in a trace
+template <typename T>
+__global__ void __launch_bounds__(kWThreads) matrix_mma_kernel(const Call c) {
+  if constexpr (sizeof(T) == 2)
+    matrix_bf16(c);
+  else
+    matrix_split(c);
 }
 
 __device__ __forceinline__ float load_el(const void* p, int64_t i, bool f32) {
@@ -406,6 +593,29 @@ int64_t count_blocks(const Call& c, int bm, int bn) {
   return n;
 }
 
+// A block's work: its rows (pieces) times the warpgroups that multiply (a
+// job of at most 64 rows leaves one idle) times the columns each takes
+int job_weight(const Job& j) {
+  return j.n_pieces * (j.m > 64 ? 2 : 1) * (j.n > 16 ? 128 : 16);
+}
+
+// The jobs heaviest first (each writes its own outputs, so their order
+// changes no bit): the longest blocks start in the first wave, and the
+// light ones fill in behind them.
+int matrix_f32_launch(const Call& c, cudaStream_t s) {
+  Call t = c;
+  for (int i = 1; i < t.n_jobs; ++i)
+    for (int k = i; k > 0 && job_weight(t.job[k]) > job_weight(t.job[k - 1]);
+         --k) {
+      const Job tmp = t.job[k];
+      t.job[k] = t.job[k - 1];
+      t.job[k - 1] = tmp;
+    }
+  return launch(matrix_mma_kernel<float>, kSSmem,
+                static_cast<unsigned>(count_blocks(t, kSBM, kSBN)), kWThreads,
+                s, t);
+}
+
 }  // namespace
 
 namespace wg {
@@ -417,14 +627,11 @@ int matrix_launch(const Call& c, cudaStream_t s) {
     if (c.job[j].n_pieces > kMaxPieces) return -4;
   if (c.bf16) {
     const size_t smem = 2 * kKC * (kALd + kDLd) * sizeof(bf16);
-    return launch(matrix_mma_kernel, smem,
+    return launch(matrix_mma_kernel<bf16>, smem,
                   static_cast<unsigned>(count_blocks(c, kBM, kBN)),
                   kWThreads, s, c);
   }
-  const size_t smem = 4 * kFKC * kFLd * sizeof(float);
-  return launch(matrix_ffma_kernel, smem,
-                static_cast<unsigned>(count_blocks(c, kFM, kFN)), kWThreads,
-                s, c);
+  return matrix_f32_launch(c, s);
 }
 
 int colsum_launch(const Call& c, cudaStream_t s) {

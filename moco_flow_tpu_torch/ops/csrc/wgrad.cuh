@@ -15,12 +15,21 @@
 // each a whole number of splits) writes its splits at `split0`, so a call
 // in chunks gives the same bits as in one.
 //
-// bf16: tensor cores (mma.sync m16n8k16), 128 x 128 output tiles, 64-row K
-// chunks staged with cp.async (double-buffered) and read by ldmatrix.trans;
-// fp32: an FFMA loop on 64 x 64 tiles. Bias gradients, the sigma row's
-// gradient (a column sum weighted by the fp32 d(sigma)) and the per-ray
-// partials' gradients (segmented sums over a ray's rows) are sums in row
-// order.
+// Both products run on the tensor cores, in one kernel template
+// (matrix_mma_kernel<T>). bf16: mma.sync m16n8k16, 128 x 128 output tiles,
+// 64-row K chunks staged with cp.async (double-buffered) and read by
+// ldmatrix.trans. fp32: the split-TF32 contract of the row-tile passes
+// (row_tile.cuh::mma_split): a = a_hi + a_lo and d = d_hi + d_lo, each
+// part rounded by cvt.rna; each 8-row k-step's a_hi d_lo + a_lo d_hi +
+// a_hi d_hi is summed from zero on the tensor cores and added to the fp32
+// running sum rounding to nearest. It runs on warpgroup wgmma over 128 x
+// 128 tiles: 32-row K chunks are loaded into registers a chunk ahead and
+// split once, as they land in shared memory, into hi and lo planes. Every
+// output element sums its k-steps in row order, so no bit depends on the
+// chunking. Bias
+// gradients, the sigma row's gradient (a column sum weighted by the fp32
+// d(sigma)) and the per-ray partials' gradients (segmented sums over a
+// ray's rows) are sums in row order.
 
 #pragma once
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Compare kernels of two trees of this repository bit for bit on one card:
-the training step's backward kernels #2 ``nerf_bwd`` and #6 ``chain_bwd``,
+the training step's backward kernels #2 ``nerf_bwd``, #4 ``nof_bwd`` and #6
+``chain_bwd``,
 its forward kernels #1 ``nerf_fwd`` and #5 ``chain_fwd``, the render pass
 #7 ``render_pass`` and the per-op NeRF #8 ``nerf_pallas``.
 
@@ -15,12 +16,12 @@ launches the warp chain at full NoF width (4x128, skip 2, 5 + 16
 frequencies, quaternion head) with local + global chains, and the NeRF at
 full width (8x256, skip 4, 10 frequencies, the 5-dim frame feature) with
 its rgb head and sigma-only, and saves every forward output, and every
-dxyz, d(partial) and dW of the backward; #7 at the same widths with the
+dxyz, d(partial) and dW of the backward (#4 on the bw NoF alone); #7 at the same widths with the
 bw-NoF warp (N x S = 1000 x 128, coarse sigma-only and fine); and #8 at
 init_nerf.yaml's model (8x256, 63 inputs, the 27-wide ``dir`` extra) on
-100003 seeded rows, full and sigma-only. ``compare`` prints, per kernel,
-how many of the saved tensors are bitwise equal and the max |diff| of the
-others. ``sass`` compares two builds of the kernel library
+100003 seeded rows, full and sigma-only. ``compare`` prints, per kernel and
+compute type, how many of the saved tensors are bitwise equal and the max
+|diff| of the others. ``sass`` compares two builds of the kernel library
 (``build/torch_kernels/*/libmoco_kernels.so``) instruction by instruction
 (``cuobjdump -sass``, addresses and encodings left out) for the backward
 kernels' row-tile passes, which #1 and #5 share their code with, and in
@@ -40,8 +41,8 @@ import sys
 
 import torch
 
-KERNELS = ("nerf_fwd", "nerf_bwd", "chain_fwd", "chain_bwd", "render_pass",
-           "nerf_pallas")
+KERNELS = ("nerf_fwd", "nerf_bwd", "chain_fwd", "chain_bwd", "nof_bwd",
+           "render_pass", "nerf_pallas")
 
 
 def dump(path: str):
@@ -51,6 +52,7 @@ def dump(path: str):
     from moco_flow_tpu_torch.nn.nof import NoFConfig, init_nof
     from moco_flow_tpu_torch.ops import nerf_rays as nr
     from moco_flow_tpu_torch.ops import nof_chain as nc
+    from moco_flow_tpu_torch.ops import nof_rays
     from moco_flow_tpu_torch.ops.folds import (_NerfSpec, _NofSpec,
                                                _nerf_fold, _nof_fold)
 
@@ -88,6 +90,8 @@ def dump(path: str):
                  nc.chain_fwd(spec, dt, 2, xyz, parts, wsb, wsf))
             dx, dp, dw = nc.chain_bwd(spec, dt, 2, xyz, parts, wsb, wsf, gs)
             keep("chain_bwd", tag, [dx, *dp, *dw])
+            dx, dp, dw = nof_rays.nof_bwd(spec.nof, dt, xyz, pb, wsb, gs[0])
+            keep("nof_bwd", tag, [dx, *dp, *dw])
         for sigma_only in (False, True):
             ws, p_e = _nerf_fold(nerf, ncfg, 10, an_n,
                                  None if sigma_only else emb_n, sigma_only)
@@ -147,12 +151,15 @@ def compare(path_a: str, path_b: str):
     if set(a) != set(b):
         raise SystemExit(f"the dumps hold other tensors: {set(a) ^ set(b)}")
     for kernel in KERNELS:
-        keys = [k for k in a if k.startswith(kernel + "/")]
-        same = [k for k in keys if torch.equal(a[k], b[k])]
-        diff = max(((a[k] - b[k]).abs().max().item() for k in keys
-                    if k not in same), default=0.0)
-        print(f"{kernel} A vs B: {len(same)} of {len(keys)} tensors bitwise "
-              f"equal; largest |diff| of the others {diff:.3e}")
+        for dname in ("fp32", "bf16"):
+            keys = [k for k in a if k.startswith(kernel + "/")
+                    and f"/{dname}" in k]
+            same = [k for k in keys if torch.equal(a[k], b[k])]
+            diff = max(((a[k].float() - b[k].float()).abs().max().item()
+                        for k in keys if k not in same), default=0.0)
+            print(f"{kernel} {dname} A vs B: {len(same)} of {len(keys)} "
+                  f"tensors bitwise equal; largest |diff| of the others "
+                  f"{diff:.3e}")
 
 
 PASSES = ("nerf_fwd_pass", "nerf_walk_pass", "chain_fwd_pass",

@@ -471,8 +471,11 @@ def test_fwd_deterministic(card, which, dt):
 # NeRF walk's shared memory is at its largest (c2f.yaml's 63 packed PE
 # inputs), on 150 x 127 rows (not a multiple of the 128-row tile): every
 # output within _close_train of the plain version in fp64, and the same
-# bits from two launches.
+# bits from two launches. #4 at init_nof.yaml's NoF on 5 x 4001 rows: more
+# than two of the weight gradients' K splits (SPLIT_ROWS, 8192 rows), the
+# last one short and not a multiple of the tile.
 BWD_ROWS = (150, 127)
+NOF_BWD_ROWS = (5, 4001)
 
 
 def _init_nerf(card, rows):
@@ -487,6 +490,21 @@ def _init_nerf(card, rows):
     emb = torch.randn(n, 27, generator=gen).to(card)
     ws, p_e = _nerf_fold(params, ncfg, 0, None, emb, False)
     return _NerfSpec(8, 256, 3, (4,), False, True, True), xyz, p_e, ws
+
+
+def _init_nof(card, rows):
+    """init_nof.yaml's NoF: 0 xyz PE frequencies (a 1-frequency pass with
+    zero sin / cos rows, the 33 inputs padded), the 9-wide quaternion head,
+    the 33-wide frame embedding."""
+    from moco_flow_tpu_torch.ops.folds import _NofSpec, _nof_fold
+    gen = torch.Generator().manual_seed(10)
+    fcfg = NoFConfig()
+    p = init_nof(gen, fcfg, card)
+    n, s = rows
+    xyz = (0.6 * torch.randn(3, n, s, generator=gen)).to(card)
+    emb = torch.randn(n, 33, generator=gen).to(card)
+    ws, parts = _nof_fold(p, fcfg, 0, None, emb)
+    return _NofSpec(4, 128, 3, (2,), True, True), xyz, parts, ws
 
 
 def _to64(x):
@@ -514,6 +532,17 @@ def _published_bwd(card, which):
     from moco_flow_tpu_torch.ops import nerf_rays as nr
     from moco_flow_tpu_torch.ops import nof_chain as nc
     gen = torch.Generator().manual_seed(9)
+    if which == "nof-init_nof":
+        c = _init_nof(card, NOF_BWD_ROWS)
+        g = (torch.randn(3, *NOF_BWD_ROWS, generator=gen)
+             / (NOF_BWD_ROWS[0] * NOF_BWD_ROWS[1]) ** 0.5).to(card)
+
+        def plain():
+            # _nof_bwd_ref stores in nof_rays._storage's type
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(nof_rays, "_storage", lambda dt: torch.float64)
+                return _plain64(nof_rays._nof_bwd_ref, c[0], None, *c[1:], g)
+        return lambda: nof_rays.nof_bwd(c[0], None, *c[1:], g), plain
     if which == "chain-c2f":
         c = _full_chain(card, True, True, BWD_ROWS)
         gs = [(torch.randn(3, *BWD_ROWS, generator=gen)
@@ -531,7 +560,8 @@ def _published_bwd(card, which):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["nerf-c2f", "nerf-init_nerf", "chain-c2f"])
+@pytest.mark.parametrize("which", ["nerf-c2f", "nerf-init_nerf", "chain-c2f",
+                                   "nof-init_nof"])
 def test_fp32_bwd_published_widths(card, which):
     kernel, plain64 = _published_bwd(card, which)
     got, again, want = _flat(kernel()), _flat(kernel()), _flat(plain64())

@@ -20,12 +20,18 @@ within chip_smoke.py's ``TOL["fp32"]`` (1e-4 + 1e-4 |ref|), the three-piece
 split within 1e-6 of the largest magnitude.
 The backwards' plain versions ``_nerf_bwd_ref`` / ``_nof_bwd_ref`` /
 ``_chain_bwd_ref`` take the emulated product in every product, the weight
-gradients' too (which the kernels keep in fp32: an upper bound), and are
+gradients' too (the kernels' fp32 builds run those on the same split
+product, ``csrc/wgrad.cu``'s ``matrix_mma_kernel<float>``), and are
 held against the plain versions in fp32 and fp64: the two-piece split
 within ``tests/test_torch_cuda.py``'s ``_close_train`` rule of the fp32
 one and, measured from the fp64 one, within BWD_FP32_FACTOR x the fp32
 plain version's own distance (of a tensor's largest magnitude); one TF32
 product a term leaves the ``_close_train`` rule.
+The weight gradients' long-K accumulation is emulated as the kernel runs
+it: K splits of ``SPLIT_ROWS`` rows, each in k-steps of 8 rows whose three
+products are summed and then added to an fp32 running sum, the splits
+summed in order; it stays within BWD_FP32_FACTOR x the in-order fp32 sum's
+own distance from fp64, at a NeRF layer and at the NoF head.
 ``python -m pytest tests/test_torch_tf32_split.py -s`` prints the measured
 errors.
 """
@@ -38,6 +44,7 @@ from moco_flow_tpu_torch.nn.nerf import NeRFConfig, init_nerf
 from moco_flow_tpu_torch.nn.nof import NoFConfig, init_nof
 from moco_flow_tpu_torch.ops import (fused_mlp, nerf_rays, nof_chain,
                                      nof_rays, render_pass)
+from moco_flow_tpu_torch.ops._args import SPLIT_ROWS
 from moco_flow_tpu_torch.ops.folds import (_NerfSpec, _NofSpec, _nerf_fold,
                                            _nof_fold)
 from moco_flow_tpu_torch.render.volume import EmbeddingSpec, embed_padded
@@ -353,3 +360,68 @@ def test_plain_tf32_backward_is_not_enough(case, monkeypatch):
         want = _flat(fn(*args))
         got = _split_bwd(fn, args, 1, monkeypatch)
     assert not all(_close_train(g, w, None, None) for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# The weight gradients' long-K product: dW = A^T D over every row of a call
+# ---------------------------------------------------------------------------
+
+def dw_split_emulated(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """dW = a^T d as ``matrix_mma_kernel<float>`` sums it: per split of
+    SPLIT_ROWS rows, k-steps of 8 rows; a k-step's a_hi d_lo + a_lo d_hi +
+    a_hi d_hi is summed from zero (the tensor cores; here 8-deep fp32 sums,
+    the three added in that order) and added to the split's fp32 running
+    sum; the splits' partial rows are summed in order (``wgrad_reduce``)."""
+    (ah, al), (dh, dl) = split(a, 2), split(d, 2)
+    total = None
+    for r0 in range(0, a.shape[0], SPLIT_ROWS):
+        r1 = min(r0 + SPLIT_ROWS, a.shape[0])
+        acc = torch.zeros(a.shape[1], d.shape[1])
+        for b0 in range(r0, r1, 1024):      # 128 k-steps at a time
+            b1 = min(b0 + 1024, r1)
+
+            def steps(x):
+                return x[b0:b1].reshape(-1, 8, x.shape[1])
+            sa_h, sa_l = steps(ah).transpose(1, 2), steps(al).transpose(1, 2)
+            s = torch.bmm(sa_h, steps(dl))
+            s = s + torch.bmm(sa_l, steps(dh))
+            s = s + torch.bmm(sa_h, steps(dh))
+            for t in s:
+                acc = acc + t
+        total = acc if total is None else total + acc
+    return total
+
+
+def dw_in_order(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """dW = a^T d summed row by row in fp32 within each split, the splits
+    summed in order (what the FFMA loop the kernel replaced did)."""
+    total = None
+    for r0 in range(0, a.shape[0], SPLIT_ROWS):
+        acc = torch.zeros(a.shape[1], d.shape[1])
+        for r in range(r0, min(r0 + SPLIT_ROWS, a.shape[0])):
+            acc = acc + torch.outer(a[r], d[r])
+        total = acc if total is None else total + acc
+    return total
+
+
+# (m, n) of a NeRF hidden layer and of the NoF's quaternion head, on two
+# whole splits and a short third one (rows a multiple of the 128-row tile)
+DW_CASES = {"nerf-256x256": (256, 256), "nof-head-128x9": (128, 9)}
+DW_ROWS = 2 * SPLIT_ROWS + 31 * 128
+
+
+@pytest.mark.parametrize("case", list(DW_CASES))
+def test_split_weight_gradient_long_k(case):
+    m, n = DW_CASES[case]
+    gen = torch.Generator().manual_seed(19)
+    a = torch.randn(DW_ROWS, m, generator=gen).relu()      # activations
+    d = torch.randn(DW_ROWS, n, generator=gen) * 1e-3      # cotangents
+    d[torch.rand(DW_ROWS, generator=gen) < 0.25] = 0.0     # masked rows
+    want64 = a.double().T @ d.double()
+    got, fp32 = dw_split_emulated(a, d), dw_in_order(a, d)
+    scale = want64.abs().max()
+    e_split = ((got.double() - want64).abs().max() / scale).item()
+    e_fp32 = ((fp32.double() - want64).abs().max() / scale).item()
+    print(f"dW {case} over {DW_ROWS} rows: split TF32 {e_split:.2e}, "
+          f"in-order fp32 {e_fp32:.2e} of max|fp64|")
+    assert 0.0 < e_split <= BWD_FP32_FACTOR * e_fp32
