@@ -15,8 +15,9 @@ cached grid cannot prove empty, a view at a time or packed across views by
 ``render/packed.py``), the val step, sequence evaluation (with LPIPS where
 its weights are given) and ``train_func`` / ``val_func``. A stage
 (``stage_nerf.py``, ``stage_nof.py``, ``stage_mocoflow.py``) adds the
-model, its optimizers and the training step; the loop that ticks the
-clock is ``train/__main__.py::train``.
+model, its optimizers and the hooks of :meth:`BaseTrainer.train_step`,
+which opens the step's ``train.*`` spans around them; the loop that ticks
+the clock is ``train/__main__.py::train``.
 
 Data parallelism (``parallel/``): in a process group of ``world_size``
 ranks every rank holds the whole model (rank 0's parameters, broadcast
@@ -47,7 +48,7 @@ from ..render.occupancy import (build_occupancy_grid, tighten_ray_bounds,
                                 tighten_ray_bounds_device)
 from ..render.packed import PackedStream, composite_view, kept_indices
 from ..render.volume import RenderConfig, render_rays
-from ..utils.logging import WorkLogger
+from ..utils.logging import WorkLogger, span
 from .checkpoint import _flatten, load_checkpoint, merge_into, save_checkpoint
 from .optim import make_optimizer
 
@@ -164,7 +165,51 @@ class BaseTrainer:
         return self.opt
 
     def train_step(self, draws=None) -> dict:
+        """One training step at ``self.step`` (the clock is not ticked),
+        each part in its ``train.*`` span (``utils/logging.py::span``): the
+        stage's inputs from ``draws`` or the step's own
+        (:meth:`_step_inputs`), its losses (:meth:`_step_losses`) and their
+        sum, backward (then :meth:`_after_backward`), the mean of the
+        gradients and the metrics over the ranks (once: every update uses
+        it) and the optimizer update (then :meth:`_after_optimizer`).
+        Returns the losses and the stage's extra metrics as 0-dim tensors
+        (the ranks' mean)."""
+        with span("train.step"):
+            with span("train.inputs"):
+                batch = self._step_inputs(draws)
+            opt = self._optimizers()
+            opt.zero_grad()
+            with span("train.forward"):
+                losses, extra = self._step_losses(batch)
+                loss = sum(losses.values())
+            with span("train.backward"):
+                loss.backward()
+                self._after_backward(batch)
+            with span("train.reduce"):
+                metrics = self.reduce_grads(
+                    {k: v.detach() for k, v in losses.items()} | extra)
+            with span("train.optimizer"):
+                opt.step()
+                self._after_optimizer()
+            return metrics
+
+    def _step_inputs(self, draws):
+        """The step's batch: its draws (``draws``, or the clock's step's)
+        on the device and what the losses read of them."""
         raise NotImplementedError
+
+    def _step_losses(self, batch) -> tuple[dict, dict]:
+        """The step's losses by name (summed for backward) and the metrics
+        that the step reports beside them."""
+        raise NotImplementedError
+
+    def _after_backward(self, batch):
+        """What the stage does to the gradients before they are reduced:
+        nothing unless the stage says otherwise."""
+
+    def _after_optimizer(self):
+        """What the stage updates after the optimizer: nothing unless the
+        stage says otherwise."""
 
     def visualize_batch(self, save_path=None):
         """What ``train/__main__.py`` runs after each val step: nothing

@@ -38,7 +38,6 @@ from ..nn.metrics import psnr
 from ..nn.nerf import nerf_sigma
 from ..parallel.mesh import FRAME_SAMPLING_POLICIES, sample_frame
 from ..render.volume import encode_nerf_xyz, render_rays
-from ..utils.logging import span
 from .base import BaseTrainer
 from .checkpoint import (load_checkpoint, merge_into,
                          transfer_pretrained_nerf, transfer_pretrained_nof)
@@ -230,11 +229,49 @@ class MoCoFlowTrainer(BaseTrainer):
                     num_verts=int(self._corr.verts.shape[1]) if corr else 0,
                     noise_std=rcfg.noise_std)
 
-    def _losses(self, params, anneal, rays, rgbs, bg, draws: Draws, corr,
-                norm_idx, nof_mode: str):
-        """Every loss of the step's phase, and the train PSNR."""
-        statics, rcfg, w = self.statics, self.rcfg_train, self.w
-        res = render_rays(params, statics, anneal, rays, bg, rcfg,
+    def _step_inputs(self, draws: Draws | None) -> dict:
+        """The step's phase (the ``nof`` optimizer deleted at a ``none``
+        step), its draws (or ``draws``), rays (with the chained frame's
+        column under the global chain), pixels, backgrounds and, in a
+        ``msk`` / ``full`` step, correspondences."""
+        step = self.clock.step
+        nof_mode, freeze = self.phase(step)
+        if nof_mode == "none":
+            self.nof_opt_deleted = True
+            self.opt_nof = None
+        if draws is None:
+            draws = self.draw(step)
+        draws = draws.to(self.device)
+        rays, rgbs, bg = sample_train_rays(
+            self._table, self._directions, self._images, self._bkgd, draws,
+            self._rand_bkgd, self._has_alpha)
+        if self.chain_global:
+            cidx = (torch.tensor(float(draws.chained), device=self.device)
+                    * 2.0 / self.num_frames - 1.0)
+            rays = torch.cat([rays, torch.zeros_like(rays[:, :1]) + cidx],
+                             dim=1)
+        corr = None
+        if nof_mode != "none":
+            if self._corr is None or draws.cube is None:
+                raise ValueError(
+                    f"step {step} ({nof_mode!r}) needs the correspondence "
+                    "table and the correspondence draws")
+            corr = sample_correspondences(self._corr, draws.frame,
+                                          draws.cube, draws.pick, draws.noise,
+                                          thickness=0.2)
+        return {"step": step, "nof_mode": nof_mode, "freeze": freeze,
+                "draws": draws, "rays": rays, "rgbs": rgbs, "bg": bg,
+                "corr": corr}
+
+    def _step_losses(self, b: dict):
+        """Every loss of the step's phase, and ``train_psnr`` beside
+        them."""
+        params, statics, rcfg, w = (self.params, self.statics,
+                                    self.rcfg_train, self.w)
+        draws, rgbs, corr = b["draws"], b["rgbs"], b["corr"]
+        anneal = self.anneal(b["step"])
+        norm_idx = self._table.norm_idx[draws.frame]
+        res = render_rays(params, statics, anneal, b["rays"], b["bg"], rcfg,
                           draws=draws)
         losses = {"img_loss": image_loss(res, rgbs, self.img_loss_kind)
                   * w["img"]}
@@ -245,11 +282,11 @@ class MoCoFlowTrainer(BaseTrainer):
                 if f"nof_{name}_disp_fine" in res:
                     v = v + res[f"nof_{name}_disp_fine"]
                 losses[f"nof_{name}"] = v * w[name]
-        if nof_mode != "none" and corr is not None:
+        if corr is not None:   # a msk / full step
             query, cano, inside = corr["query"], corr["cano"], corr["inside"]
             bw = nof_points(params["bw_NoF"], statics, anneal, query,
                             norm_idx, rcfg)
-            if nof_mode == "full":
+            if b["nof_mode"] == "full":
                 losses["nof_bw"] = masked_loss(
                     bw, cano, inside, self.nof_loss_kind) * w["nof"]
                 if "fw_NoF" in params:
@@ -276,65 +313,18 @@ class MoCoFlowTrainer(BaseTrainer):
                     msk = 0.5 * (msk + masked_bce(a_f, outside, 0.0))
                 losses["alphas_mask"] = msk * w["msk"]
         typ = "rgb_fine" if "rgb_fine" in res else "rgb_coarse"
-        return losses, psnr(res[typ].detach(), rgbs)
+        return losses, {"train_psnr": psnr(res[typ].detach(), rgbs)}
 
-    def train_step(self, draws: Draws | None = None) -> dict:
-        """One training step at ``self.step`` (the clock is not ticked):
-        draws (or the given ``draws``), rays, correspondences, render,
-        losses, backward, the density freeze, the mean over the ranks and
-        the optimizer updates, each part in its ``train.*`` span
-        (``utils/logging.py::span``). Returns the losses and ``train_psnr``
-        as 0-dim tensors (the ranks' mean)."""
-        with span("train.step"):
-            step = self.clock.step
-            nof_mode, freeze = self.phase(step)
-            if nof_mode == "none":
-                self.nof_opt_deleted = True
-                self.opt_nof = None
-            with span("train.inputs"):
-                if draws is None:
-                    draws = self.draw(step)
-                draws = draws.to(self.device)
-                rays, rgbs, bg = sample_train_rays(
-                    self._table, self._directions, self._images, self._bkgd,
-                    draws, self._rand_bkgd, self._has_alpha)
-                if self.chain_global:
-                    cidx = (torch.tensor(float(draws.chained),
-                                         device=self.device)
-                            * 2.0 / self.num_frames - 1.0)
-                    rays = torch.cat(
-                        [rays, torch.zeros_like(rays[:, :1]) + cidx], dim=1)
-                corr = None
-                if nof_mode != "none":
-                    if self._corr is None or draws.cube is None:
-                        raise ValueError(
-                            f"step {step} ({nof_mode!r}) needs the "
-                            "correspondence table and the correspondence "
-                            "draws")
-                    corr = sample_correspondences(self._corr, draws.frame,
-                                                  draws.cube, draws.pick,
-                                                  draws.noise, thickness=0.2)
-            opt = self._optimizers()
-            opt.zero_grad()
-            with span("train.forward"):
-                losses, train_psnr = self._losses(
-                    self.params, self.anneal(step), rays, rgbs, bg, draws,
-                    corr, self._table.norm_idx[draws.frame], nof_mode)
-                loss = sum(losses.values())
-            with span("train.backward"):
-                loss.backward()
-                if freeze:
-                    zero_grads_where(self._named(), _freeze_density)
-            metrics = {k: v.detach() for k, v in losses.items()}
-            metrics["train_psnr"] = train_psnr
-            with span("train.reduce"):   # once: both updates use it
-                metrics = self.reduce_grads(metrics)
-            with span("train.optimizer"):
-                opt.step()
-                if self.opt_nof is not None:
-                    # the same gradients, the updated params
-                    self.opt_nof.step()
-            return metrics
+    def _after_backward(self, b: dict):
+        """The density freeze of the phase."""
+        if b["freeze"]:
+            zero_grads_where(self._named(), _freeze_density)
+
+    def _after_optimizer(self):
+        """The reference's double update: the ``nof`` optimizer on the same
+        gradients and the updated parameters, until its deletion."""
+        if self.opt_nof is not None:
+            self.opt_nof.step()
 
     def step_records(self, step: int) -> dict:
         """JAX's step adds ``state/nerf`` (0 while the density is frozen)

@@ -19,7 +19,6 @@ from ..data.draws import Draws, draw
 from ..nn.losses import image_loss
 from ..nn.metrics import psnr
 from ..render.volume import render_rays
-from ..utils.logging import span
 from .base import BaseTrainer
 from .checkpoint import load_checkpoint, merge_into
 from .factory import build_statics, init_params, render_config
@@ -56,37 +55,27 @@ class NeRFTrainer(BaseTrainer):
                     rcfg.n_importance, self.num_frames, chain_global=False,
                     noise_std=rcfg.noise_std)
 
-    def train_step(self, draws: Draws | None = None) -> dict:
-        """One training step at ``self.step`` (the clock is not ticked):
-        draws (or the given ``draws``), rays, render, the image loss of
-        both passes, backward, the mean over the ranks and the optimizer
-        update, each part in its ``train.*`` span
-        (``utils/logging.py::span``). Returns ``img_loss`` and
-        ``train_psnr`` as 0-dim tensors (the ranks' mean)."""
-        with span("train.step"):
-            with span("train.inputs"):
-                if draws is None:
-                    draws = self.draw(self.clock.step)
-                draws = draws.to(self.device)
-                rays, rgbs, bg = sample_train_rays(
-                    self._table, self._directions, self._images, self._bkgd,
-                    draws, self._rand_bkgd, self._has_alpha)
-            opt = self._optimizers()
-            opt.zero_grad()
-            with span("train.forward"):
-                res = render_rays(self.params, self.statics, {}, rays, bg,
-                                  self.rcfg_train, draws=draws)
-                loss = image_loss(res, rgbs, self.loss_kind)
-                typ = "rgb_fine" if "rgb_fine" in res else "rgb_coarse"
-                train_psnr = psnr(res[typ].detach(), rgbs)
-            with span("train.backward"):
-                loss.backward()
-            with span("train.reduce"):
-                metrics = self.reduce_grads({"img_loss": loss.detach(),
-                                             "train_psnr": train_psnr})
-            with span("train.optimizer"):
-                opt.step()
-            return metrics
+    def _step_inputs(self, draws: Draws | None):
+        """The step's draws (or ``draws``) and their rays, pixels and
+        backgrounds."""
+        if draws is None:
+            draws = self.draw(self.clock.step)
+        draws = draws.to(self.device)
+        rays, rgbs, bg = sample_train_rays(
+            self._table, self._directions, self._images, self._bkgd, draws,
+            self._rand_bkgd, self._has_alpha)
+        return draws, rays, rgbs, bg
+
+    def _step_losses(self, batch):
+        """The render's image loss of both passes, ``img_loss``, and the
+        ``train_psnr`` beside it."""
+        draws, rays, rgbs, bg = batch
+        res = render_rays(self.params, self.statics, {}, rays, bg,
+                          self.rcfg_train, draws=draws)
+        loss = image_loss(res, rgbs, self.loss_kind)
+        typ = "rgb_fine" if "rgb_fine" in res else "rgb_coarse"
+        return {"img_loss": loss}, {"train_psnr": psnr(res[typ].detach(),
+                                                       rgbs)}
 
     def visualize_batch(self, save_path=None):
         """After a val step: a frame drawn by ``val_rng`` every

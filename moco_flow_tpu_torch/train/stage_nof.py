@@ -27,7 +27,6 @@ from ..data.draws import PointDraws, draw_points, draw_val_points
 from ..nn.losses import l1
 from ..parallel.mesh import FRAME_SAMPLING_POLICIES, sample_frame
 from ..render.volume import RenderConfig, nof_warp
-from ..utils.logging import span
 from .base import BaseTrainer
 from .checkpoint import load_checkpoint, merge_into
 from .factory import build_statics, init_params
@@ -111,31 +110,17 @@ class NoFTrainer(BaseTrainer):
         return draw_points(gen, frame, int(mcfg["N_sampled"]),
                            int(self._corr.verts.shape[1]))
 
-    def train_step(self, draws: PointDraws | None = None) -> dict:
-        """One step at ``self.step`` (the clock is not ticked): draws (or
-        the given ``draws``), correspondences, both NoFs, the summed L1,
-        backward, the mean over the ranks and the optimizer update, each
-        part in its ``train.*`` span (``utils/logging.py::span``). Returns
-        ``nof_bw`` / ``nof_fw`` as 0-dim tensors (the ranks' mean)."""
-        with span("train.step"):
-            with span("train.inputs"):
-                if draws is None:
-                    draws = self.draw(self.clock.step)
-                corr = self._points(draws)
-            opt = self._optimizers()
-            opt.zero_grad()
-            with span("train.forward"):
-                losses = self._loss(self.params, corr,
-                                    self._norm_idx[draws.frame])
-                loss = sum(losses.values())
-            with span("train.backward"):
-                loss.backward()
-            with span("train.reduce"):
-                metrics = self.reduce_grads({k: v.detach()
-                                             for k, v in losses.items()})
-            with span("train.optimizer"):
-                opt.step()
-            return metrics
+    def _step_inputs(self, draws: PointDraws | None):
+        """The step's draws (or ``draws``) and their correspondences."""
+        if draws is None:
+            draws = self.draw(self.clock.step)
+        return draws, self._points(draws)
+
+    def _step_losses(self, batch):
+        """Both NoFs' L1 (``nof_bw``, ``nof_fw``); nothing beside them."""
+        draws, corr = batch
+        return self._loss(self.params, corr,
+                          self._norm_idx[draws.frame]), {}
 
     def val_step(self, draws: PointDraws | None = None) -> dict:
         """The losses on a fresh 10,000-point set (:func:`draw_val_points`

@@ -13,6 +13,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.train import checkpoint as jck
 from moco_flow_tpu.train.factory import build_statics as j_statics
 from moco_flow_tpu.train.factory import init_params as j_init

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu_torch.data.synthetic import make_synthetic_scene
 from moco_flow_tpu_torch.geometry.smpl import (save_smpl_data,
                                                synthetic_smpl_data)

@@ -20,6 +20,7 @@ import warnings
 import pytest
 import yaml
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.utils.config import Config as JaxConfig
 from moco_flow_tpu.utils.config import validate_config as jax_validate
 from moco_flow_tpu_torch.utils.config import (Config, dump_config_text,

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.train.checkpoint import load_checkpoint as jax_load
 from moco_flow_tpu.train.checkpoint import save_checkpoint as jax_save
 from moco_flow_tpu.train.factory import build_statics, init_params

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu_torch.parallel import multihost
 from moco_flow_tpu_torch.parallel.mesh import epoch_perm_frame, fold_rank_if
 from moco_flow_tpu_torch.train.factory import render_config

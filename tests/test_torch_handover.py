@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import jax
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.nn import nerf as jnerf
 from moco_flow_tpu.nn.nof import NoFConfig as JNoFConfig, init_nof
 from moco_flow_tpu.train import checkpoint as jckpt

@@ -31,6 +31,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.nn import hashgrid as jhash
 from moco_flow_tpu.nn.nerf import NeRFConfig as JNeRFConfig
 from moco_flow_tpu.train import checkpoint as jckpt

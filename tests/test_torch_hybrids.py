@@ -26,6 +26,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.nn.nerf import NeRFConfig as JNeRFConfig, init_nerf
 from moco_flow_tpu.nn.nof import NoFConfig as JNoFConfig, init_nof
 from moco_flow_tpu.render import volume as jvol

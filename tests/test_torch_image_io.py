@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu_torch.utils.image import (JET, read_png, resize_bilinear,
                                              write_png)
 

@@ -14,6 +14,7 @@ import torch
 
 import jax
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.nn import lpips as jax_lpips
 from moco_flow_tpu_torch.data.synthetic import make_synthetic_scene
 from moco_flow_tpu_torch.nn import lpips

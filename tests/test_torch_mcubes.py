@@ -13,6 +13,7 @@ import os.path as osp
 import numpy as np
 import pytest
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.ops import mcubes as jax_mc
 from moco_flow_tpu_torch.ops import mcubes
 

@@ -16,6 +16,7 @@ import shutil
 import numpy as np
 import pytest
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.data.dataset import MoCoFlowDataset as JDataset
 from moco_flow_tpu.data.synthetic import make_synthetic_scene
 from moco_flow_tpu.utils import ply as jply

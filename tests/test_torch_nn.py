@@ -19,6 +19,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.nn import embedding as jemb
 from moco_flow_tpu.nn import metrics as jmet
 from moco_flow_tpu.nn import quaternion as jq

@@ -33,6 +33,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.data.synthetic import make_synthetic_scene
 from moco_flow_tpu.parallel.mesh import make_mesh
 from moco_flow_tpu.render import occupancy as jax_occ
@@ -99,16 +100,6 @@ def model_keys(*trainers, **keys):
                 else:
                     m[k] = v
             t._occ_grids.clear()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: these tests run many small torch ops, which
-    spin against the other test workers' threads on a shared CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

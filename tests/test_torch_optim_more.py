@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.train import optim as joptim
 from moco_flow_tpu.train.checkpoint import _flatten as j_flatten
 from moco_flow_tpu_torch.train import optim

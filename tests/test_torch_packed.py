@@ -27,11 +27,11 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu_torch.ops.folds import ROW_TILE, _rows_matmul
 from moco_flow_tpu_torch.render import packed
 from moco_flow_tpu_torch.render.packed import PackedStream, kept_indices
-from tests.test_torch_occupancy import (SIZE, make_pair, model_keys,
-                                        one_thread)  # noqa: F401
+from tests.test_torch_occupancy import SIZE, make_pair, model_keys
 
 N = SIZE * SIZE
 

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.geometry.smpl import smpl_forward as jax_smpl_forward
 from moco_flow_tpu.geometry.smpl import smpl_joints as jax_smpl_joints
 from moco_flow_tpu.geometry.smpl import synthetic_smpl_data
@@ -368,9 +369,6 @@ def test_validate_ps_fixtures(tmp_path):
          "--fixtures", "--work", str(tmp_path / "vps"), "--reso", "24",
          "--frames", "2", "--steps", "6", "--eval_max_frames", "1",
          "--stage_timeout", "600", "--device", "cpu"],
-        # two threads a process: the runbook's CLIs run one after another
-        # beside the other test workers, on tensors of a few thousand rows
-        env=dict(os.environ, OMP_NUM_THREADS="2"),
         cwd=ROOT, capture_output=True, text=True, timeout=900)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
     out = json.loads(r.stdout.strip().splitlines()[-1])

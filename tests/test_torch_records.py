@@ -17,6 +17,7 @@ import os.path as osp
 
 import pytest
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.data.synthetic import make_synthetic_scene
 from moco_flow_tpu.parallel.mesh import make_mesh
 from moco_flow_tpu.train import stage_mocoflow as jax_s3

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu_torch.data.draws import Draws
 from moco_flow_tpu_torch.render.volume import RenderConfig, render_rays
 from moco_flow_tpu_torch.train.checkpoint import _unflatten, params_from_jax

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.data.synthetic import make_synthetic_scene
 from moco_flow_tpu.parallel.mesh import make_mesh
 from moco_flow_tpu.train import get_trainer

@@ -24,6 +24,7 @@ import pytest
 import jax.numpy as jnp
 
 from __graft_entry__ import _tiny_moco_config
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.data.synthetic import make_synthetic_scene
 from moco_flow_tpu.parallel.mesh import make_mesh
 from moco_flow_tpu.train import get_trainer

@@ -16,6 +16,7 @@ import json
 import pytest
 import torch
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu_torch.utils.logging import span
 from scripts import make_torch_port_phases_golden as gp
 from scripts import make_torch_port_stage1_golden as g1

@@ -41,6 +41,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.data.synthetic import make_synthetic_scene as j_scene
 from moco_flow_tpu.nn.nerf import NeRFConfig as JNeRFConfig, init_nerf
 from moco_flow_tpu.nn.nof import NoFConfig as JNoFConfig, init_nof

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.data.dataset import get_dataset as j_get_dataset
 from moco_flow_tpu.data.synthetic import make_synthetic_scene as j_scene
 from moco_flow_tpu.train.checkpoint import _flatten as j_flatten

@@ -17,6 +17,7 @@ from pathlib import Path
 import pytest
 import torch
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from benchmark import cells, counts, run, scene
 from benchmark.kinds import nof_step
 from benchmark.reference import nof_stage

@@ -39,6 +39,7 @@ errors.
 import pytest
 import torch
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu_torch.nn.embedding import anneal_weights
 from moco_flow_tpu_torch.nn.nerf import NeRFConfig, init_nerf
 from moco_flow_tpu_torch.nn.nof import NoFConfig, init_nof

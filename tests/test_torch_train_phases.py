@@ -29,6 +29,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.data.synthetic import make_synthetic_scene as j_scene
 from moco_flow_tpu.geometry.smpl import (
     smpl_vertex_transforms as j_vertex_transforms,

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.data.synthetic import make_synthetic_scene
 from moco_flow_tpu_torch.data.dataset import get_dataset
 from moco_flow_tpu_torch.data.draws import Draws
@@ -137,7 +138,7 @@ def _trainer(stored, step: int) -> MoCoFlowTrainer:
 
 @pytest.mark.parametrize("step,phase", [(5000, "none"), (10000, "msk"),
                                         (100, "full"), (1_100_000, "msk")])
-def test_other_phases_raise(stored, scene_dir, step, phase):
+def test_every_phase_trains(stored, scene_dir, step, phase):
     """Every phase trains (tests/test_torch_train_phases.py holds them
     against JAX), with sigma noise too: under ``noise_std > 0`` the step's
     Draws carry the noise of both passes, and the step's losses are finite
@@ -164,12 +165,12 @@ def test_other_phases_raise(stored, scene_dir, step, phase):
                for k, t in tr._named().items())
 
 
-def test_val_every_n_step_raises(stored, tmp_path):
-    """``val_every_n_step > 0`` no longer raises: stage 3 runs the val step
-    and then ``visualize_batch`` (train/vis.py: the canonical frame strip
-    after every val, the orbit and the mesh after the first), once more
-    after the last step; stage 2 visualises nothing, so its loop runs the
-    val step alone."""
+def test_val_step_and_vis_run(stored, tmp_path):
+    """Under ``val_every_n_step > 0`` stage 3 runs the val step and then
+    ``visualize_batch`` (train/vis.py: the canonical frame strip after
+    every val, the orbit and the mesh after the first), once more after
+    the last step; stage 2 visualises nothing, so its loop runs the val
+    step alone."""
     cfg = json.loads(str(stored["config_json"]))
     cfg["save_dir"] = str(tmp_path / "log3")
     cfg["trainer"].update(num_iters=2, val_every_n_step=1)

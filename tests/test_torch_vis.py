@@ -32,6 +32,7 @@ import torch
 
 import jax
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu.data.synthetic import make_synthetic_scene
 from moco_flow_tpu.geometry import poses as jax_poses
 from moco_flow_tpu.parallel.mesh import make_mesh

@@ -22,6 +22,7 @@ zero in both.
 import pytest
 import torch
 
+import torch_port_env  # noqa: F401  (this worker's CPU share)
 from moco_flow_tpu_torch.ops._args import (WG_K, Operands, row_ops,
                                           split_ops, tf32_split, wg_pack,
                                           wg_pack_all, wg_width)
